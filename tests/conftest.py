@@ -34,6 +34,10 @@ def pytest_configure(config):
         "markers",
         "slow: boots real subprocess servers / long soaks — excluded "
         "from the tier-1 `-m 'not slow'` run, included in `make test`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "where none is present")
 
 
 @pytest.fixture
