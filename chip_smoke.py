@@ -11,14 +11,24 @@ Phases, each of which fails the run (exit code != 0, no result line):
    device tensors, exactly, at the main-path shape [slices, 32768] and
    at ragged/edge shapes; time, bytes, bound and plain-version time at
    the main-path shape;
-4. main path — a data directory of N slices (default 9,537 = 10.0B
-   columns; one index, one frame, three dense rows of bit density 0.5,
-   0.5 and 0.25 from ``--seed``) written through ``Fragment.read_from``,
-   reopened by a GPU ``Holder``, and queried through
-   ``Executor.execute``: Count over Bitmap/Intersect/Union/Difference/
-   Xor trees on the batched and the serial path, then SetBit/ClearBit
-   and recounts. Every answer must equal a numpy oracle on the same
-   words; both kernels must have launched during this phase.
+4. main path, Count — a data directory of N slices (default 9,537 =
+   10.0B columns; one index, one frame, three dense rows of bit density
+   0.5, 0.5 and 0.25 from ``--seed``) written through
+   ``Fragment.read_from``, reopened by a GPU ``Holder``, and queried
+   through ``Executor.execute``: Count over Bitmap/Intersect/Union/
+   Difference/Xor trees on the batched and the serial path, then
+   SetBit/ClearBit and recounts. Every answer must equal a numpy oracle
+   on the same words; both count kernels must have launched during this
+   phase;
+5. main path, TopN — a second frame ``t`` (ranked cache) of eight rows
+   at every slice (densities 1/2 … 1/32, two identical rows), its
+   fragment files and ``.cache`` sidecars written in parallel by the
+   port's codec, the directory reopened, and Pilosa's Getting Started
+   query shape ``TopN(Bitmap(frame="f", rowID=0), frame="t", n=5)`` and
+   its variants (no Src, an Intersect Src with a threshold, a Tanimoto
+   threshold, explicit ids) answered on both paths, before and after a
+   SetBit and a ClearBit. Every answer must equal a numpy oracle of the
+   two-phase rule; ``count_and_rows`` must have launched.
 
 The second-to-last line is a JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``. The script exits non-zero
@@ -27,6 +37,7 @@ without a GPU, and where the pilosa_tpu_torch package is not beside it.
 import argparse
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -42,6 +53,8 @@ WORDS32 = 32768             # int32 words per slice row
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 ALU_OPS_PER_S = 67e12       # H100 SXM 32-bit (fp32) non-tensor rate
 OPS = ("and", "or", "xor", "andnot")
+DEVICE = "cuda"
+TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
 
 
 class SmokeFailure(Exception):
@@ -51,6 +64,26 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes():
+    import torch
+
+    return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
 
 
 def timed_ms(fn, reps, warm=2):
@@ -83,6 +116,19 @@ def bound_ms(rows, width, operands):
                                  else "operations"), nbytes
 
 
+def and_rows_bound_ms(rows, slices, width):
+    """Least time for count_and_rows over ``rows`` candidate stacks of
+    [slices, width] words against one filter stack: each candidate and
+    filter word read once, one int32 per (row, slice) written, against
+    an and, a popcount and an add per candidate word."""
+    nbytes = (rows + 1) * slices * width * 4 + rows * slices * 4
+    ops = 3 * rows * slices * width
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
 # ------------------------------------------------------------ phase 3
 
 def kernel_checks(slices, card):
@@ -92,30 +138,27 @@ def kernel_checks(slices, card):
 
     from pilosa_tpu_torch.ops import kernels
 
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+    gen = torch.Generator(device=DEVICE).manual_seed(1234)
 
     def rand(*shape):
         return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
-                             device="cuda", generator=gen)
+                             device=DEVICE, generator=gen)
 
-    max_err = {"count_op_rows": 0, "count_rows": 0}
+    max_err = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0}
+
+    def note(name, got, want, what):
+        check(torch.equal(got, want), f"{name} != plain at {what}")
+        if got.numel():
+            max_err[name] = max(max_err[name], int(
+                (got.long() - want.long()).abs().max()))
 
     def compare(a, b):
         for op in OPS:
-            got = kernels.count_op_rows(a, b, op)
-            want = kernels.count_op_rows_plain(a, b, op)
-            err = int((got.long() - want.long()).abs().max()) if got.numel() \
-                else 0
-            check(torch.equal(got, want),
-                  f"count_op_rows[{op}] != plain at {tuple(a.shape)}")
-            max_err["count_op_rows"] = max(max_err["count_op_rows"], err)
-        got, want = kernels.count_rows(a), kernels.count_rows_plain(a)
-        check(torch.equal(got, want),
-              f"count_rows != plain at {tuple(a.shape)}")
-        if got.numel():
-            max_err["count_rows"] = max(
-                max_err["count_rows"],
-                int((got.long() - want.long()).abs().max()))
+            note("count_op_rows", kernels.count_op_rows(a, b, op),
+                 kernels.count_op_rows_plain(a, b, op),
+                 f"{tuple(a.shape)} op {op}")
+        note("count_rows", kernels.count_rows(a), kernels.count_rows_plain(a),
+             tuple(a.shape))
 
     cases = 0
     for s in (1, 7):
@@ -123,7 +166,7 @@ def kernel_checks(slices, card):
             compare(rand(s, w), rand(s, w))
             cases += 1
     for fill in (0, -1, -2**31):  # all-zero, all-one, bit-31 rows
-        m = torch.full((7, WORDS32), fill, dtype=torch.int32, device="cuda")
+        m = torch.full((7, WORDS32), fill, dtype=torch.int32, device=DEVICE)
         compare(m, rand(7, WORDS32))
         cases += 1
     compare(rand(WORDS32), rand(WORDS32))                # 1-D row
@@ -131,13 +174,53 @@ def kernel_checks(slices, card):
     compare(base[1:701].view(7, 100), base[3:703].view(7, 100))
     cases += 2
 
+    # count_and_rows, fragment form: R rows of W words against one row.
+    for r in (1, 7, 8, 1000):
+        for w in (1, 3, 192, 32767, WORDS32):
+            m, f = rand(r, w), rand(w)
+            note("count_and_rows", kernels.count_and_rows(m, f),
+                 kernels.count_and_rows_plain(m, f), f"[{r}, {w}]")
+            cases += 1
+    for fill in (0, -1, -2**31):  # all-zero, all-one, bit-31 rows
+        m = torch.full((9, WORDS32), fill, dtype=torch.int32, device=DEVICE)
+        f = rand(WORDS32)
+        note("count_and_rows", kernels.count_and_rows(m, f),
+             kernels.count_and_rows_plain(m, f), f"fill {fill}")
+        note("count_and_rows", kernels.count_and_rows(f[None].repeat(3, 1),
+                                                      m[0]),
+             kernels.count_and_rows_plain(f[None].repeat(3, 1), m[0]),
+             f"filter fill {fill}")
+        cases += 2
+    base = rand(4009)                                     # one word off
+    m, f = base[1:3001].view(3, 1000), base[3002:4002]
+    note("count_and_rows", kernels.count_and_rows(m, f),
+         kernels.count_and_rows_plain(m, f), "misaligned rows")
+    stk = [base[1:2001].view(2, 1000), base[4:2004].view(2, 1000)]
+    note("count_and_rows", kernels.count_and_rows_stacks(stk, base[2005:4005]
+                                                         .view(2, 1000)),
+         kernels.count_and_rows_stacks_plain(stk, base[2005:4005]
+                                             .view(2, 1000)),
+         "misaligned stacks")
+    f = rand(1, WORDS32)                                 # R = 0, S = 1
+    note("count_and_rows", kernels.count_and_rows_stacks([], f),
+         kernels.count_and_rows_stacks_plain([], f), "R = 0")
+    stk = [rand(1, WORDS32) for _ in range(300)]         # 2 launches
+    note("count_and_rows", kernels.count_and_rows_stacks(stk, f),
+         kernels.count_and_rows_stacks_plain(stk, f), "S = 1, R = 300")
+    cases += 4
+    del m, f, base, stk
+
     a, b = rand(slices, WORDS32), rand(slices, WORDS32)
     compare(a, b)
-    cases += 1
-    torch.cuda.synchronize()
+    cands = [rand(slices, WORDS32) for _ in range(TOPN_CANDIDATES)]
+    note("count_and_rows", kernels.count_and_rows_stacks(cands, a),
+         kernels.count_and_rows_stacks_plain(cands, a),
+         f"{TOPN_CANDIDATES} x [{slices}, {WORDS32}]")
+    cases += 2
+    sync()
     print(f"kernels: {cases} shapes exact against the plain versions "
-          f"(incl. [{slices}, {WORDS32}]); max_abs_err "
-          f"{max_err} {card}")
+          f"(incl. [{slices}, {WORDS32}] and {TOPN_CANDIDATES} stacks of "
+          f"it); max_abs_err {max_err} {card}")
 
     stats = {}
     for op in OPS:
@@ -154,21 +237,41 @@ def kernel_checks(slices, card):
         "ms": timed_ms(lambda: kernels.count_rows(a), reps=20),
         "plain_ms": timed_ms(lambda: kernels.count_rows_plain(a), reps=3,
                              warm=1)}
-    for name, operands in (("count_op_rows", 2), ("count_rows", 1)):
+    stats["count_and_rows"] = {
+        "ms": timed_ms(lambda: kernels.count_and_rows_stacks(cands, a),
+                       reps=20),
+        "plain_ms": timed_ms(
+            lambda: kernels.count_and_rows_stacks_plain(cands, a), reps=2,
+            warm=1)}
+    per_op_ms = timed_ms(lambda: [kernels.count_op_rows(c, a, "and")
+                                  for c in cands], reps=10)
+    for name, operands in (("count_op_rows", 2), ("count_rows", 1),
+                           ("count_and_rows", None)):
         st = stats[name]
-        st["bound_ms"], st["bound_by"], st["bytes"] = bound_ms(
-            slices, WORDS32, operands)
+        shape = f"[{slices}, {WORDS32}]"
+        if operands is None:
+            st["bound_ms"], st["bound_by"], st["bytes"] = and_rows_bound_ms(
+                TOPN_CANDIDATES, slices, WORDS32)
+            shape = f"{TOPN_CANDIDATES} stacks x {shape} & {shape}"
+        else:
+            st["bound_ms"], st["bound_by"], st["bytes"] = bound_ms(
+                slices, WORDS32, operands)
         st["max_abs_err"] = max_err[name]
-        print(f"{name} [{slices}, {WORDS32}]: kernel {st['ms']:.4f} ms, "
+        print(f"{name} {shape}: kernel {st['ms']:.4f} ms, "
               f"plain version {st['plain_ms']:.4f} ms, bytes "
               f"{st['bytes']}, bound {st['bound_ms']:.4f} ms "
               f"({st['bound_by']}), {st['bound_ms'] / st['ms']:.1%} of "
-              f"bound; library call: no single PyTorch call (torch has "
-              f"no popcount op) {card}")
+              f"bound; library call: none: no single PyTorch call (torch "
+              f"has no popcount op) {card}")
+    car_ms = stats["count_and_rows"]["ms"]
+    print(f"count_and_rows vs {TOPN_CANDIDATES} count_op_rows[and] "
+          f"launches on the same data: {car_ms:.4f} ms vs {per_op_ms:.4f} "
+          f"ms ({per_op_ms / car_ms:.2f}x) {card}")
     print("kernels: " + json.dumps(
         [{"name": n, "launches": c} for n, c in kernels.launches.items()]))
-    del a, b, base
-    torch.cuda.empty_cache()
+    del a, b, cands
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return stats
 
 
@@ -232,7 +335,7 @@ def main_path(slices, seed, datadir, card):
 
     t0 = time.perf_counter()
     per_slice = np.zeros((len(QUERIES), slices), dtype=np.int64)
-    holder = Holder(datadir).open()
+    holder = Holder(datadir, device=DEVICE).open()
     frame = holder.create_index("i").create_frame("f")
     view = frame.create_view_if_not_exists("standard")
     for s in range(slices):
@@ -245,17 +348,17 @@ def main_path(slices, seed, datadir, card):
           f"B columns, {slices * 3 * 16384 * 8 / 1e9:.2f} GB of rows) "
           f"through Fragment.read_from in {write_s:.1f} s")
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    holder = Holder(datadir).open()
+    holder = Holder(datadir, device=DEVICE).open()
     open_s = time.perf_counter() - t0
     check(holder.index("i").max_slice() == slices - 1, "max_slice")
     ex = Executor(holder)
     q_and = QUERIES[2][0]
     t0 = time.perf_counter()
     got = ex.execute("i", q_and)[0]
-    torch.cuda.synchronize()
+    sync()
     first_s = time.perf_counter() - t0
     want = [int(c) for c in per_slice.sum(axis=1)]
     check(got == want[2], f"{q_and}: {got} != oracle {want[2]}")
@@ -278,7 +381,7 @@ def main_path(slices, seed, datadir, card):
     for _ in range(100):
         t = time.perf_counter()
         got = ex.execute("i", q_and)[0]
-        torch.cuda.synchronize()
+        sync()
         lat.append(time.perf_counter() - t)
         check(got == want[2], "warm Count(Intersect) changed")
     lat_ms = np.asarray(lat) * 1e3
@@ -297,10 +400,10 @@ def main_path(slices, seed, datadir, card):
         want = [int(c) for c in per_slice.sum(axis=1)]
         run_all(verb.lower())
     launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_bytes()
     holder.close()
-    check(all(launches.values()),
-          f"a kernel never launched on the main path: {launches}")
+    check(launches["count_op_rows"] and launches["count_rows"],
+          f"a count kernel never launched on the Count path: {launches}")
 
     print(f"main path {card}: open {open_s:.2f} s, first Count(Intersect) "
           f"{first_s:.2f} s (stacks built), warm Count(Intersect) over "
@@ -309,6 +412,220 @@ def main_path(slices, seed, datadir, card):
           f"(n=100, host clock to torch.cuda.synchronize()); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; "
           f"launches {launches}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 5
+
+T_ROWS = tuple(range(10, 10 + TOPN_CANDIDATES))  # frame t's row ids
+SRC = 'Bitmap(frame="f", rowID={})'
+TOPN_QUERIES = [  # (label, PQL, oracle over the per-slice count arrays)
+    ("a", f'TopN({SRC.format(0)}, frame="t", n=5)',
+     lambda o: topn_oracle(o["f0"], n=5)),
+    ("b", 'TopN(frame="t", n=5)', lambda o: topn_oracle(o["rows"], n=5)),
+    ("c", f'TopN(Intersect({SRC.format(0)}, {SRC.format(2)}), frame="t", '
+          'n=8, threshold=5000)',
+     lambda o: topn_oracle(o["f0f2"], n=8, threshold=5000)),
+    ("d", f'TopN({SRC.format(1)}, frame="t", tanimotoThreshold=30)',
+     lambda o: topn_oracle(o["f1_tanimoto30"])),
+    ("e", f'TopN({SRC.format(0)}, frame="t", ids=[12, 14, 17])',
+     lambda o: topn_oracle(o["f0"], ids=[12, 14, 17])),
+]
+
+
+def t_slice_words(seed, s):
+    """uint64[8, 16384]: frame t's rows 10-17 at bit densities 1/2, 1/2
+    (independent), 3/8, 1/4, 1/4 (row 14 identical to row 13), 1/8,
+    1/16 and 1/32 (~2048 bits per container: array containers)."""
+    rng = np.random.default_rng([seed, s, 1])
+    u = rng.integers(0, 1 << 64, size=(7, 16384), dtype=np.uint64)
+    r13 = u[2] & u[3]
+    r15 = r13 & u[4]
+    r16 = r15 & u[5]
+    return np.stack([u[0], u[1], u[2] & (u[3] | u[4]), r13, r13, r15, r16,
+                     r16 & u[6]])
+
+
+def topn_slice_counts(t, f):
+    """One slice's oracle counts: int64[4, 8] of |row|, |row ∩ f0|,
+    |row ∩ f0 ∩ f2| and |row ∩ f1| for frame t's rows, and |f1|."""
+    per = [np.bitwise_count(t & m).sum(axis=1) if m is not None
+           else np.bitwise_count(t).sum(axis=1)
+           for m in (None, f[0], f[0] & f[2], f[1])]
+    return np.stack(per).astype(np.int64), int(np.bitwise_count(f[1]).sum())
+
+
+def _write_t_slices(frag_dir, seed, lo, hi):
+    """Worker: frame t's fragment files and ``.cache`` sidecars for
+    slices [lo, hi), written by the port's codec (the bytes
+    ``Fragment.read_from`` would write); returns their oracle counts."""
+    from pilosa_tpu_torch.roaring import codec
+
+    keys = (np.asarray(T_ROWS, np.uint64)[:, None] * np.uint64(16)
+            + np.arange(16, dtype=np.uint64)).ravel()
+    counts = np.zeros((hi - lo, 4, TOPN_CANDIDATES), np.int64)
+    f1_n = np.zeros(hi - lo, np.int64)
+    for i, s in enumerate(range(lo, hi)):
+        t = t_slice_words(seed, s)
+        counts[i], f1_n[i] = topn_slice_counts(t, slice_words(seed, s))
+        path = os.path.join(frag_dir, str(s))
+        with open(path, "wb") as fh:
+            fh.write(codec.serialize_arrays(keys, t.reshape(-1, 1024)))
+        with open(path + ".cache", "w") as fh:
+            json.dump(list(T_ROWS), fh)
+    return lo, counts, f1_n
+
+
+def topn_oracle(counts, n=0, threshold=0, ids=None):
+    """Two-phase TopN over int64[S, 8] per-(slice, row) counts (every
+    non-empty row is in its slice's cache): per-slice threshold and top
+    n by (-count, id), merge, exact phase 2 over the merged ids, trim
+    to n. ``ids`` is phase 2 alone, never trimmed."""
+    rows = np.asarray(T_ROWS)
+    c = np.where(counts >= max(threshold, 1), counts, 0)
+
+    def merged(cc, keep):
+        tot = np.where(np.isin(rows, keep)[None, :], cc, 0).sum(axis=0)
+        return sorted(((int(rows[j]), int(v)) for j, v in enumerate(tot)
+                       if v > 0), key=lambda rc: (-rc[1], rc[0]))
+
+    if ids is not None:
+        return merged(c, sorted(set(ids)))
+    first = c
+    if n:
+        rank = np.argsort(np.argsort(-c, axis=1, kind="stable"), axis=1)
+        first = np.where(rank < n, c, 0)
+    phase1 = merged(first, rows)
+    if not phase1:
+        return []
+    out = merged(c, [r for r, _ in phase1])
+    return out[:n] if n else out
+
+
+def topn_counts(counts, f1_n):
+    """The oracle's count arrays by name, the Tanimoto gate of (d) in
+    float32 as the port and pilosa_tpu compute it."""
+    rows, f0, f0f2, f1 = (counts[:, k] for k in range(4))
+    denom = rows + f1_n[:, None] - f1
+    with np.errstate(divide="ignore", invalid="ignore"):
+        score = (np.float32(100.0) * f1.astype(np.float32)
+                 / denom.astype(np.float32))
+    keep = (denom > 0) & (np.ceil(score) > 30)
+    return {"rows": rows, "f0": f0, "f0f2": f0f2,
+            "f1_tanimoto30": np.where(keep, f1, 0)}
+
+
+def topn_path(slices, seed, datadir, card):
+    """Phase 5: frame t beside phase 4's frame f, TopN on both paths
+    against the numpy oracle, before and after writes."""
+    import torch
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.storage.frame import Frame
+    from pilosa_tpu_torch.storage.holder import Holder
+
+    frame_dir = os.path.join(datadir, "i", "t")
+    frag_dir = os.path.join(frame_dir, "views", "standard", "fragments")
+    os.makedirs(frag_dir)
+    Frame(frame_dir, "i", "t").save_meta()  # ranked cache, default size
+    t0 = time.perf_counter()
+    counts = np.zeros((slices, 4, TOPN_CANDIDATES), np.int64)
+    f1_n = np.zeros(slices, np.int64)
+    procs = max(1, min(8, os.cpu_count() or 1))
+    edges = np.linspace(0, slices, procs * 8 + 1).astype(int)
+    jobs = [(frag_dir, seed, int(lo), int(hi))
+            for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        for lo, c, f in pool.starmap(_write_t_slices, jobs):
+            counts[lo:lo + len(c)], f1_n[lo:lo + len(c)] = c, f
+    write_s = time.perf_counter() - t0
+    print(f"topn: wrote frame t, {TOPN_CANDIDATES} rows x {slices} slices "
+          f"({slices * TOPN_CANDIDATES * 16384 * 8 / 1e9:.2f} GB of rows), "
+          f"in {procs} processes in {write_s:.1f} s")
+
+    reset_peak()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    holder = Holder(datadir, device=DEVICE).open()
+    open_s = time.perf_counter() - t0
+    ex = Executor(holder)
+    want = {label: fn(topn_counts(counts, f1_n))
+            for label, q, fn in TOPN_QUERIES}
+    check(sorted(r for r, _ in want["d"]) == [10, 11],
+          f"data: Tanimoto 30 should keep rows 10 and 11, {want['d']}")
+    check(17 not in dict(want["c"]), f"data: threshold keeps 17 {want['c']}")
+    tie = dict(want["b"])
+    check(13 in tie and tie.get(13) == tie.get(14),
+          f"data: rows 13 and 14 should tie, {want['b']}")
+    q_a = TOPN_QUERIES[0][1]
+    t0 = time.perf_counter()
+    got = ex.execute("i", q_a)[0]
+    sync()
+    first_s = time.perf_counter() - t0
+    check(got == want["a"], f"{q_a}: {got} != oracle {want['a']}")
+
+    serial_ms = []
+
+    def run(tag, labels):
+        for path in ("batched", "serial"):
+            ex._force_path = path
+            for label, q, _ in TOPN_QUERIES:
+                if label not in labels:
+                    continue
+                t = time.perf_counter()
+                got = ex.execute("i", q)[0]
+                dt = (time.perf_counter() - t) * 1e3
+                check(got == want[label],
+                      f"{tag} {path} {q}: {got} != oracle {want[label]}")
+                if path == "serial":
+                    serial_ms.append(dt)
+                print(f"  {tag} {path:7s} {dt:10.2f} ms  ({label}) {q} -> "
+                      f"{got}")
+        ex._force_path = None
+
+    run("query", "abcde")
+    lat = []
+    for _ in range(50):
+        t = time.perf_counter()
+        got = ex.execute("i", q_a)[0]
+        sync()
+        lat.append(time.perf_counter() - t)
+        check(got == want["a"], "warm TopN (a) changed")
+    lat_ms = np.asarray(lat) * 1e3
+
+    # SetBit, then ClearBit, of row 17 on one slice at a column of the
+    # Src row f0 (so the answer of (e) moves), each followed by (a), (b)
+    # and (e) again.
+    s = slices // 2
+    words = t_slice_words(seed, s)
+    bit = int(np.flatnonzero(np.unpackbits(
+        (~words[7] & slice_words(seed, s)[0]).view(np.uint8),
+        bitorder="little"))[0])
+    col = s * SLICE_WIDTH + bit
+    for verb in ("SetBit", "ClearBit"):
+        res = ex.execute("i", f'{verb}(frame="t", rowID=17, columnID={col})')
+        check(res == [True], f"{verb} at column {col} returned {res}")
+        words[7][bit // 64] ^= np.uint64(1 << (bit % 64))
+        counts[s], f1_n[s] = topn_slice_counts(words, slice_words(seed, s))
+        want = {label: fn(topn_counts(counts, f1_n))
+                for label, q, fn in TOPN_QUERIES}
+        run(verb.lower(), "abe")
+    launches = dict(kernels.launches)
+    peak = peak_bytes()
+    holder.close()
+    check(launches["count_and_rows"] > 0,
+          f"count_and_rows never launched on the TopN path: {launches}")
+    print(f"topn {card}: open {open_s:.2f} s, first TopN (a) {first_s:.2f}"
+          f" s (stacks built), warm TopN (a) over {slices} slices: p50 "
+          f"{np.percentile(lat_ms, 50):.3f} ms, p90 "
+          f"{np.percentile(lat_ms, 90):.3f} ms, max {lat_ms.max():.3f} ms "
+          f"(n=50, host clock to torch.cuda.synchronize()); serial path "
+          f"{np.mean(serial_ms):.1f} ms per query (mean of "
+          f"{len(serial_ms)}, {min(serial_ms):.1f}-{max(serial_ms):.1f}); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{launches}")
     return launches
 
 
@@ -351,26 +668,32 @@ def main():
     # Phase 3: kernels against their plain versions.
     stats = kernel_checks(args.slices, card)
 
-    # Phase 4: the main path.
+    # Phases 4 and 5: the main path, Count then TopN, each read with
+    # the launch counts reset just before it.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
     try:
-        launches = main_path(args.slices, args.seed, datadir, card)
+        count_launches = main_path(args.slices, args.seed, datadir, card)
+        topn_launches = topn_path(args.slices, args.seed, datadir, card)
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
 
-    src = "pilosa_tpu_torch/csrc/popcount.cu"
+    sources = {"count_op_rows": "pilosa_tpu_torch/csrc/popcount.cu",
+               "count_rows": "pilosa_tpu_torch/csrc/popcount.cu",
+               "count_and_rows": "pilosa_tpu_torch/csrc/count_and_rows.cu"}
     replaces = {"count_op_rows": "pilosa_tpu/ops/pallas_kernels.py:126",
-                "count_rows": "pilosa_tpu/ops/pallas_kernels.py:195"}
+                "count_rows": "pilosa_tpu/ops/pallas_kernels.py:195",
+                "count_and_rows": "pilosa_tpu/ops/pallas_kernels.py:173"}
     print(f"gpu: {smi}")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": sources[name],
+         "replaces": replaces[name],
+         "launches": count_launches[name] + topn_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"],
          "bound_by": stats[name]["bound_by"], "library_ms": None}
-        for name in ("count_op_rows", "count_rows")]}))
+        for name in sources]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

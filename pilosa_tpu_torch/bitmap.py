@@ -5,6 +5,9 @@ A segment is one slice's words as an ``int32[32768]`` tensor on the
 holder's device, so algebra between result bitmaps stays on the device
 and counts run through the count kernels.
 """
+import torch
+
+from pilosa_tpu_torch import WORDS_PER_SLICE
 from pilosa_tpu_torch.ops import bitops
 
 
@@ -85,6 +88,17 @@ class Bitmap:
         return total
 
     # ------------------------------------------------------------- readers
+
+    def device_words(self, slice_num, device):
+        """int32[32768] words of one slice on ``device`` (zeros when the
+        segment is absent) — the device counterpart of pilosa_tpu's
+        ``host_words``: a Src row reaches the TopN kernel without a
+        round trip through the host."""
+        seg = self.segments.get(slice_num)
+        if seg is None:
+            return torch.zeros(WORDS_PER_SLICE, dtype=torch.int32,
+                               device=device)
+        return seg
 
     def count(self):
         if self._count is None:

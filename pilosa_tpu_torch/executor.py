@@ -1,10 +1,11 @@
-"""Query executor — the Count path (ref: executor.go; counterpart of
+"""Query executor — Count and TopN (ref: executor.go; counterpart of
 pilosa_tpu/executor.py).
 
 ``Executor.execute(index, pql)`` runs ``Count`` over trees of
-``Bitmap``/``Intersect``/``Union``/``Difference``/``Xor``, and
-``SetBit``/``ClearBit``, on one node. A Count maps over the index's
-slices by one of two paths:
+``Bitmap``/``Intersect``/``Union``/``Difference``/``Xor``, ``TopN``
+(with or without a Src tree, ``ids``, ``threshold``,
+``tanimotoThreshold``, ``inverse``) and ``SetBit``/``ClearBit``, on one
+node. A Count maps over the index's slices by one of two paths:
 
 - **batched** (the default): each Bitmap leaf becomes one
   ``int32[n_slices, 32768]`` device stack (cached until a fragment
@@ -16,6 +17,17 @@ slices by one of two paths:
 - **serial**: slice by slice through ``Bitmap`` algebra, two-operand
   nodes through the count kernels without materialising.
 
+TopN runs in two phases (ref: executeTopN executor.go:369-406): phase 1
+ranks each slice's cached rows and keeps its top n, the merged ids are
+re-counted exactly over every slice in phase 2, and the result is
+trimmed to n. Batched, a phase counts every (candidate, slice) pair at
+once: against a Src stack in ONE ``count_and_rows`` launch, without a
+Src with ``count_rows`` per candidate stack; the cache masks, the
+thresholds and the selection by (-count, id) run on the host. Phase 1
+without a Src has no device work (it reads host row counts) and runs
+per slice. A candidate set over the stack budget halves its slice
+window.
+
 ``_force_path`` ("serial"/"batched") pins one path; otherwise a tree the
 batched planner does not cover (errors, unsupported leaves) goes serial,
 where the reference's error messages are raised.
@@ -23,16 +35,20 @@ where the reference's error messages are raised.
 import threading
 from datetime import datetime
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch import WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.ops import topn as topn_ops
 from pilosa_tpu_torch.pql import parse
+from pilosa_tpu_torch.storage.fragment import TopOptions
 from pilosa_tpu_torch.storage.view import VIEW_INVERSE, VIEW_STANDARD
 
 DEFAULT_FRAME = "general"        # ref: executor.go:31
+MIN_THRESHOLD = 1                # ref: executor.go:33-35
 TIME_FORMAT = "%Y-%m-%dT%H:%M"   # ref: TimeFormat "2006-01-02T15:04"
 
 KNOWN_CALLS = frozenset({
@@ -45,6 +61,21 @@ WRITE_CALLS = ("SetBit", "ClearBit", "SetRowAttrs", "SetColumnAttrs",
 _BATCH_OPS = ("Union", "Intersect", "Difference", "Xor")
 _COUNT_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot",
               "Xor": "xor"}
+
+# A batch function's answer when its stacks would exceed the stack
+# budget: the windowed wrapper then halves the slice list.
+BATCH_OVER_BUDGET = object()
+
+
+def pairs_add(a, b):
+    """Merge pair lists, summing counts per id (ref: Pairs.Add
+    cache.go:302-427); ordered by (-count, id)."""
+    counts = {}
+    for rid, cnt in (a or []):
+        counts[rid] = counts.get(rid, 0) + cnt
+    for rid, cnt in (b or []):
+        counts[rid] = counts.get(rid, 0) + cnt
+    return sorted(counts.items(), key=lambda rc: (-rc[1], rc[0]))
 
 
 class Executor:
@@ -68,10 +99,18 @@ class Executor:
         idx = self.holder.index(index)
         if idx is None:
             raise perr.ErrIndexNotFound()
-        if slices is None:
-            needed = any(c.name not in WRITE_CALLS for c in query.calls)
-            slices = range(idx.max_slice() + 1) if needed else range(0)
-        return [self._execute_call(index, c, slices) for c in query.calls]
+        results = []
+        for c in query.calls:
+            call_slices = slices
+            if call_slices is None and c.name not in WRITE_CALLS:
+                # Inverse-view calls span the inverse view's slices
+                # (ref: Executor.Execute executor.go:86-98).
+                top = (idx.max_inverse_slice()
+                       if c.name == "TopN" and c.args.get("inverse") is True
+                       else idx.max_slice())
+                call_slices = range(top + 1)
+            results.append(self._execute_call(index, c, call_slices))
+        return results
 
     def _execute_call(self, index, call, slices):
         name = call.name
@@ -83,6 +122,8 @@ class Executor:
             return self._execute_set_bit(index, call, set_value=False)
         if name == "Count":
             return self._execute_count(index, call, slices)
+        if name == "TopN":
+            return self._execute_topn(index, call, slices)
         raise NotImplementedError(
             f"{name}() is not ported to pilosa_tpu_torch yet")
 
@@ -99,6 +140,27 @@ class Executor:
         for s in slices:
             result = reduce_fn(result, map_fn(s))
         return result
+
+    @staticmethod
+    def _windowed_batch(batch_fn, reduce_fn):
+        """Wrap a read-path batch_fn so a slice list whose stacks exceed
+        the budget streams through halved windows (ref: executor.py
+        _windowed_batch); below 8 slices it goes serial (None)."""
+        def fn(ns):
+            out = batch_fn(ns)
+            if out is not BATCH_OVER_BUDGET:
+                return out
+            if len(ns) < 8:
+                return None
+            half = len(ns) // 2
+            left = fn(ns[:half])
+            if left is None:
+                return None
+            right = fn(ns[half:])
+            if right is None:
+                return None
+            return reduce_fn(reduce_fn(None, left), right)
+        return fn
 
     # ------------------------------------------------------------ Count
 
@@ -294,6 +356,184 @@ class Executor:
                 self._stack_bytes -= ev[2].numel() * ev[2].element_size()
             self._stack_cache[key] = entry
             self._stack_bytes += nbytes
+
+    # ------------------------------------------------------------- TopN
+
+    def _execute_topn(self, index, call, slices):
+        """Two-phase TopN (ref: executeTopN executor.go:369-406):
+        approximate per-slice candidates, then an exact re-query of the
+        merged ids, trimmed to n. A call with ``ids`` is phase 2 alone
+        and is never trimmed."""
+        _, has_ids = call.uint_slice_arg("ids")
+        n, _ = call.uint_arg("n")
+        pairs = self._topn_map_reduce(index, call, slices, has_ids)
+        if not pairs or has_ids:
+            return pairs
+        other = call.clone()
+        other.args["ids"] = sorted(rid for rid, _ in pairs)
+        trimmed = self._topn_map_reduce(index, other, slices, True)
+        return trimmed[:n] if n else trimmed
+
+    def _topn_map_reduce(self, index, call, slices, has_ids):
+        def batch_fn(ns):
+            if has_ids:
+                return self._batched_topn_ids(index, call, ns)
+            return self._batched_topn_phase1(index, call, ns)
+
+        return self._map_reduce(
+            slices, lambda s: self._execute_topn_slice(index, call, s),
+            pairs_add, self._windowed_batch(batch_fn, pairs_add)) or []
+
+    def _topn_call_params(self, call):
+        """Shared TopN argument parsing and validation: (frame, view, n,
+        min_threshold, tanimoto)."""
+        tanimoto, _ = call.uint_arg("tanimotoThreshold")
+        if tanimoto > 100:
+            raise ValueError("Tanimoto Threshold is from 1 to 100 only")
+        if len(call.children) > 1:
+            raise ValueError("TopN() can only have one input bitmap")
+        frame_name = call.args.get("frame") or DEFAULT_FRAME
+        view = (VIEW_INVERSE if call.args.get("inverse") is True
+                else VIEW_STANDARD)
+        n, _ = call.uint_arg("n")
+        min_threshold, _ = call.uint_arg("threshold")
+        if call.args.get("field") and call.args.get("filters") is not None:
+            raise NotImplementedError(
+                "TopN() attribute filters need the row attribute store, "
+                "which is not ported to pilosa_tpu_torch yet")
+        return (frame_name, view, int(n),
+                max(int(min_threshold), MIN_THRESHOLD), int(tanimoto))
+
+    def _execute_topn_slice(self, index, call, slice_num):
+        """(ref: executeTopNSlice executor.go:433-500): the slice's Src
+        words stay on the device and go straight to ``Fragment.top``."""
+        frame_name, view, n, min_threshold, tanimoto = (
+            self._topn_call_params(call))
+        row_ids, has_ids = call.uint_slice_arg("ids")
+        src = None
+        if call.children:
+            bm = self._bitmap_call_slice(index, call.children[0], slice_num)
+            src = bm.device_words(slice_num, self.device)
+        frag = self.holder.fragment(index, frame_name, view, slice_num)
+        if frag is None:
+            return []
+        return frag.top(TopOptions(
+            n=n, src=src, row_ids=row_ids if has_ids else None,
+            min_threshold=min_threshold, tanimoto_threshold=tanimoto))
+
+    @staticmethod
+    def _topn_pairs(row_ids, counts):
+        """Sum the per-(candidate, slice) counts and order the pairs as
+        pairs_add does: (-count, id)."""
+        totals = counts.sum(axis=1, dtype=np.int64)
+        pairs = [(int(rid), int(t))
+                 for rid, t in zip(row_ids, totals) if t > 0]
+        pairs.sort(key=lambda rc: (-rc[1], rc[0]))
+        return pairs
+
+    def _batched_topn_ids(self, index, call, slices):
+        """Exact TopN re-query (phase 2) over the slice list: per-slice
+        threshold, then the sum — the serial path's semantics. None when
+        ineligible (no ids, an unbatchable Src tree)."""
+        row_ids, has_ids = call.uint_slice_arg("ids")
+        if not slices or not has_ids or not row_ids:
+            return None
+        frame_name, view, _, min_threshold, tanimoto = (
+            self._topn_call_params(call))
+        # The serial walk tests membership in the id set, so duplicate
+        # ids yield one pair each.
+        row_ids = sorted(set(row_ids))
+        leaves = []
+        plan = None
+        if call.children:
+            plan = self._batched_plan(index, call.children[0], leaves)
+            if plan is None:
+                return None
+        counts = self._topn_candidate_counts(
+            index, frame_name, view, row_ids, slices, tanimoto, plan,
+            leaves)
+        if counts is BATCH_OVER_BUDGET:
+            return counts
+        counts = np.where(counts >= min_threshold, counts, 0)
+        return self._topn_pairs(row_ids, counts)
+
+    def _batched_topn_phase1(self, index, call, slices):
+        """TopN phase 1 (candidate discovery) with a Src tree, bit-equal
+        to the serial per-fragment walk: exact |row ∩ src| for every
+        (candidate, slice) over the union of the slices' cache entries,
+        masked back to each slice's own cache membership (ref:
+        topBitmapPairs fragment.go:965), thresholded, cut to each
+        slice's top n by (-count, id), then merged. None without a Src
+        (the serial walk reads host row counts; no device work)."""
+        if not slices:
+            return None
+        frame_name, view, n, min_threshold, tanimoto = (
+            self._topn_call_params(call))
+        if not call.children:
+            return None
+        leaves = []
+        plan = self._batched_plan(index, call.children[0], leaves)
+        if plan is None:
+            return None
+        ent_sets = [
+            frag.cache_entry_ids() if frag is not None else frozenset()
+            for frag in self.holder.fragments(index, frame_name, view,
+                                              slices)]
+        union_ids = sorted(set().union(*ent_sets))
+        if not union_ids:
+            return []
+        counts = self._topn_candidate_counts(
+            index, frame_name, view, union_ids, slices, tanimoto, plan,
+            leaves)
+        if counts is BATCH_OVER_BUDGET:
+            return counts
+        pos = {rid: i for i, rid in enumerate(union_ids)}
+        member_rows = [pos[rid] for es in ent_sets for rid in es]
+        member_cols = np.repeat(np.arange(len(ent_sets)),
+                                [len(es) for es in ent_sets])
+        mask = np.zeros(counts.shape, dtype=bool)
+        mask[member_rows, member_cols] = True
+        counts = np.where(mask & (counts >= min_threshold), counts, 0)
+        if n and counts.shape[0] > n:
+            # Per-slice top n by (-count, id): a stable sort of -count
+            # keeps ascending ids (union_ids is sorted) within a count.
+            order = np.argsort(-counts, axis=0, kind="stable")
+            rank = np.empty_like(order)
+            np.put_along_axis(rank, order,
+                              np.arange(counts.shape[0])[:, None], axis=0)
+            counts[rank >= n] = 0
+        return self._topn_pairs(union_ids, counts)
+
+    def _topn_candidate_counts(self, index, frame_name, view, row_ids,
+                               slices, tanimoto, plan, leaves):
+        """Host int64[len(row_ids), len(slices)] counts per (candidate,
+        slice): |row ∩ src| from one ``count_and_rows`` launch against
+        the Src stack (zeroed by the Tanimoto ceil gate when asked), or
+        |row| from ``count_rows`` without a Src. Candidate rows and Src
+        leaves come from the cached leaf stacks; BATCH_OVER_BUDGET when
+        they would not fit the stack budget together."""
+        n_stacks = len(row_ids) + len(leaves)
+        if (n_stacks * len(slices) * WORDS_PER_SLICE * 4
+                > self.STACK_CACHE_BYTES):
+            return BATCH_OVER_BUDGET
+        stacks = [self._leaf_stack(index, (frame_name, view, rid), slices)
+                  for rid in row_ids]
+        if plan is None:
+            counts = torch.stack([bitops.count_rows(st) for st in stacks])
+            return counts.cpu().numpy().astype(np.int64)
+        src = self._eval_node(plan, [self._leaf_stack(index, sp, slices)
+                                     for sp in leaves])
+        inter = bitops.count_and_rows_stacks(stacks, src)
+        if not tanimoto:
+            return inter.cpu().numpy().astype(np.int64)
+        # Score on the device with the serial path's formula; the ceil
+        # gate on the host (ref: executor.py:4113-4126).
+        row_n = torch.stack([bitops.count_rows(st) for st in stacks])
+        src_n = bitops.count_rows(src)
+        scores = topn_ops.tanimoto_score_counts(inter, row_n, src_n[None, :])
+        inter = inter.cpu().numpy().astype(np.int64)
+        return np.where(topn_ops.tanimoto_keep(scores.cpu().numpy(),
+                                               tanimoto), inter, 0)
 
     # ---------------------------------------------------- SetBit/ClearBit
 

@@ -57,6 +57,19 @@ def count_op_rows(a, b, op):
     return kernels.count_op_rows(a, b, op)
 
 
+def count_and_rows(m, filt):
+    """Per-row |m ∩ filt| against one filter row: int32[R, W], int32[W]
+    -> int32[R] (TopN's Src intersection, fragment.go:886-906)."""
+    return kernels.count_and_rows(m, filt)
+
+
+def count_and_rows_stacks(rows, filt):
+    """Per-(row, slice) |rows[r][s] ∩ filt[s]|: R tensors int32[S, W]
+    and int32[S, W] -> int32[R, S], the filter read once for all rows
+    (batched TopN with a Src tree)."""
+    return kernels.count_and_rows_stacks(rows, filt)
+
+
 def count(a):
     """Total set bits, as a 0-d int64 tensor (ref: Bitmap.Count
     roaring.go:185)."""

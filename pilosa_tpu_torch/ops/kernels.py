@@ -1,14 +1,17 @@
 """Count kernels: the CUDA launches and their plain PyTorch versions.
 
-Both kernels are instances of one CUDA template in ``csrc/popcount.cu``
-(see its header for what each replaces in pilosa_tpu, its bound and its
-design):
+Each CUDA source's header says what it replaces in pilosa_tpu, its bound
+and its design:
 
 - :func:`count_op_rows` — per-row popcount(a OP b), OP in and / or /
   xor / andnot; ports the Pallas ``count_and`` and serves every
-  two-operand Count.
+  two-operand Count (``csrc/popcount.cu``).
 - :func:`count_rows` — per-row popcount(m); ports the Pallas
-  ``count_rows`` without its all-ones filter read.
+  ``count_rows`` without its all-ones filter read (the same template).
+- :func:`count_and_rows` / :func:`count_and_rows_stacks` — per-row
+  popcount(row & filter) against one filter, read once for all rows;
+  ports the Pallas ``count_and_rows`` and serves TopN with a Src
+  (``csrc/count_and_rows.cu``).
 
 Words are ``int32`` views of the 32-bit device words, shape
 ``[..., W]``; results are ``int32[...]``. A wrapper takes the plain
@@ -19,6 +22,7 @@ launches per wrapper.
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import loader
@@ -30,9 +34,14 @@ OPS = {"and": 1, "or": 2, "xor": 3, "andnot": 4}
 # Per-row counts are int32: a row of W words holds 32·W bits.
 MAX_WIDTH = (1 << 26) - 1
 
-launches = {"count_op_rows": 0, "count_rows": 0}
+launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0}
+
+# Row pointers per count_and_rows launch (the kernel's parameter table;
+# csrc/count_and_rows.cu MAX_ROWS).
+CAR_MAX_ROWS = 256
 
 _fn = None
+_car_fn = None
 
 
 def reset_launches():
@@ -79,6 +88,21 @@ def count_op_rows_plain(a, b, op):
 def count_rows_plain(m):
     """Plain version of :func:`count_rows`."""
     return popcount32(m).sum(dim=-1, dtype=torch.int32)
+
+
+def count_and_rows_plain(m, filt):
+    """Plain version of :func:`count_and_rows`: int32[R, W] & int32[W]
+    (or int32[S, W] & int32[S, W]) -> int32[R] (int32[S])."""
+    return popcount32(m & filt).sum(dim=-1, dtype=torch.int32)
+
+
+def count_and_rows_stacks_plain(rows, filt):
+    """Plain version of :func:`count_and_rows_stacks`: one candidate at
+    a time."""
+    if not rows:
+        return torch.empty((0, filt.shape[0]), dtype=torch.int32,
+                           device=filt.device)
+    return torch.stack([count_and_rows_plain(r, filt) for r in rows])
 
 
 # ----------------------------------------------------------------- wrappers
@@ -134,6 +158,84 @@ def _launch(name, a, b, op):
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
                            f"({err_str(rc).decode()})")
     launches[name] += 1
+    return out
+
+
+def _car_kernel():
+    global _car_fn
+    if _car_fn is None:
+        lib = loader.library("count_and_rows")
+        fn = lib.pilosa_count_and_rows
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.pilosa_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pilosa_cuda_error_string.restype = ctypes.c_char_p
+        _car_fn = (fn, lib.pilosa_cuda_error_string)
+    return _car_fn
+
+
+def _launch_and_rows(ptrs, filt, slices, width, out):
+    """Queue count_and_rows over device row addresses ``ptrs`` (row r's
+    slice s at ptrs[r] + s·width words) against ``filt``, into ``out``
+    (int32, row r's slice s at r·slices + s), CAR_MAX_ROWS rows per
+    launch. The caller holds every operand until this returns, by which
+    time each launch is queued on the current stream."""
+    if filt.device.type != "cuda":
+        raise ValueError(f"count_and_rows: no kernel for device {filt.device}")
+    fn, err_str = _car_kernel()
+    with torch.cuda.device(filt.device):
+        stream = torch.cuda.current_stream(filt.device).cuda_stream
+        for r0 in range(0, len(ptrs), CAR_MAX_ROWS):
+            table = np.asarray(ptrs[r0:r0 + CAR_MAX_ROWS], dtype=np.uint64)
+            rc = fn(table.ctypes.data, len(table), filt.data_ptr(), slices,
+                    width, out.data_ptr() + r0 * slices * 4, slices, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"count_and_rows: kernel launch failed: CUDA error "
+                    f"{rc} ({err_str(rc).decode()})")
+            launches["count_and_rows"] += 1
+
+
+def count_and_rows(m, filt):
+    """Per-row popcount(m & filt): int32[R, W], int32[W] -> int32[R]
+    (the Pallas ``count_and_rows`` signature)."""
+    if (m.dim() != 2 or filt.dim() != 1 or m.shape[1] != filt.shape[0]
+            or m.device != filt.device):
+        raise ValueError("count_and_rows: m must be [R, W] and filt [W] on "
+                         f"one device, got {tuple(m.shape)} on {m.device} "
+                         f"and {tuple(filt.shape)} on {filt.device}")
+    _check("count_and_rows", m)
+    _check("count_and_rows", filt)
+    if filt.device.type == "cpu":
+        return count_and_rows_plain(m, filt)
+    rows, width = m.shape
+    out = torch.empty(rows, dtype=torch.int32, device=m.device)
+    if rows:
+        base = m.data_ptr()
+        _launch_and_rows([base + r * width * 4 for r in range(rows)], filt,
+                         1, width, out)
+    return out
+
+
+def count_and_rows_stacks(rows, filt):
+    """Per-(row, slice) popcount(rows[r][s] & filt[s]): R tensors
+    int32[S, W] and int32[S, W] -> int32[R, S]. The filter is read once
+    per chunk of rows, not once per row."""
+    rows = list(rows)
+    if filt.dim() != 2:
+        raise ValueError(f"count_and_rows_stacks: filt must be [S, W], "
+                         f"got {tuple(filt.shape)}")
+    _check("count_and_rows_stacks", filt, *rows)
+    if filt.device.type == "cpu":
+        return count_and_rows_stacks_plain(rows, filt)
+    slices, width = filt.shape
+    out = torch.empty((len(rows), slices), dtype=torch.int32,
+                      device=filt.device)
+    if rows and slices:
+        _launch_and_rows([r.data_ptr() for r in rows], filt, slices, width,
+                         out)
     return out
 
 

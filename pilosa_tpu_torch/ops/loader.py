@@ -21,7 +21,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # name -> source file under csrc/
-SOURCES = {"popcount": "popcount.cu"}
+SOURCES = {"popcount": "popcount.cu",
+           "count_and_rows": "count_and_rows.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -18,10 +18,16 @@ once the log outgrows ``max(MAX_OPN, cardinality/2)`` records the file
 is rewritten through an atomic temp-file rename (``snapshot()``,
 fragment.go:1369-1438). The file format is shared with pilosa_tpu.
 
+Each fragment keeps the frame's TopN cache (``storage/cache.py``):
+restored from the ``.cache`` sidecar at open, kept current by every
+write, written back on close. ``top()`` ranks exact counts — host row
+counts, or the ``count_and_rows`` kernel against a Src row on the device
+— over the rows the cache admits.
+
 Rows always span the full slice (no column windows, no lazy/evicted
-serving, no compressed containers, no BSI planes, no TopN cache — those
-are later slices of the port). A fragment under a holder holds no
-per-file lock: the holder's directory lock covers it.
+serving, no compressed containers, no BSI planes — those are later
+slices of the port). A fragment under a holder holds no per-file lock:
+the holder's directory lock covers it.
 """
 import io
 import itertools
@@ -35,7 +41,10 @@ import torch
 
 from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.ops import topn as topn_ops
 from pilosa_tpu_torch.roaring import codec
+from pilosa_tpu_torch.storage.cache import NopCache, new_cache
 
 WORDS64 = SLICE_WIDTH // 64  # 16384 host words per row
 
@@ -85,16 +94,31 @@ class MutationEpoch:
             self.value += 1
 
 
+class TopOptions:
+    """TopN options (ref: fragment.go:1004-1021)."""
+
+    def __init__(self, n=0, src=None, row_ids=None, min_threshold=0,
+                 tanimoto_threshold=0):
+        self.n = n
+        self.src = src                      # int32[32768] device words
+        self.row_ids = row_ids              # explicit candidate rows
+        self.min_threshold = min_threshold
+        self.tanimoto_threshold = tanimoto_threshold
+
+
 class Fragment:
     _UID_SEQ = itertools.count()
 
     def __init__(self, path, index, frame, view, slice_num, device="cpu",
-                 epoch=None, holder_locked=False):
+                 epoch=None, holder_locked=False, cache_type="ranked",
+                 cache_size=50000):
         self.path = path
         self.index = index
         self.frame = frame
         self.view = view
         self.slice = slice_num
+        self.cache_type = cache_type
+        self.cache = new_cache(cache_type, cache_size)
         self.device = torch.device(device)
         self.epoch = epoch if epoch is not None else MutationEpoch()
         self.holder_locked = holder_locked
@@ -116,6 +140,7 @@ class Fragment:
         self._version = 0      # bumped on every mutation
         self._dev = None       # int32[rows, 32768] device mirror
         self._dirty = set()    # physical rows stale in the mirror
+        self._rc_dev = None    # (version, int32[rows] device row counts)
 
     @property
     def cache_path(self):
@@ -141,6 +166,8 @@ class Fragment:
                     blocks, self.op_n, torn = codec.deserialize(f.read())
                 self._load_blocks_locked(blocks)
                 self._snap_card = int(self._row_counts.sum())
+                self.cache.clear()
+                self._open_cache()
                 self._opened = True
                 if torn:
                     self.snapshot()
@@ -153,11 +180,7 @@ class Fragment:
     def close(self):
         with self.mu:
             if self._opened:
-                # Rank-cache sidecar (ref: fragment.go:250-289): the ids
-                # of non-empty rows, so pilosa_tpu's TopN cache finds
-                # every row this package wrote.
-                with open(self.cache_path, "w") as f:
-                    json.dump(self.rows(nonempty=True), f)
+                self._flush_cache_locked()
             if self._op_file is not None:
                 self._op_file.close()
                 self._op_file = None
@@ -188,6 +211,46 @@ class Fragment:
             d = parent
         self._lock_file = try_flock(self.path + ".lock",
                                     perr.ErrFragmentLocked)
+
+    # ----------------------------------------------------------- TopN cache
+
+    def _open_cache(self):
+        """Restore the TopN cache from its sidecar (ref: fragment.go:
+        250-289); counts come from storage, the sidecar carries ids."""
+        if not os.path.exists(self.cache_path):
+            return
+        try:
+            with open(self.cache_path) as f:
+                ids = json.load(f)
+        except (ValueError, OSError):
+            return
+        for row_id in ids:
+            phys = self._row_index.get(row_id)
+            if phys is not None:
+                self.cache.bulk_add(row_id, int(self._row_counts[phys]))
+        self.cache.invalidate()
+
+    def _flush_cache_locked(self):
+        with open(self.cache_path, "w") as f:
+            json.dump(self.cache.ids(), f)
+
+    def recalculate_cache(self):
+        """Rebuild the TopN cache from storage counts (ref: Cache.
+        Recalculate via handleRecalculateCaches handler.go:2016)."""
+        with self.mu:
+            for phys, row_id in enumerate(self._phys_rows):
+                n = int(self._row_counts[phys])
+                if n:
+                    self.cache.bulk_add(row_id, n)
+            self.cache.invalidate()
+
+    def cache_entry_ids(self):
+        """TopN candidate row ids: the cache's membership (batched TopN
+        phase 1 reads it for every fragment of a slice list)."""
+        if isinstance(self.cache, NopCache):
+            return frozenset()
+        with self.mu:
+            return frozenset(self.cache.entries)
 
     def _release_lock(self):
         if self._lock_file is not None:
@@ -351,6 +414,17 @@ class Fragment:
             self._dirty.clear()
             return self._dev
 
+    def _row_counts_device(self, n_phys):
+        """int32[n_phys] device copy of the per-row counts, memoised on
+        the mutation version (the Tanimoto denominator reads it every
+        query). Caller holds ``self.mu``."""
+        rc = self._rc_dev
+        if rc is None or rc[0] != self._version or rc[1].shape[0] != n_phys:
+            arr = torch.from_numpy(
+                self._row_counts[:n_phys].astype(np.int32)).to(self.device)
+            self._rc_dev = rc = (self._version, arr)
+        return rc[1]
+
     def device_row(self, row_id):
         """int32[32768] device words of one row (zeros when absent)."""
         with self.mu:
@@ -392,6 +466,7 @@ class Fragment:
         if not self._op_log_room(0):
             self.snapshot()
         self._touch_locked([phys])
+        self.cache.add(row_id, int(self._row_counts[phys]))
         return True
 
     def set_bit(self, row_id, column_id):
@@ -442,6 +517,63 @@ class Fragment:
             if not use_oplog:
                 self.snapshot()
             self._touch_locked(touched)
+            for p in touched:
+                self.cache.bulk_add(self._phys_rows[p],
+                                    int(self._row_counts[p]))
+            self.cache.invalidate()
+
+    # ---------------------------------------------------------------- TopN
+
+    def top(self, opt=None):
+        """TopN over this fragment (ref: fragment.go:831-963): exact
+        counts — host row counts, or |row ∩ src| from the
+        ``count_and_rows`` kernel against ``opt.src`` (the slice's Src
+        words, on the fragment's device) — over the rows the cache
+        admits (all rows named by ``opt.row_ids`` when given). A
+        ``none`` cache yields nothing without ids. Pairs are ordered by
+        (-count, id); with ``n`` and no ids, count ties straddling the
+        n-th place stay in and are cut by id."""
+        opt = opt or TopOptions()
+        with self.mu:
+            n_phys = len(self._phys_rows)
+            if n_phys == 0:
+                return []
+            if opt.row_ids is None and isinstance(self.cache, NopCache):
+                return []
+            if opt.src is not None:
+                matrix = self.device_matrix()[:n_phys]
+                if opt.tanimoto_threshold:
+                    counts = topn_ops.tanimoto_masked_counts(
+                        matrix, opt.src, self._row_counts_device(n_phys),
+                        int(bitops.count(opt.src)), opt.tanimoto_threshold)
+                else:
+                    counts = bitops.count_and_rows(matrix, opt.src)
+                counts_np = counts.cpu().numpy().astype(np.int64)
+            else:
+                counts_np = self._row_counts[:n_phys].copy()
+
+            row_ids = np.asarray(self._phys_rows, dtype=np.uint64)
+            mask = counts_np > 0
+            if opt.min_threshold:
+                mask &= counts_np >= opt.min_threshold
+            if opt.row_ids is not None:
+                mask &= np.isin(row_ids, np.fromiter(
+                    opt.row_ids, dtype=np.uint64))
+            elif not isinstance(self.cache, NopCache):
+                mask &= np.isin(row_ids, self.cache.ids_arr())
+            idx = np.nonzero(mask)[0]
+            # Explicit ids (the phase-2 exact re-query) are never cut per
+            # slice; trimming happens after the cross-slice merge (ref:
+            # fragment.go:835-838).
+            truncate = bool(opt.n) and opt.row_ids is None
+            if truncate and idx.size > opt.n:
+                c = counts_np[idx]
+                nth = c[np.argpartition(-c, opt.n - 1)[opt.n - 1]]
+                idx = idx[c >= nth]
+            order = np.lexsort((row_ids[idx], -counts_np[idx]))
+            sel = idx[order[: opt.n]] if truncate else idx[order]
+            return [(int(r), int(c))
+                    for r, c in zip(row_ids[sel], counts_np[sel])]
 
     # -------------------------------------------------------------- backup
 
@@ -450,7 +582,7 @@ class Fragment:
         the layout pilosa_tpu's read_from restores."""
         with self.mu:
             data = codec.serialize_arrays(*self._to_arrays_locked())
-            cache = json.dumps(self.rows(nonempty=True)).encode()
+            cache = json.dumps(self.cache.ids()).encode()
         with tarfile.open(fileobj=fileobj, mode="w") as tar:
             for name, payload in (("data", data), ("cache", cache)):
                 info = tarfile.TarInfo(name)
@@ -478,5 +610,8 @@ class Fragment:
                         self.op_n = 0
                         self._snap_card = int(self._row_counts.sum())
                 elif member.name == "cache":
-                    with open(self.cache_path, "wb") as f:
-                        f.write(payload)
+                    with self.mu:
+                        with open(self.cache_path, "wb") as f:
+                            f.write(payload)
+                        self.cache.clear()
+                        self._open_cache()

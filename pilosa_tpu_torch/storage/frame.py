@@ -92,7 +92,8 @@ class Frame:
         """Caller holds self.mu."""
         v = View(os.path.join(self.path, "views", name), self.index_name,
                  self.name, name, device=self.device, epoch=self.epoch,
-                 holder_locked=self.holder_locked)
+                 holder_locked=self.holder_locked,
+                 cache_type=self.cache_type, cache_size=self.cache_size)
         v.open()
         self.views[name] = v
         return v
@@ -110,6 +111,12 @@ class Frame:
         with self.mu:
             return max((v.max_slice() for name, v in self.views.items()
                         if name != VIEW_INVERSE), default=0)
+
+    def max_inverse_slice(self):
+        """(ref: frame.go max_inverse_slice)."""
+        with self.mu:
+            v = self.views.get(VIEW_INVERSE)
+            return v.max_slice() if v else 0
 
     def set_bit(self, view_name, row_id, column_id):
         return self.create_view_if_not_exists(view_name).set_bit(

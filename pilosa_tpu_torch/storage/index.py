@@ -83,6 +83,13 @@ class Index:
             return max((f.max_slice() for f in self.frames.values()),
                        default=0)
 
+    def max_inverse_slice(self):
+        """The slice range of inverse-view calls (TopN(inverse=true);
+        ref: index.go MaxInverseSlice)."""
+        with self.mu:
+            return max((f.max_inverse_slice() for f in self.frames.values()),
+                       default=0)
+
     def frame(self, name):
         with self.mu:
             return self.frames.get(name)

@@ -12,11 +12,13 @@ VIEW_INVERSE = "inverse"
 
 class View:
     def __init__(self, path, index, frame, name, device="cpu", epoch=None,
-                 holder_locked=False):
+                 holder_locked=False, cache_type="ranked", cache_size=50000):
         self.path = path
         self.index = index
         self.frame = frame
         self.name = name
+        self.cache_type = cache_type   # the frame's TopN cache, per fragment
+        self.cache_size = cache_size
         self.device = device
         self.epoch = epoch
         self.holder_locked = holder_locked
@@ -46,7 +48,9 @@ class View:
         """Caller holds self.mu."""
         frag = Fragment(self.fragment_path(slice_num), self.index,
                         self.frame, self.name, slice_num, device=self.device,
-                        epoch=self.epoch, holder_locked=self.holder_locked)
+                        epoch=self.epoch, holder_locked=self.holder_locked,
+                        cache_type=self.cache_type,
+                        cache_size=self.cache_size)
         frag.open()
         self.fragments[slice_num] = frag
         return frag

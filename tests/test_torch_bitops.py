@@ -121,7 +121,12 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
     assert torch.equal(kernels.count_rows(a), kernels.count_rows_plain(a))
     assert torch.equal(kernels.count_op_rows(a, a, "xor"),
                        torch.zeros(3, dtype=torch.int32))
-    assert kernels.launches == {"count_op_rows": 0, "count_rows": 0}
+    assert torch.equal(kernels.count_and_rows(a, a[0]),
+                       kernels.count_and_rows_plain(a, a[0]))
+    assert torch.equal(kernels.count_and_rows_stacks([a, a], a),
+                       torch.stack([kernels.count_rows_plain(a)] * 2))
+    assert kernels.launches == {"count_op_rows": 0, "count_rows": 0,
+                                "count_and_rows": 0}
 
 
 @pytest.mark.parametrize("bad", [
@@ -140,3 +145,71 @@ def test_unknown_op_rejected():
     a = _t(_words("random", (2, 8), 13))
     with pytest.raises(ValueError):
         kernels.count_op_rows(a, a, "nand")
+
+
+# ------------------------------------------------------- count_and_rows
+
+# (R, W): R not a multiple of 8, W ragged (not a multiple of 4 or 128).
+AND_ROWS_SHAPES = ((8, 512), (7, 192), (1, 3), (12, 1), (3, 4097),
+                   (9, 130), (0, 64))
+
+
+@pytest.mark.parametrize("shape", AND_ROWS_SHAPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_count_and_rows_matches_pallas_and_bitops(kind, shape):
+    m = _words(kind, shape, 14)
+    filt = _words("random" if kind != "ones" else "ones", shape[1:], 15)
+    got = bitops.count_and_rows(_t(m), _t(filt))
+    assert got.dtype == torch.int32 and got.shape == shape[:1]
+    want = np.asarray(jbitops.count_and_rows(jnp.asarray(m),
+                                             jnp.asarray(filt)))
+    assert (got.numpy() == want).all()
+    if shape[0]:
+        assert (got.numpy() == np.asarray(pk.count_and_rows(
+            jnp.asarray(m), jnp.asarray(filt)))).all()
+    assert (got.numpy() == np.bitwise_count(m & filt).sum(axis=1)).all()
+
+
+@pytest.mark.parametrize("n_rows", [0, 1, 7, 9])
+@pytest.mark.parametrize("shape", [(6, 192), (1, 3), (5, 4097)])
+def test_count_and_rows_stacks_matches_reference_per_slice(n_rows, shape):
+    """Stacked form: out[r, s] is pilosa_tpu's count_and_rows of
+    candidate r's slice s against the filter's slice s."""
+    kinds = ("random", "bit31", "ones", "sparse", "zeros")
+    rows = [_words(kinds[r % len(kinds)], shape, 20 + r)
+            for r in range(n_rows)]
+    filt = _words("random", shape, 19)
+    got = bitops.count_and_rows_stacks([_t(r) for r in rows], _t(filt))
+    assert got.dtype == torch.int32 and got.shape == (n_rows, shape[0])
+    for r, m in enumerate(rows):
+        for s in range(shape[0]):
+            want = int(np.asarray(jbitops.count_and_rows(
+                jnp.asarray(m[s:s + 1]), jnp.asarray(filt[s])))[0])
+            assert int(got[r, s]) == want
+
+
+@pytest.mark.parametrize("bad", [
+    lambda m, f: ([m.to(torch.int64)], f),               # dtype
+    lambda m, f: ([m[:, :32].contiguous()], f),           # shape
+    lambda m, f: ([m.t().contiguous().t()], f),           # contiguity
+    lambda m, f: ([m.to("meta")], f.to("meta")),          # no kernel
+    lambda m, f: ([m], f[0]),                             # filter rank
+])
+def test_count_and_rows_stacks_rejects_what_the_kernel_does_not_take(bad):
+    m = _t(_words("random", (4, 64), 16))
+    rows, f = bad(m, _t(_words("random", (4, 64), 17)))
+    with pytest.raises((TypeError, ValueError)):
+        kernels.count_and_rows_stacks(rows, f)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda m, f: (m, f[:32]),                             # width
+    lambda m, f: (m[0], f),                               # m rank
+    lambda m, f: (m.to(torch.int64), f),                  # dtype
+    lambda m, f: (m.to("meta"), f.to("meta")),            # no kernel
+])
+def test_count_and_rows_rejects_what_the_kernel_does_not_take(bad):
+    m = _t(_words("random", (4, 64), 18))
+    x, f = bad(m, _t(_words("random", (64,), 19)))
+    with pytest.raises((TypeError, ValueError)):
+        kernels.count_and_rows(x, f)

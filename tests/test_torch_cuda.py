@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each held exactly against its plain
-version on the same device tensors, and the executor's Count path on a
-GPU holder against the same directory served on the CPU. Marked
+version on the same device tensors, and the executor's Count and TopN
+paths on a GPU holder against the same directory served on the CPU. Marked
 ``cuda``; where no GPU is present every test skips (decided inside the
 fixture, never at import). Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
@@ -55,13 +55,58 @@ def test_misaligned_operands(gen):
                            kernels.count_op_rows_plain(a, b, op))
 
 
+@pytest.mark.parametrize("width", [1, 3, 192, 32767, 32768])
+@pytest.mark.parametrize("rows", [1, 7, 8, 1000])
+def test_count_and_rows_equals_plain(gen, rows, width):
+    m, f = _rand(gen, rows, width), _rand(gen, width)
+    assert torch.equal(kernels.count_and_rows(m, f),
+                       kernels.count_and_rows_plain(m, f))
+
+
+@pytest.mark.parametrize("n_rows", [0, 1, 8, 9, 300])
+@pytest.mark.parametrize("shape", [(1, 32768), (5, 4097), (64, 32768)])
+def test_count_and_rows_stacks_equals_plain(gen, n_rows, shape):
+    rows = [_rand(gen, *shape) for _ in range(n_rows)]
+    f = _rand(gen, *shape)
+    assert torch.equal(kernels.count_and_rows_stacks(rows, f),
+                       kernels.count_and_rows_stacks_plain(rows, f))
+
+
+@pytest.mark.parametrize("fill", [0, -1, -2**31])
+def test_count_and_rows_edge_words(gen, fill):
+    m = torch.full((9, 4099), fill, dtype=torch.int32, device="cuda")
+    f = _rand(gen, 4099)
+    assert torch.equal(kernels.count_and_rows(m, f),
+                       kernels.count_and_rows_plain(m, f))
+    assert torch.equal(kernels.count_and_rows(f[None].repeat(3, 1), m[0]),
+                       kernels.count_and_rows_plain(f[None].repeat(3, 1),
+                                                    m[0]))
+
+
+def test_count_and_rows_misaligned(gen):
+    base = _rand(gen, 4009)
+    m = base[1:3001].view(3, 1000)   # one word off 16-byte alignment
+    f = base[3002:4002]
+    assert torch.equal(kernels.count_and_rows(m, f),
+                       kernels.count_and_rows_plain(m, f))
+    rows = [base[1:2001].view(2, 1000), base[4:2004].view(2, 1000)]
+    filt = base[2005:4005].view(2, 1000)
+    assert torch.equal(kernels.count_and_rows_stacks(rows, filt),
+                       kernels.count_and_rows_stacks_plain(rows, filt))
+
+
 def test_launch_counters_count_launches_only(gen):
     kernels.reset_launches()
     a = _rand(gen, 3, 64)
     kernels.count_rows(a)
     kernels.count_op_rows(a, a, "and")
     kernels.count_rows(a[:0])  # no rows: nothing launches
-    assert kernels.launches == {"count_op_rows": 1, "count_rows": 1}
+    kernels.count_and_rows(a, a[0])
+    kernels.count_and_rows(a[:0], a[0])
+    kernels.count_and_rows_stacks([], a)
+    kernels.count_and_rows_stacks([a[:0]], a[:0])
+    assert kernels.launches == {"count_op_rows": 1, "count_rows": 1,
+                                "count_and_rows": 1}
 
 
 def test_executor_on_gpu_matches_cpu(gen, tmp_path):
@@ -95,3 +140,33 @@ def test_executor_on_gpu_matches_cpu(gen, tmp_path):
             assert kernels.launches["count_op_rows"] > 0
         h.close()
     assert len(set(map(tuple, results.values()))) == 1
+
+
+def test_topn_on_gpu_matches_cpu(gen, tmp_path):
+    rng = np.random.default_rng(4)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    idx = h.create_index("i")
+    for name, n_rows in (("f", 2), ("t", 6)):
+        view = idx.create_frame(name).create_view_if_not_exists("standard")
+        for s in (0, 1, 3):
+            cols = rng.integers(0, SLICE_WIDTH, 200000) + s * SLICE_WIDTH
+            rows = rng.integers(0, n_rows, len(cols))
+            view.create_fragment_if_not_exists(s).import_bits(rows, cols)
+    h.close()
+    src = 'Bitmap(frame="f", rowID=0)'
+    queries = [f'TopN({src}, frame="t", n=3)', 'TopN(frame="t", n=2)',
+               f'TopN({src}, frame="t", tanimotoThreshold=20)',
+               f'TopN({src}, frame="t", ids=[1, 4], threshold=10)']
+    results = {}
+    for device in ("cpu", "cuda"):
+        h = Holder(path, device=device).open()
+        ex = Executor(h)
+        kernels.reset_launches()
+        for p in ("serial", "batched"):
+            ex._force_path = p
+            results[(device, p)] = [ex.execute("i", q)[0] for q in queries]
+        if device == "cuda":
+            assert kernels.launches["count_and_rows"] > 0
+        h.close()
+    assert len({repr(v) for v in results.values()}) == 1

@@ -248,7 +248,7 @@ def test_unported_calls_raise_and_missing_index(datadir):
     try:
         ex = TExecutor(th)
         with pytest.raises(NotImplementedError):
-            ex.execute("i", 'TopN(frame="f", n=2)')
+            ex.execute("i", 'Sum(frame="f", field="v")')
         with pytest.raises(terr.ErrIndexNotFound):
             ex.execute("nope", f"Count({R0})")
         assert ex.execute("i", f"Count({R0})", slices=[0, 1]) == [
