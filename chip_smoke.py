@@ -13,7 +13,7 @@ Phases, each of which fails the run (exit code != 0, no result line):
    the main-path shape;
 4. main path, Count — a data directory of N slices (default 9,537 =
    10.0B columns; one index, one frame, three dense rows of bit density
-   0.5, 0.5 and 0.25 from ``--seed``) written through
+   0.5, 0.5 and 0.25 from ``--seed``) written in parallel through
    ``Fragment.read_from``, reopened by a GPU ``Holder``, and queried
    through ``Executor.execute``: Count over Bitmap/Intersect/Union/
    Difference/Xor trees on the batched and the serial path, then
@@ -28,7 +28,17 @@ Phases, each of which fails the run (exit code != 0, no result line):
    its variants (no Src, an Intersect Src with a threshold, a Tanimoto
    threshold, explicit ids) answered on both paths, before and after a
    SetBit and a ClearBit. Every answer must equal a numpy oracle of the
-   two-phase rule; ``count_and_rows`` must have launched.
+   two-phase rule; ``count_and_rows`` must have launched;
+6. main path, BSI — python-pilosa's documented integer field ``stars``
+   (``type int``, ``min 0``, ``max 1000``: bit depth 10) on frame ``t``
+   (range-enabled), a value in one column of two at every slice,
+   heavy-tailed like GitHub stars, its 11 rows per slice written in
+   parallel by the port's codec; then Sum, Average, filtered Sum,
+   Count(Range(…)) with >, ><, >= inside an Intersect and the
+   reference's shortcuts, Min, Max and filtered Max on both paths,
+   before and after two ``SetFieldValue`` writes. Every answer must
+   equal a numpy oracle on the values; ``count_and_rows``,
+   ``count_op_rows`` and ``count_rows`` must all have launched.
 
 The second-to-last line is a JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``. The script exits non-zero
@@ -129,6 +139,18 @@ def and_rows_bound_ms(rows, slices, width):
                                  else "operations"), nbytes
 
 
+def in_processes(worker, frag_dir, seed, slices):
+    """``worker(frag_dir, seed, lo, hi)`` over 64 runs of slices in up
+    to 8 spawned processes; returns (processes, results in slice
+    order)."""
+    procs = max(1, min(8, os.cpu_count() or 1))
+    edges = np.linspace(0, slices, procs * 8 + 1).astype(int)
+    jobs = [(frag_dir, seed, int(lo), int(hi))
+            for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        return procs, pool.starmap(worker, jobs)
+
+
 # ------------------------------------------------------------ phase 3
 
 def kernel_checks(slices, card):
@@ -216,11 +238,19 @@ def kernel_checks(slices, card):
     note("count_and_rows", kernels.count_and_rows_stacks(cands, a),
          kernels.count_and_rows_stacks_plain(cands, a),
          f"{TOPN_CANDIDATES} x [{slices}, {WORDS32}]")
-    cases += 2
+    # The BSI shapes: 10 plane stacks, and the batched Sum's 11 (the
+    # planes and the not-null row), against one filter stack.
+    bsi_rows = cands + [b, rand(slices, WORDS32), rand(slices, WORDS32)]
+    for r in (STARS_DEPTH, STARS_DEPTH + 1):
+        note("count_and_rows", kernels.count_and_rows_stacks(bsi_rows[:r], a),
+             kernels.count_and_rows_stacks_plain(bsi_rows[:r], a),
+             f"{r} x [{slices}, {WORDS32}]")
+    cases += 4
     sync()
     print(f"kernels: {cases} shapes exact against the plain versions "
-          f"(incl. [{slices}, {WORDS32}] and {TOPN_CANDIDATES} stacks of "
-          f"it); max_abs_err {max_err} {card}")
+          f"(incl. [{slices}, {WORDS32}] and {TOPN_CANDIDATES}, "
+          f"{STARS_DEPTH} and {STARS_DEPTH + 1} stacks of it); max_abs_err "
+          f"{max_err} {card}")
 
     stats = {}
     for op in OPS:
@@ -267,9 +297,17 @@ def kernel_checks(slices, card):
     print(f"count_and_rows vs {TOPN_CANDIDATES} count_op_rows[and] "
           f"launches on the same data: {car_ms:.4f} ms vs {per_op_ms:.4f} "
           f"ms ({per_op_ms / car_ms:.2f}x) {card}")
+    sum_rows = bsi_rows[:STARS_DEPTH + 1]
+    sum_ms = timed_ms(lambda: kernels.count_and_rows_stacks(sum_rows, a),
+                      reps=10)
+    sum_bound, by, nbytes = and_rows_bound_ms(len(sum_rows), slices, WORDS32)
+    print(f"count_and_rows at the batched Sum's shape, {len(sum_rows)} "
+          f"stacks x [{slices}, {WORDS32}] & [{slices}, {WORDS32}]: "
+          f"{sum_ms:.4f} ms, bytes {nbytes}, bound {sum_bound:.4f} ms "
+          f"({by}), {sum_bound / sum_ms:.1%} of bound {card}")
     print("kernels: " + json.dumps(
         [{"name": n, "launches": c} for n, c in kernels.launches.items()]))
-    del a, b, cands
+    del a, b, cands, bsi_rows, sum_rows
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return stats
@@ -320,6 +358,26 @@ def backup_tar(words):
     return buf
 
 
+def _write_f_slices(frag_dir, seed, lo, hi):
+    """Worker: frame f's fragments of slices [lo, hi), each restored by
+    ``Fragment.read_from`` from a backup archive of the port's codec;
+    returns their per-query oracle counts. The workers write disjoint
+    fragments of a closed holder's tree: ``holder_locked`` spares them
+    the transient probe of ``.holder.lock``, which they would contend
+    for."""
+    from pilosa_tpu_torch.storage.fragment import Fragment
+
+    counts = np.zeros((len(QUERIES), hi - lo), dtype=np.int64)
+    for i, s in enumerate(range(lo, hi)):
+        words = slice_words(seed, s)
+        counts[:, i] = slice_counts(words)
+        frag = Fragment(os.path.join(frag_dir, str(s)), "i", "f",
+                        "standard", s, holder_locked=True).open()
+        frag.read_from(backup_tar(words))
+        frag.close()
+    return lo, counts
+
+
 def main_path(slices, seed, datadir, card):
     import torch
 
@@ -336,17 +394,18 @@ def main_path(slices, seed, datadir, card):
     t0 = time.perf_counter()
     per_slice = np.zeros((len(QUERIES), slices), dtype=np.int64)
     holder = Holder(datadir, device=DEVICE).open()
-    frame = holder.create_index("i").create_frame("f")
-    view = frame.create_view_if_not_exists("standard")
-    for s in range(slices):
-        words = slice_words(seed, s)
-        per_slice[:, s] = slice_counts(words)
-        view.create_fragment_if_not_exists(s).read_from(backup_tar(words))
+    view = holder.create_index("i").create_frame("f") \
+        .create_view_if_not_exists("standard")
+    frag_dir = os.path.join(view.path, "fragments")
     holder.close()
+    procs, parts = in_processes(_write_f_slices, frag_dir, seed, slices)
+    for lo, c in parts:
+        per_slice[:, lo:lo + c.shape[1]] = c
     write_s = time.perf_counter() - t0
     print(f"main path: wrote {slices} slices ({slices * SLICE_WIDTH / 1e9:.2f}"
           f"B columns, {slices * 3 * 16384 * 8 / 1e9:.2f} GB of rows) "
-          f"through Fragment.read_from in {write_s:.1f} s")
+          f"through Fragment.read_from in {procs} processes in "
+          f"{write_s:.1f} s")
 
     reset_peak()
     kernels.reset_launches()
@@ -533,13 +592,9 @@ def topn_path(slices, seed, datadir, card):
     t0 = time.perf_counter()
     counts = np.zeros((slices, 4, TOPN_CANDIDATES), np.int64)
     f1_n = np.zeros(slices, np.int64)
-    procs = max(1, min(8, os.cpu_count() or 1))
-    edges = np.linspace(0, slices, procs * 8 + 1).astype(int)
-    jobs = [(frag_dir, seed, int(lo), int(hi))
-            for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
-    with multiprocessing.get_context("spawn").Pool(procs) as pool:
-        for lo, c, f in pool.starmap(_write_t_slices, jobs):
-            counts[lo:lo + len(c)], f1_n[lo:lo + len(c)] = c, f
+    procs, parts = in_processes(_write_t_slices, frag_dir, seed, slices)
+    for lo, c, f in parts:
+        counts[lo:lo + len(c)], f1_n[lo:lo + len(c)] = c, f
     write_s = time.perf_counter() - t0
     print(f"topn: wrote frame t, {TOPN_CANDIDATES} rows x {slices} slices "
           f"({slices * TOPN_CANDIDATES * 16384 * 8 / 1e9:.2f} GB of rows), "
@@ -629,12 +684,268 @@ def topn_path(slices, seed, datadir, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 6
+
+SLICE_COLS = 1 << 20
+STARS_MIN, STARS_MAX = 0, 1000   # python-pilosa's example field
+STARS_DEPTH = 10                 # bit depth of max - min = 1000
+# floor(10 · Lomax(shape 1.2)) clipped to [0, 1000], by inverse
+# transform at the midpoints of 2^16 equal-probability cells: about 11%
+# of the values are 0 and 0.4% are 1000, so both extremes tie.
+STARS_TABLE = np.minimum(np.floor(10 * (np.power(
+    1 - (np.arange(1 << 16) + 0.5) / (1 << 16), -1 / 1.2) - 1)),
+    STARS_MAX).astype(np.int16)
+_STARS = 'frame="t", field="stars"'
+_RANGE = 'Count(Range(frame="t", stars {}))'
+BSI_QUERIES = [  # (label, PQL)
+    ("a_sum", f"Sum({_STARS})"),
+    ("a_avg", f"Average({_STARS})"),
+    ("b", f"Sum({SRC.format(0)}, {_STARS})"),
+    ("c", _RANGE.format("> 30")),
+    ("d", _RANGE.format(">< [10, 60]")),
+    ("e", f'Count(Intersect({SRC.format(0)}, Range(frame="t", '
+          'stars >= 500)))'),
+    ("f_min", f"Min({_STARS})"),
+    ("f_max", f"Max({_STARS})"),
+    ("f_max_f1", f"Max({SRC.format(1)}, {_STARS})"),
+    ("g_eq0", _RANGE.format("== 0")),
+    ("g_neq7", _RANGE.format("!= 7")),
+    ("g_lt5000", _RANGE.format("< 5000")),
+    ("g_gt5000", _RANGE.format("> 5000")),
+    ("g_notnull", _RANGE.format("!= null")),
+]
+
+
+def stars_values(seed, s):
+    """int16[2^20] values and uint64[16384] not-null words of slice s:
+    one column in two holds a value, heavy-tailed like GitHub stars
+    (STARS_TABLE)."""
+    rng = np.random.default_rng([seed, s, 2])
+    v = STARS_TABLE[rng.integers(0, 1 << 16, SLICE_COLS, dtype=np.uint16)]
+    return v, rng.integers(0, 1 << 64, SLICE_COLS // 64, dtype=np.uint64)
+
+
+def _bits(words):
+    return np.unpackbits(words.view(np.uint8), bitorder="little").astype(
+        bool)
+
+
+def stars_rows(v, nn):
+    """uint64[11, 16384]: the 10 bit planes of the values and the
+    not-null row, as the field view stores them."""
+    shifts = np.arange(STARS_DEPTH, dtype=np.int16)[:, None]
+    planes = np.packbits(((v[None, :] >> shifts) & 1).astype(np.uint8),
+                         axis=1, bitorder="little").view(np.uint64)
+    return np.concatenate([planes & nn, nn[None]])
+
+
+def bsi_slice_hist(v, nn, f):
+    """int32[3, 1001]: one slice's histograms of the values of every
+    column with a value, of those in frame f's row 0, and of those in
+    row 1 — every BSI answer of the oracle derives from them."""
+    has = _bits(nn)
+    return np.stack([np.bincount(v[m], minlength=STARS_MAX + 1)
+                     for m in (has, has & _bits(f[0]), has & _bits(f[1]))]
+                    ).astype(np.int32)
+
+
+def _write_stars_slices(frag_dir, seed, lo, hi):
+    """Worker: the ``field_stars`` fragment files of slices [lo, hi) —
+    rows 0-9 the value bits, row 10 the not-null row — written by the
+    port's codec; returns their oracle histograms."""
+    from pilosa_tpu_torch.roaring import codec
+
+    keys = np.arange((STARS_DEPTH + 1) * 16, dtype=np.uint64)
+    hist = np.zeros((hi - lo, 3, STARS_MAX + 1), np.int32)
+    for i, s in enumerate(range(lo, hi)):
+        v, nn = stars_values(seed, s)
+        with open(os.path.join(frag_dir, str(s)), "wb") as fh:
+            fh.write(codec.serialize_arrays(
+                keys, stars_rows(v, nn).reshape(-1, 1024)))
+        hist[i] = bsi_slice_hist(v, nn, slice_words(seed, s))
+    return lo, hist
+
+
+def bsi_answers(hist):
+    """Every BSI_QUERIES answer over the slices of ``hist`` (stacked
+    bsi_slice_hist), as the executor returns it."""
+    from pilosa_tpu_torch.executor import SumCount
+
+    h_all, h_f0, h_f1 = hist.sum(axis=0, dtype=np.int64)
+    k = np.arange(STARS_MAX + 1)
+
+    def total(h):
+        return SumCount(int((k * h).sum()), int(h.sum()))
+
+    def extreme(h, find_max):
+        have = np.flatnonzero(h)
+        if not len(have):
+            return SumCount(0, 0)
+        x = int(have[-1] if find_max else have[0])
+        return SumCount(x, int(h[x]))
+
+    n = int(h_all.sum())
+    return {
+        "a_sum": total(h_all), "a_avg": total(h_all), "b": total(h_f0),
+        "c": int(h_all[31:].sum()), "d": int(h_all[10:61].sum()),
+        "e": int(h_f0[500:].sum()),
+        "f_min": extreme(h_all, False), "f_max": extreme(h_all, True),
+        "f_max_f1": extreme(h_f1, True),
+        "g_eq0": int(h_all[0]), "g_neq7": n - int(h_all[7]),
+        "g_lt5000": n, "g_gt5000": 0, "g_notnull": n,
+    }
+
+
+def bsi_path(slices, seed, datadir, card):
+    """Phase 6: the BSI field ``stars`` on frame t, every BSI query on
+    both paths against the numpy oracle, before and after
+    SetFieldValue."""
+    import torch
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import bsi as bsi_ops
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.storage.frame import Field, Frame
+    from pilosa_tpu_torch.storage.holder import Holder
+    from pilosa_tpu_torch.storage.view import view_field_name
+
+    # Frame t keeps only the field: phase 5's rows are dropped, so the
+    # open reads f and the field and the card holds their mirrors alone.
+    # A range-enabled frame has no TopN cache (Index.create_frame).
+    frame_dir = os.path.join(datadir, "i", "t")
+    shutil.rmtree(os.path.join(frame_dir, "views", "standard"))
+    frame = Frame(frame_dir, "i", "t")
+    frame.load_meta()
+    frame.range_enabled = True
+    frame.cache_type = "none"
+    frame.create_field(Field("stars", min=STARS_MIN, max=STARS_MAX))
+    check(frame.field("stars").bit_depth() == STARS_DEPTH, "bit depth")
+    frag_dir = os.path.join(frame_dir, "views", view_field_name("stars"),
+                            "fragments")
+    os.makedirs(frag_dir)
+    t0 = time.perf_counter()
+    hist = np.zeros((slices, 3, STARS_MAX + 1), np.int32)
+    procs, parts = in_processes(_write_stars_slices, frag_dir, seed, slices)
+    for lo, h in parts:
+        hist[lo:lo + len(h)] = h
+    write_s = time.perf_counter() - t0
+    print(f"bsi: wrote field stars (min {STARS_MIN}, max {STARS_MAX}, "
+          f"depth {STARS_DEPTH}) on frame t, {STARS_DEPTH + 1} rows x "
+          f"{slices} slices ({slices * (STARS_DEPTH + 1) * 16384 * 8 / 1e9:.2f}"
+          f" GB of rows), {int(hist[:, 0].sum())} values, in {procs} "
+          f"processes in {write_s:.1f} s")
+
+    reset_peak()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    holder = Holder(datadir, device=DEVICE).open()
+    open_s = time.perf_counter() - t0
+    check(holder.index("i").max_slice() == slices - 1, "max_slice")
+    ex = Executor(holder)
+    want = bsi_answers(hist)
+    for label in ("f_min", "f_max", "f_max_f1"):
+        check(want[label].count > 1, f"data: {label} has no tie, "
+              f"{want[label]}")
+    check(want["f_min"].sum == STARS_MIN and want["f_max"].sum == STARS_MAX,
+          f"data: extremes {want['f_min']} {want['f_max']}")
+    queries = dict(BSI_QUERIES)
+    t0 = time.perf_counter()
+    got = ex.execute("i", queries["a_sum"])[0]
+    sync()
+    first_s = time.perf_counter() - t0
+    check(got == want["a_sum"], f"{queries['a_sum']}: {got} != oracle "
+          f"{want['a_sum']}")
+
+    serial_ms = {}
+
+    def run(tag, labels):
+        for path in ("batched", "serial"):
+            ex._force_path = path
+            for label in labels:
+                q = queries[label]
+                t = time.perf_counter()
+                got = ex.execute("i", q)[0]
+                dt = (time.perf_counter() - t) * 1e3
+                check(got == want[label],
+                      f"{tag} {path} {q}: {got} != oracle {want[label]}")
+                if path == "serial":
+                    serial_ms.setdefault(label, []).append(dt / slices)
+                print(f"  {tag} {path:7s} {dt:10.2f} ms  ({label}) {q} -> "
+                      f"{got}")
+        ex._force_path = None
+
+    run("query", [label for label, _ in BSI_QUERIES])
+    lat = {}
+    for label in ("a_sum", "b", "c", "f_max"):
+        ms = []
+        for _ in range(50):
+            t = time.perf_counter()
+            got = ex.execute("i", queries[label])[0]
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            check(got == want[label], f"warm ({label}) changed")
+        lat[label] = np.asarray(ms)
+
+    # The descent of (c) alone, on the cached stacks.
+    view = view_field_name("stars")
+    bsi_stacks = [ex._leaf_stack("i", ("t", view, i), range(slices))
+                  for i in range(STARS_DEPTH + 1)]
+    bits = bsi_ops.value_to_bits(30, STARS_DEPTH)
+    descent_ms = timed_ms(lambda: bsi_ops.bsi_gt(bsi_stacks[:-1],
+                                                 bsi_stacks[-1], bits),
+                          reps=10)
+    del bsi_stacks
+
+    # SetFieldValue: a column without a value gets 1000, a column with a
+    # value in [100, 999] gets half of it; (a), (c) and Max move.
+    s = slices // 2
+    v, nn = stars_values(seed, s)
+    has = _bits(nn)
+    empty_col = int(np.flatnonzero(~has)[0])
+    low_col = int(np.flatnonzero(has & (v >= 100) & (v < STARS_MAX))[0])
+    for col, value in ((empty_col, STARS_MAX),
+                       (low_col, int(v[low_col]) // 2)):
+        res = ex.execute("i", f'SetFieldValue(frame="t", '
+                              f'columnID={s * SLICE_WIDTH + col}, '
+                              f'stars={value})')
+        check(res == [None], f"SetFieldValue returned {res}")
+        v[col] = value
+        nn[col // 64] |= np.uint64(1 << (col % 64))
+    hist[s] = bsi_slice_hist(v, nn, slice_words(seed, s))
+    want = bsi_answers(hist)
+    run("setfieldvalue", ["a_sum", "c", "f_max"])
+    launches = dict(kernels.launches)
+    peak = peak_bytes()
+    holder.close()
+    check(all(launches.values()),
+          f"a kernel never launched on the BSI path: {launches}")
+
+    def pct(label):
+        a = lat[label]
+        return (f"({label}) p50 {np.percentile(a, 50):.3f} ms, p90 "
+                f"{np.percentile(a, 90):.3f} ms, max {a.max():.3f} ms")
+
+    print(f"bsi {card}: open {open_s:.2f} s, first Sum {first_s:.2f} s "
+          f"(mirrors and stacks built); warm batched over {slices} slices "
+          f"(n=50 each, host clock to torch.cuda.synchronize()): "
+          f"{'; '.join(pct(lb) for lb in lat)}; descent of (c) alone "
+          f"{descent_ms:.4f} ms (CUDA events, 10 reps); serial path ms per "
+          f"slice: " + ", ".join(
+              f"{lb} {np.mean(v):.3f}" for lb, v in serial_ms.items())
+          + f"; max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slices", type=int, default=MAIN_SLICES,
                     help="slices of 2^20 columns (default 9537 = 10.0B)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    # Each line reaches a redirected log as it is printed.
+    sys.stdout.reconfigure(line_buffering=True)
 
     import torch
 
@@ -668,13 +979,15 @@ def main():
     # Phase 3: kernels against their plain versions.
     stats = kernel_checks(args.slices, card)
 
-    # Phases 4 and 5: the main path, Count then TopN, each read with
-    # the launch counts reset just before it.
+    # Phases 4, 5 and 6: the main path, Count, TopN and BSI, each read
+    # with the launch counts reset just before it.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
     try:
-        count_launches = main_path(args.slices, args.seed, datadir, card)
-        topn_launches = topn_path(args.slices, args.seed, datadir, card)
+        phase_launches = [
+            main_path(args.slices, args.seed, datadir, card),
+            topn_path(args.slices, args.seed, datadir, card),
+            bsi_path(args.slices, args.seed, datadir, card)]
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
 
@@ -688,7 +1001,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name],
-         "launches": count_launches[name] + topn_launches[name],
+         "launches": sum(pl[name] for pl in phase_launches),
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"],

@@ -8,12 +8,14 @@ reference implementation; this package imports nothing from it.
 
 Layout (module names mirror ``pilosa_tpu``)
 ------
-- ``ops/``      bitwise algebra, popcount plain versions, kernel wrappers
+- ``ops/``      bitwise algebra, BSI descents, popcount plain versions,
+                kernel wrappers
 - ``csrc/``     CUDA C++ kernel sources, built with nvcc at first use
 - ``roaring/``  host-side roaring on-disk codec (numpy)
 - ``storage/``  fragment / view / frame / index / holder hierarchy
 - ``pql/``      PQL scanner / parser / AST
-- ``executor``  Count/SetBit/ClearBit over Bitmap trees, serial and batched
+- ``executor``  Count, TopN, BSI Sum/Average/Min/Max and the writes over
+                Bitmap trees and BSI conditions, serial and batched
 
 Entry points run on the GPU (``device="cuda"``) unless the caller asks
 for the CPU; without a GPU they raise instead of falling back.

@@ -1,11 +1,14 @@
-"""Query executor — Count and TopN (ref: executor.go; counterpart of
-pilosa_tpu/executor.py).
+"""Query executor — Count, TopN and the BSI aggregates (ref:
+executor.go; counterpart of pilosa_tpu/executor.py).
 
 ``Executor.execute(index, pql)`` runs ``Count`` over trees of
-``Bitmap``/``Intersect``/``Union``/``Difference``/``Xor``, ``TopN``
-(with or without a Src tree, ``ids``, ``threshold``,
-``tanimotoThreshold``, ``inverse``) and ``SetBit``/``ClearBit``, on one
-node. A Count maps over the index's slices by one of two paths:
+``Bitmap``/``Intersect``/``Union``/``Difference``/``Xor`` and BSI
+``Range(frame=…, field <op> value)`` conditions, ``TopN`` (with or
+without a Src tree, ``ids``, ``threshold``, ``tanimotoThreshold``,
+``inverse``), ``Sum``/``Average``/``Min``/``Max`` over a BSI integer
+field (with or without a filter tree) and ``SetBit``/``ClearBit``/
+``SetFieldValue``, on one node. A Count maps over the index's slices by
+one of two paths:
 
 - **batched** (the default): each Bitmap leaf becomes one
   ``int32[n_slices, 32768]`` device stack (cached until a fragment
@@ -16,6 +19,17 @@ node. A Count maps over the index's slices by one of two paths:
   sum, so a 10B-column count cannot wrap.
 - **serial**: slice by slice through ``Bitmap`` algebra, two-operand
   nodes through the count kernels without materialising.
+
+A BSI field's plane i is row i of the view ``field_<name>`` and its
+not-null row is row ``depth``, so the batched path reads them as
+ordinary cached leaf stacks. A ``Range`` condition plans as a ``"bsi"``
+node — the comparison descent of ``ops/bsi.py`` over the plane stacks —
+with the reference's shortcuts folded in at plan time (out of range:
+``"empty"``; a condition every value meets: the not-null leaf). Batched
+``Sum`` is one ``count_and_rows`` launch over the depth+1 BSI stacks
+against the filter; batched ``Min``/``Max`` one global descent over all
+slices with one count launch and one host sync per plane. Serially,
+each slice's fragment answers through ``Fragment.field_*``.
 
 TopN runs in two phases (ref: executeTopN executor.go:369-406): phase 1
 ranks each slice's cached rows and keeps its top n, the merged ids are
@@ -33,6 +47,7 @@ batched planner does not cover (errors, unsupported leaves) goes serial,
 where the reference's error messages are raised.
 """
 import threading
+from collections import namedtuple
 from datetime import datetime
 
 import numpy as np
@@ -42,14 +57,21 @@ from pilosa_tpu_torch import WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import topn as topn_ops
-from pilosa_tpu_torch.pql import parse
+from pilosa_tpu_torch.pql import Condition, parse
 from pilosa_tpu_torch.storage.fragment import TopOptions
-from pilosa_tpu_torch.storage.view import VIEW_INVERSE, VIEW_STANDARD
+from pilosa_tpu_torch.storage.view import (
+    VIEW_INVERSE,
+    VIEW_STANDARD,
+    view_field_name,
+)
 
 DEFAULT_FRAME = "general"        # ref: executor.go:31
 MIN_THRESHOLD = 1                # ref: executor.go:33-35
 TIME_FORMAT = "%Y-%m-%dT%H:%M"   # ref: TimeFormat "2006-01-02T15:04"
+
+SumCount = namedtuple("SumCount", ["sum", "count"])
 
 KNOWN_CALLS = frozenset({
     "SetBit", "ClearBit", "SetFieldValue", "SetRowAttrs", "SetColumnAttrs",
@@ -65,6 +87,52 @@ _COUNT_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot",
 # A batch function's answer when its stacks would exceed the stack
 # budget: the windowed wrapper then halves the slice list.
 BATCH_OVER_BUDGET = object()
+
+
+def _condition_target(field, cond):
+    """What a BSI condition reads, decided from the field, the op and the
+    value alone, never from a slice (ref: executeFieldRangeSlice
+    executor.go:682-819): ``("empty",)`` when no value can match,
+    ``("not_null",)`` when every value does, else ``(op, base value(s))``
+    for the descent. Raises the reference's ValueErrors."""
+    if cond.op == "!=" and cond.value is None:
+        return ("not_null",)
+    if cond.op == "><":
+        predicates = cond.int_slice_value()
+        if len(predicates) != 2:
+            raise ValueError("Range(): BETWEEN condition requires exactly "
+                             "two integer values")
+        lo, hi, out_of_range = field.base_value_between(*predicates)
+        if out_of_range:
+            return ("empty",)
+        if predicates[0] <= field.min and predicates[1] >= field.max:
+            return ("not_null",)
+        return ("><", lo, hi)
+    value = cond.value
+    if isinstance(value, bool) or not isinstance(value, int):
+        raise ValueError("Range(): conditions only support integer values")
+    base, out_of_range = field.base_value(cond.op, value)
+    if out_of_range and cond.op != "!=":
+        return ("empty",)
+    if ((cond.op == "<" and value > field.max)
+            or (cond.op == "<=" and value >= field.max)
+            or (cond.op == ">" and value < field.min)
+            or (cond.op == ">=" and value <= field.min)
+            or (cond.op == "!=" and out_of_range)):
+        return ("not_null",)
+    return (cond.op, base)
+
+
+def _fold_empty(op, kids):
+    """A plan node with its statically empty operands folded away, so
+    ``"empty"`` stands only at a plan's root: Intersect with one, or
+    Difference with one on the left, is empty; Union, Xor and the right
+    of a Difference drop them."""
+    if ((op == "Intersect" and any(k[0] == "empty" for k in kids))
+            or (op == "Difference" and kids[0][0] == "empty")):
+        return ("empty",)
+    kids = [k for k in kids if k[0] != "empty"]
+    return (op, kids) if kids else ("empty",)
 
 
 def pairs_add(a, b):
@@ -120,12 +188,24 @@ class Executor:
             return self._execute_set_bit(index, call, set_value=True)
         if name == "ClearBit":
             return self._execute_set_bit(index, call, set_value=False)
+        if name == "SetFieldValue":
+            return self._execute_set_field_value(index, call)
         if name == "Count":
             return self._execute_count(index, call, slices)
         if name == "TopN":
             return self._execute_topn(index, call, slices)
+        if name in ("Sum", "Average"):
+            return self._execute_sum(index, call, slices)
+        if name in ("Min", "Max"):
+            return self._execute_min_max(index, call, slices,
+                                         find_max=name == "Max")
+        if name in ("SetRowAttrs", "SetColumnAttrs"):
+            raise NotImplementedError(
+                f"{name}() needs the attribute store, which is not ported "
+                "to pilosa_tpu_torch yet")
         raise NotImplementedError(
-            f"{name}() is not ported to pilosa_tpu_torch yet")
+            f"{name}() at the top level returns a bitmap, and bitmap "
+            "results are not ported to pilosa_tpu_torch yet")
 
     # ------------------------------------------------------ map/reduce
 
@@ -169,11 +249,17 @@ class Executor:
         if len(call.children) != 1:
             raise ValueError("Count() only accepts a single bitmap input")
         child = call.children[0]
+
+        def reduce_fn(prev, v):
+            return (prev or 0) + v
+
         return self._map_reduce(
             slices,
             lambda s: self._count_call_slice(index, child, s),
-            lambda prev, v: (prev or 0) + v,
-            lambda ns: self._batched_count(index, child, ns)) or 0
+            reduce_fn,
+            self._windowed_batch(
+                lambda ns: self._batched_count(index, child, ns), reduce_fn),
+        ) or 0
 
     def _count_call_slice(self, index, call, slice_num):
         """Count-only per-slice evaluation: a two-operand boolean node
@@ -210,9 +296,50 @@ class Executor:
                     out = out.xor(bm)
             return out
         if name == "Range":
+            if call.has_condition_arg():
+                return self._execute_field_range_slice(index, call,
+                                                       slice_num)
             raise NotImplementedError(
-                "Range() is not ported to pilosa_tpu_torch yet")
+                "a time Range() reads time-quantum views, which are not "
+                "ported to pilosa_tpu_torch yet")
         raise ValueError(f"unknown call: {name}")
+
+    def _range_condition(self, index, call):
+        """(frame name, field, ``_condition_target``) of a BSI Range
+        call, with the reference's argument errors."""
+        frame_name = call.args.get("frame") or DEFAULT_FRAME
+        frame = self.holder.index(index).frame(frame_name)
+        if frame is None:
+            raise perr.ErrFrameNotFound()
+        args = {k: v for k, v in call.args.items() if k != "frame"}
+        if not args:
+            raise ValueError("Range(): condition required")
+        if len(args) > 1:
+            raise ValueError("Range(): too many arguments")
+        field_name, cond = next(iter(args.items()))
+        if not isinstance(cond, Condition):
+            raise ValueError(
+                f'Range(): "{field_name}": expected condition argument, '
+                f"got {cond}")
+        field = frame.field(field_name)
+        return frame_name, field, _condition_target(field, cond)
+
+    def _execute_field_range_slice(self, index, call, slice_num):
+        """BSI condition on one slice (ref: executeFieldRangeSlice
+        executor.go:682-819)."""
+        frame_name, field, target = self._range_condition(index, call)
+        depth = field.bit_depth()
+        frag = self.holder.fragment(index, frame_name,
+                                    view_field_name(field.name), slice_num)
+        if frag is None or target[0] == "empty":
+            return Bitmap()
+        if target[0] == "not_null":
+            words = frag.field_not_null(depth)
+        elif target[0] == "><":
+            words = frag.field_range_between(depth, *target[1:])
+        else:
+            words = frag.field_range(target[0], depth, target[1])
+        return Bitmap.from_device(slice_num, words)
 
     def _leaf_spec(self, index, call):
         """(frame, view, row id) a Bitmap call reads, with the
@@ -261,6 +388,8 @@ class Executor:
             if spec not in leaves:
                 leaves.append(spec)
             return ("leaf", leaves.index(spec))
+        if call.name == "Range" and call.has_condition_arg():
+            return self._plan_bsi_range(index, call, leaves)
         if call.name in _BATCH_OPS and call.children:
             kids = []
             for c in call.children:
@@ -268,22 +397,62 @@ class Executor:
                 if node is None:
                     return None
                 kids.append(node)
-            return (call.name, kids)
+            return _fold_empty(call.name, kids)
         return None
+
+    def _plan_bsi_range(self, index, call, leaves):
+        """BSI condition -> a ``"bsi"`` node over the field view's rows
+        (``("bsi", plane leaf positions, not-null leaf position, op,
+        predicate bits per value)``, the bits host ints), ``("empty",)``,
+        or the not-null leaf — the serial path's shortcuts, which depend
+        on field, op and value only, decided once at plan time. None
+        when the call is malformed: the serial path then raises the
+        reference's error."""
+        try:
+            frame_name, field, target = self._range_condition(index, call)
+        except (TypeError, ValueError, perr.PilosaError):
+            return None
+        depth = field.bit_depth()
+        view = view_field_name(field.name)
+
+        def leaf(row):
+            spec = (frame_name, view, row)
+            if spec not in leaves:
+                leaves.append(spec)
+            return leaves.index(spec)
+
+        if target[0] == "empty":
+            return target
+        if target[0] == "not_null":
+            return ("leaf", leaf(depth))
+        return ("bsi", tuple(leaf(i) for i in range(depth)), leaf(depth),
+                target[0], tuple(bsi_ops.value_to_bits(v, depth)
+                                 for v in target[1:]))
+
+    def _over_budget(self, n_stacks, slices):
+        """True when ``n_stacks`` leaf stacks over the slice list would
+        not fit the stack budget together."""
+        return (n_stacks * len(slices) * WORDS_PER_SLICE * 4
+                > self.STACK_CACHE_BYTES)
 
     def _batched_count(self, index, child, slices):
         """Count over the slice list with one device stack per leaf: the
         tree folds with PyTorch bitwise ops and its root op runs fused
-        in the count kernel, which yields int32 per-slice counts."""
+        in the count kernel, which yields int32 per-slice counts.
+        BATCH_OVER_BUDGET when the leaf stacks would not fit the stack
+        budget together."""
         if len(slices) == 0:
             return None
         leaves = []
         plan = self._batched_plan(index, child, leaves)
         if plan is None:
             return None
+        if plan[0] == "empty":
+            return 0
+        if self._over_budget(len(leaves), slices):
+            return BATCH_OVER_BUDGET
         stacks = [self._leaf_stack(index, spec, slices) for spec in leaves]
-        counts = self._count_node(plan, stacks)
-        return int(counts.sum(dtype=torch.int64))
+        return int(self._count_node(plan, stacks).sum(dtype=torch.int64))
 
     @staticmethod
     def _eval_node(node, stacks):
@@ -291,6 +460,10 @@ class Executor:
         pairwise order."""
         if node[0] == "leaf":
             return stacks[node[1]]
+        if node[0] == "bsi":
+            _, plane_pos, exists_pos, op, bits = node
+            return bsi_ops.COMPARE[op]([stacks[p] for p in plane_pos],
+                                       stacks[exists_pos], *bits)
         out = None
         for kid in node[1]:
             v = Executor._eval_node(kid, stacks)
@@ -310,7 +483,7 @@ class Executor:
     def _count_node(node, stacks):
         """int32 per-slice counts of ``node``: its first n-1 operands
         fold, the last one meets them inside ``count_op_rows``."""
-        if node[0] == "leaf" or len(node[1]) == 1:
+        if node[0] in ("leaf", "bsi") or len(node[1]) == 1:
             return bitops.count_rows(Executor._eval_node(node, stacks))
         acc = Executor._eval_node((node[0], node[1][:-1]), stacks)
         last = Executor._eval_node(node[1][-1], stacks)
@@ -356,6 +529,173 @@ class Executor:
                 self._stack_bytes -= ev[2].numel() * ev[2].element_size()
             self._stack_cache[key] = entry
             self._stack_bytes += nbytes
+
+    # ------------------------------------------------- Sum / Min / Max
+
+    def _bsi_field(self, index, call):
+        """(frame name, field) of a BSI aggregate, or None when the frame
+        or the field does not exist."""
+        frame_name = call.args.get("frame") or ""
+        frame = self.holder.index(index).frame(frame_name)
+        if frame is None:
+            return None
+        try:
+            return frame_name, frame.field(call.args.get("field") or "")
+        except perr.ErrFieldNotFound:
+            return None
+
+    def _filter_words(self, index, call, slice_num):
+        """The slice's words of a BSI aggregate's filter tree, or None
+        without one."""
+        if len(call.children) != 1:
+            return None
+        bm = self._bitmap_call_slice(index, call.children[0], slice_num)
+        return bm.device_words(slice_num, self.device)
+
+    def _execute_sum(self, index, call, slices):
+        """Sum and Average (ref: executeSum executor.go:328-366): the
+        SumCount of the field's values, ∩ the filter tree when given."""
+        if call.args.get("field") is None:
+            raise ValueError("Sum(): field required")
+
+        def reduce_fn(prev, v):
+            if prev is None:
+                return v
+            return SumCount(prev.sum + v.sum, prev.count + v.count)
+
+        return self._map_reduce(
+            slices, lambda s: self._execute_sum_count_slice(index, call, s),
+            reduce_fn,
+            self._windowed_batch(
+                lambda ns: self._batched_sum(index, call, ns), reduce_fn),
+        ) or SumCount(0, 0)
+
+    def _execute_sum_count_slice(self, index, call, slice_num):
+        filt = self._filter_words(index, call, slice_num)
+        resolved = self._bsi_field(index, call)
+        if resolved is None:
+            return SumCount(0, 0)
+        frame_name, field = resolved
+        frag = self.holder.fragment(index, frame_name,
+                                    view_field_name(field.name), slice_num)
+        if frag is None:
+            return SumCount(0, 0)
+        vsum, vcount = frag.field_sum(filt, field.bit_depth())
+        return SumCount(vsum + vcount * field.min, vcount)
+
+    def _execute_min_max(self, index, call, slices, find_max):
+        """Min/Max over a BSI field (ref: executeMinMax): per-slice
+        extrema reduced on the host, empty partials skipped, or one
+        global descent on the batched path."""
+        frame_name = call.args.get("frame") or ""
+        frame = self.holder.index(index).frame(frame_name)
+        if frame is None:
+            return SumCount(0, 0)
+        field = frame.field(call.args.get("field") or "")
+        depth = field.bit_depth()
+
+        def map_fn(s):
+            filt = self._filter_words(index, call, s)
+            frag = self.holder.fragment(index, frame_name,
+                                        view_field_name(field.name), s)
+            if frag is None:
+                return None
+            value, count = frag.field_min_max(filt, depth, find_max)
+            if count == 0:
+                return None
+            return SumCount(value + field.min, count)
+
+        def reduce_fn(prev, v):
+            # A partial without values must not compete as an extremum
+            # of 0 (ref: executeMinMax reduce skips Count == 0).
+            if v is None or v.count == 0:
+                return prev
+            if prev is None:
+                return v
+            if v.sum == prev.sum:
+                return SumCount(prev.sum, prev.count + v.count)
+            better = v.sum > prev.sum if find_max else v.sum < prev.sum
+            return v if better else prev
+
+        return self._map_reduce(
+            slices, map_fn, reduce_fn,
+            self._windowed_batch(
+                lambda ns: self._batched_min_max(index, call, ns, find_max),
+                reduce_fn),
+        ) or SumCount(0, 0)
+
+    def _bsi_batch_prelude(self, index, call, slices):
+        """(field, the depth+1 BSI stacks, filter stack) of a batched
+        BSI aggregate: plane i and the not-null row ``depth`` are leaf
+        stacks of the field view, the filter is the not-null stack ∩
+        the filter tree. None when ineligible (missing frame or field,
+        an unbatchable filter tree); BATCH_OVER_BUDGET when the stacks
+        would not fit the stack budget together; SumCount(0, 0), the
+        answer, when the filter tree is statically empty."""
+        if len(slices) == 0:
+            return None
+        resolved = self._bsi_field(index, call)
+        if resolved is None:
+            return None
+        frame_name, field = resolved
+        leaves = []
+        plan = None
+        if len(call.children) == 1:
+            plan = self._batched_plan(index, call.children[0], leaves)
+            if plan is None:
+                return None
+        elif call.children:
+            return None
+        if plan is not None and plan[0] == "empty":
+            return SumCount(0, 0)
+        depth = field.bit_depth()
+        if self._over_budget(depth + 1 + len(leaves), slices):
+            return BATCH_OVER_BUDGET
+        view = view_field_name(field.name)
+        bsi_stacks = [self._leaf_stack(index, (frame_name, view, i), slices)
+                      for i in range(depth + 1)]
+        filt = bsi_stacks[depth]
+        if plan is not None:
+            filt = filt & self._eval_node(
+                plan, [self._leaf_stack(index, sp, slices) for sp in leaves])
+        return field, bsi_stacks, filt
+
+    def _batched_sum(self, index, call, slices):
+        """Sum over the slice list in ONE ``count_and_rows`` launch: the
+        depth planes and the not-null row against the filter, the filter
+        read once per chunk of rows. The not-null row's count is the
+        filter's (the filter lies inside it); Σ 2^i·c_i and the min
+        offset are Python ints, so no sum can wrap."""
+        pre = self._bsi_batch_prelude(index, call, slices)
+        if (pre is None or pre is BATCH_OVER_BUDGET
+                or isinstance(pre, SumCount)):
+            return pre
+        field, bsi_stacks, filt = pre
+        counts = bitops.count_and_rows_stacks(bsi_stacks, filt).sum(
+            dim=1, dtype=torch.int64).tolist()
+        count = counts[-1]
+        total = sum((1 << i) * c for i, c in enumerate(counts[:-1]))
+        return SumCount(total + count * field.min, count)
+
+    def _batched_min_max(self, index, call, slices, find_max):
+        """Min/Max over the slice list as ONE global bit-descent (ref:
+        pilosa_tpu executor.py _batched_min_max / _minmax_descent): each
+        plane's choice tests occupancy across every slice (one count
+        launch, one host sync per plane). A slice whose own extremum
+        loses holds no column at the global one, so this equals the
+        serial reduce. SumCount(0, 0) when no value matches."""
+        pre = self._bsi_batch_prelude(index, call, slices)
+        if (pre is None or pre is BATCH_OVER_BUDGET
+                or isinstance(pre, SumCount)):
+            return pre
+        field, bsi_stacks, filt = pre
+        ind, remaining = bsi_ops.bsi_extrema_indicators(
+            bsi_stacks[:-1], filt, find_max)
+        count = int(bitops.count(remaining))
+        if count == 0:
+            return SumCount(0, 0)
+        value = sum((1 << i) * b for i, b in enumerate(ind.tolist()))
+        return SumCount(value + field.min, count)
 
     # ------------------------------------------------------------- TopN
 
@@ -511,10 +851,11 @@ class Executor:
         the Src stack (zeroed by the Tanimoto ceil gate when asked), or
         |row| from ``count_rows`` without a Src. Candidate rows and Src
         leaves come from the cached leaf stacks; BATCH_OVER_BUDGET when
-        they would not fit the stack budget together."""
-        n_stacks = len(row_ids) + len(leaves)
-        if (n_stacks * len(slices) * WORDS_PER_SLICE * 4
-                > self.STACK_CACHE_BYTES):
+        they would not fit the stack budget together. A statically empty
+        Src counts zero everywhere."""
+        if plan is not None and plan[0] == "empty":
+            return np.zeros((len(row_ids), len(slices)), np.int64)
+        if self._over_budget(len(row_ids) + len(leaves), slices):
             return BATCH_OVER_BUDGET
         stacks = [self._leaf_stack(index, (frame_name, view, rid), slices)
                   for rid in row_ids]
@@ -583,4 +924,31 @@ class Executor:
             else:
                 changed |= frame.clear_bit(view_name, r, c)
         return changed
+
+    # ------------------------------------------------------ SetFieldValue
+
+    def _execute_set_field_value(self, index, call):
+        """(ref: executeSetFieldValue executor.go:1091-1161), one node:
+        each ``field=value`` argument is written; the result is None."""
+        frame_name = call.args.get("frame")
+        if not isinstance(frame_name, str):
+            raise ValueError("SetFieldValue() field required: frame")
+        idx = self.holder.index(index)
+        frame = idx.frame(frame_name)
+        if frame is None:
+            raise perr.ErrFrameNotFound()
+        col_id, ok = call.uint_arg(idx.column_label)
+        if not ok:
+            raise ValueError(
+                f"SetFieldValue() column field '{idx.column_label}' required")
+        fields = {k: v for k, v in call.args.items()
+                  if k not in ("frame", idx.column_label)}
+        if not fields:
+            raise ValueError("SetFieldValue() at least one field "
+                             "value is required")
+        for fname, value in fields.items():
+            if isinstance(value, bool) or not isinstance(value, int):
+                raise perr.ErrInvalidFieldValueType()
+            frame.set_field_value(col_id, fname, value)
+        return None
 

@@ -24,10 +24,14 @@ write, written back on close. ``top()`` ranks exact counts — host row
 counts, or the ``count_and_rows`` kernel against a Src row on the device
 — over the rows the cache admits.
 
+A BSI field's fragment (view ``field_<name>``) holds the value bits in
+rows 0..depth-1 and the not-null row ``depth``; ``planes`` hands them to
+the descents of ``ops/bsi.py`` as one device matrix.
+
 Rows always span the full slice (no column windows, no lazy/evicted
-serving, no compressed containers, no BSI planes — those are later
-slices of the port). A fragment under a holder holds no per-file lock:
-the holder's directory lock covers it.
+serving, no compressed containers — those are later slices of the
+port). A fragment under a holder holds no per-file lock: the holder's
+directory lock covers it.
 """
 import io
 import itertools
@@ -42,6 +46,7 @@ import torch
 from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.ops import bitops
+from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import topn as topn_ops
 from pilosa_tpu_torch.roaring import codec
 from pilosa_tpu_torch.storage.cache import NopCache, new_cache
@@ -521,6 +526,178 @@ class Fragment:
                 self.cache.bulk_add(self._phys_rows[p],
                                     int(self._row_counts[p]))
             self.cache.invalidate()
+
+    def import_value_bits(self, column_ids, base_values, bit_depth):
+        """Bulk BSI import: vectorized plane writes (ref: ImportValue
+        fragment.go:1335-1367; pilosa_tpu fragment.py:2400). Overwrites
+        any previous value, last write winning within the batch. A batch
+        of fresh inserts that fits the op-log budget appends fsync'd
+        records, column by column, each value sandwiched between a
+        REMOVE and an ADD of its not-null bit, so a torn tail replays as
+        null, never as a mix of old and new bits; a batch that
+        overwrites a value, or a larger one, lands as one snapshot."""
+        with self.mu:
+            column_ids = np.asarray(column_ids, dtype=np.uint64)
+            base_values = np.asarray(base_values, dtype=np.uint64)
+            if len(column_ids) == 0:
+                return
+            bad = column_ids // SLICE_WIDTH != self.slice
+            if bad.any():
+                raise ValueError(
+                    f"column:{int(column_ids[bad][0])} out of bounds for "
+                    f"slice {self.slice}")
+            cols = column_ids % SLICE_WIDTH
+            _, last_rev = np.unique(cols[::-1], return_index=True)
+            if len(last_rev) != len(cols):
+                keep = np.sort(len(cols) - 1 - last_rev)
+                cols, base_values = cols[keep], base_values[keep]
+            words = (cols >> np.uint64(6)).astype(np.int64)
+            masks = np.uint64(1) << (cols & np.uint64(63))
+            nn_phys = self._row_index.get(bit_depth)
+            any_overwrite = (nn_phys is not None and bool(
+                (self._matrix[nn_phys, words] & masks).any()))
+            n_ops = (bit_depth + 2) * len(cols)
+            use_oplog = (self._opened and not any_overwrite
+                         and self._op_log_room(n_ops))
+            if use_oplog:
+                plane_ids = np.arange(bit_depth, dtype=np.uint64)
+                sel = ((base_values[None, :] >> plane_ids[:, None])
+                       & np.uint64(1)) == 1
+                nn_pos = np.uint64(bit_depth * SLICE_WIDTH) + cols
+                # Record rows: REMOVE not-null, the plane ops, ADD
+                # not-null; ravel(order="F") lays them out per column.
+                pos_m = np.empty((bit_depth + 2, len(cols)), np.uint64)
+                typ_m = np.empty((bit_depth + 2, len(cols)), np.uint8)
+                pos_m[0], typ_m[0] = nn_pos, codec.OP_REMOVE
+                pos_m[1:-1] = (plane_ids[:, None] * np.uint64(SLICE_WIDTH)
+                               + cols[None, :])
+                typ_m[1:-1] = np.where(sel, codec.OP_ADD, codec.OP_REMOVE)
+                pos_m[-1], typ_m[-1] = nn_pos, codec.OP_ADD
+                self._append_ops_locked(
+                    codec.op_records(typ_m.ravel(order="F"),
+                                     pos_m.ravel(order="F")), fsync=True)
+                self.op_n += n_ops
+            touched = []
+            for i in range(bit_depth + 1):
+                phys = self._ensure_row_locked(i)
+                touched.append(phys)
+                if i == bit_depth:
+                    sel = np.ones(len(cols), dtype=bool)  # not-null row
+                else:
+                    sel = ((base_values >> np.uint64(i)) & np.uint64(1)) == 1
+                # Clear the columns' stale bits, then set the selected.
+                np.bitwise_and.at(self._matrix, (phys, words), ~masks)
+                np.bitwise_or.at(self._matrix, (phys, words[sel]), masks[sel])
+            self._recount_rows_locked(touched)
+            if not use_oplog:
+                self.snapshot()
+            self._touch_locked(touched)
+            for p in touched:
+                self.cache.bulk_add(self._phys_rows[p],
+                                    int(self._row_counts[p]))
+            self.cache.invalidate()
+
+    # ----------------------------------------------------------------- BSI
+
+    def planes(self, depth):
+        """int32[depth+1, 32768] device matrix of the BSI rows 0..depth
+        (bit planes, then the not-null row), full slice width. Rows
+        stored in order at consecutive physical indices — what every
+        import and first write leaves — come back as a view of the
+        device mirror; otherwise they are gathered by physical index,
+        absent rows as zeros."""
+        with self.mu:
+            phys = [self._row_index.get(i) for i in range(depth + 1)]
+            dev = self.device_matrix()
+            p0 = phys[0]
+            if p0 is not None and phys == list(range(p0, p0 + depth + 1)):
+                return dev[p0:p0 + depth + 1]
+            out = torch.zeros((depth + 1, WORDS_PER_SLICE),
+                              dtype=torch.int32, device=self.device)
+            have = [(i, p) for i, p in enumerate(phys) if p is not None]
+            if have:
+                dst = torch.tensor([i for i, _ in have], device=self.device)
+                src = torch.tensor([p for _, p in have], device=self.device)
+                out.index_copy_(0, dst, dev.index_select(0, src))
+            return out
+
+    def _filtered(self, planes, depth, filter_words):
+        """The not-null row, intersected with ``filter_words`` (int32
+        device words of the slice) when given."""
+        exists = planes[depth]
+        return exists if filter_words is None else exists & filter_words
+
+    def set_field_value(self, column_id, bit_depth, value):
+        """Write value bits into rows 0..depth-1 and the not-null row
+        (ref: fragment.go:517-546); True iff a bit changed."""
+        with self.mu:
+            changed = False
+            for i in range(bit_depth):
+                if (value >> i) & 1:
+                    changed |= self._mutate_locked(i, column_id, True)
+                else:
+                    changed |= self._mutate_locked(i, column_id, False)
+            changed |= self._mutate_locked(bit_depth, column_id, True)
+            return changed
+
+    def field_value(self, column_id, bit_depth):
+        """(value, exists) for one column (ref: fragment.go:493-515)."""
+        with self.mu:
+            col = column_id % SLICE_WIDTH
+            word, mask = col >> 6, np.uint64(1 << (col & 63))
+
+            def bit(row_id):
+                phys = self._row_index.get(row_id)
+                return phys is not None and bool(self._matrix[phys, word]
+                                                 & mask)
+
+            if not bit(bit_depth):
+                return 0, False
+            return sum(1 << i for i in range(bit_depth) if bit(i)), True
+
+    def field_sum(self, filter_words, bit_depth):
+        """(sum, count) over the columns with a value, ∩ ``filter_words``
+        when given (ref: FieldSum fragment.go:590-618). One
+        ``count_and_rows`` launch counts every plane and, as its last
+        row, the not-null row against the filter — the filter itself,
+        which lies inside it."""
+        planes = self.planes(bit_depth)
+        filt = self._filtered(planes, bit_depth, filter_words)
+        counts = bsi_ops.plane_counts(planes, filt).tolist()
+        return (sum((1 << i) * c for i, c in enumerate(counts[:-1])),
+                counts[-1])
+
+    def _range_bits(self, fn, bit_depth, *predicates):
+        planes = self.planes(bit_depth)
+        return fn(planes[:bit_depth], planes[bit_depth],
+                  *(bsi_ops.value_to_bits(p, bit_depth) for p in predicates))
+
+    def field_range(self, op, bit_depth, predicate):
+        """int32[32768] device words of the columns whose base value
+        satisfies ``op predicate`` (ref: FieldRange fragment.go:621-798)."""
+        return self._range_bits(bsi_ops.COMPARE[op], bit_depth, predicate)
+
+    def field_range_between(self, bit_depth, lo, hi):
+        """lo ≤ base value ≤ hi (ref: FieldRangeBetween
+        fragment.go:760)."""
+        return self._range_bits(bsi_ops.bsi_between, bit_depth, lo, hi)
+
+    def field_not_null(self, bit_depth):
+        """(ref: FieldNotNull fragment.go:755)."""
+        return self.device_row(bit_depth)
+
+    def field_min_max(self, filter_words, bit_depth, find_max):
+        """(base value, count of columns attaining it) of the Min or Max
+        over the columns with a value, ∩ ``filter_words`` when given;
+        (0, 0) when there are none."""
+        planes = self.planes(bit_depth)
+        filt = self._filtered(planes, bit_depth, filter_words)
+        if int(bitops.count(filt)) == 0:
+            return 0, 0
+        ind, remaining = bsi_ops.bsi_extrema_indicators(
+            planes[:bit_depth], filt, find_max)
+        value = sum((1 << i) * int(b) for i, b in enumerate(ind.tolist()))
+        return value, int(bitops.count(remaining))
 
     # ---------------------------------------------------------------- TopN
 

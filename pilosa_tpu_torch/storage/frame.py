@@ -1,20 +1,97 @@
-"""Frame — a row namespace with its views (ref: frame.go; counterpart of
-pilosa_tpu/storage/frame.py). The ``.meta`` file is read and written
-with pilosa_tpu's keys, so either package opens what the other wrote;
-keys this slice does not act on (time quantum, BSI fields) are carried
-through unchanged."""
+"""Frame — a row namespace with its views and BSI field schema (ref:
+frame.go; counterpart of pilosa_tpu/storage/frame.py). The ``.meta``
+file is read and written with pilosa_tpu's keys and key order, so either
+package opens what the other wrote, byte for byte; the time quantum is
+carried through unchanged.
+
+A BSI integer field ``f`` stores each column's value, offset by the
+field's ``min``, in rows 0..depth-1 of the view ``field_f`` (row i holds
+bit i) and marks the column in the not-null row ``depth``
+(fragment.go:493-528)."""
 import json
 import os
 import threading
 import time
 
+from pilosa_tpu_torch import SLICE_WIDTH
 from pilosa_tpu_torch import errors as perr
-from pilosa_tpu_torch.storage.view import VIEW_INVERSE, View
+from pilosa_tpu_torch.storage.view import VIEW_INVERSE, View, view_field_name
 
 DEFAULT_ROW_LABEL = "rowID"        # ref: frame.go:34-43
 DEFAULT_CACHE_TYPE = "ranked"
 DEFAULT_CACHE_SIZE = 50000
 CACHE_TYPES = ("ranked", "lru", "none")
+FIELD_TYPE_INT = "int"
+
+
+class Field:
+    """BSI int field schema (ref: FrameSchema/Field frame.go:983-1221)."""
+
+    def __init__(self, name, type=FIELD_TYPE_INT, min=0, max=0):
+        self.name = name
+        self.type = type
+        self.min = int(min)
+        self.max = int(max)
+
+    def validate(self):
+        if not self.name:
+            raise perr.ErrFieldNameRequired()
+        if self.type != FIELD_TYPE_INT:
+            raise perr.ErrInvalidFieldType()
+        if self.min > self.max:
+            raise perr.ErrInvalidFieldRange()
+        return self
+
+    def bit_depth(self):
+        """Bits needed for max-min (ref: frame.go:1100-1107)."""
+        for i in range(63):
+            if self.max - self.min < (1 << i):
+                return i
+        return 63
+
+    def base_value(self, op, value):
+        """(base_value, out_of_range) — offset encoding
+        (ref: Field.BaseValue frame.go:1121-1143)."""
+        base = 0
+        if op in (">", ">="):
+            if value > self.max:
+                return 0, True
+            if value > self.min:
+                base = value - self.min
+        elif op in ("<", "<="):
+            if value < self.min:
+                return 0, True
+            if value > self.max:
+                base = self.max - self.min
+            else:
+                base = value - self.min
+        elif op in ("==", "!="):
+            if value < self.min or value > self.max:
+                return 0, True
+            base = value - self.min
+        return base, False
+
+    def base_value_between(self, lo, hi):
+        """(ref: Field.BaseValueBetween frame.go:1146-1162)."""
+        if hi < self.min or lo > self.max:
+            return 0, 0, True
+        base_lo = lo - self.min if lo > self.min else 0
+        if hi > self.max:
+            base_hi = self.max - self.min
+        elif hi > self.min:
+            base_hi = hi - self.min
+        else:
+            base_hi = 0
+        return base_lo, base_hi, False
+
+    def to_dict(self):
+        return {"name": self.name, "type": self.type,
+                "min": self.min, "max": self.max}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(d["name"], d.get("type", FIELD_TYPE_INT),
+                   d.get("min", 0), d.get("max", 0))
 
 
 class Frame:
@@ -35,7 +112,7 @@ class Frame:
         self.cache_type = DEFAULT_CACHE_TYPE
         self.cache_size = DEFAULT_CACHE_SIZE
         self.time_quantum = ""
-        self.fields = []  # BSI field schema dicts, carried through
+        self.fields = []  # [Field]
         self.views = {}
 
     @property
@@ -54,7 +131,7 @@ class Frame:
         self.cache_type = m.get("cacheType", DEFAULT_CACHE_TYPE)
         self.cache_size = m.get("cacheSize", DEFAULT_CACHE_SIZE)
         self.time_quantum = m.get("timeQuantum", "")
-        self.fields = list(m.get("fields", []))
+        self.fields = [Field.from_dict(d) for d in m.get("fields", [])]
         self.created_at = float(m.get("createdAt") or 0.0)
 
     def save_meta(self):
@@ -67,7 +144,7 @@ class Frame:
                 "cacheType": self.cache_type,
                 "cacheSize": self.cache_size,
                 "timeQuantum": self.time_quantum,
-                "fields": self.fields,
+                "fields": [fd.to_dict() for fd in self.fields],
                 "createdAt": self.created_at,
             }, f)
 
@@ -127,10 +204,91 @@ class Frame:
         return v.clear_bit(row_id, column_id) if v else False
 
 
+    # ------------------------------------------------------------ fields
+
+    def field(self, name):
+        for fd in self.fields:
+            if fd.name == name:
+                return fd
+        raise perr.ErrFieldNotFound()
+
+    def _bump_epoch(self):
+        """Field DDL invalidates the executor's stacks and plans, which
+        bake the field's depth and range in."""
+        if self.epoch is not None:
+            self.epoch.bump()
+
+    def create_field(self, field):
+        """(ref: Frame.CreateField frame.go:367-385)."""
+        with self.mu:
+            if not self.range_enabled:
+                raise perr.ErrFrameFieldsNotAllowed()
+            if any(fd.name == field.name for fd in self.fields):
+                raise perr.ErrFieldExists()
+            field.validate()
+            self.fields.append(field)
+            self.save_meta()
+            self._bump_epoch()
+
+    def delete_field(self, name):
+        with self.mu:
+            fd = self.field(name)
+            self.fields.remove(fd)
+            self.save_meta()
+            v = self.views.pop(view_field_name(name), None)
+            if v:
+                v.close()
+            self._bump_epoch()
+
+    def _field_view(self, field):
+        return self.create_view_if_not_exists(view_field_name(field.name))
+
+    def set_field_value(self, column_id, field_name, value):
+        """Offset-encode and store (ref: Frame.SetFieldValue
+        frame.go:711-736); True iff a bit changed."""
+        field = self.field(field_name)
+        if value < field.min:
+            raise perr.ErrFieldValueTooLow()
+        if value > field.max:
+            raise perr.ErrFieldValueTooHigh()
+        return self._field_view(field).set_field_value(
+            column_id, field.bit_depth(), value - field.min)
+
+    def field_value(self, column_id, field_name):
+        """(value, exists) (ref: Frame.FieldValue frame.go:702-709)."""
+        field = self.field(field_name)
+        value, exists = self._field_view(field).field_value(
+            column_id, field.bit_depth())
+        return (value + field.min if exists else 0), exists
+
+    def import_value(self, field_name, column_ids, values):
+        """Bulk BSI import, one ``import_value_bits`` per slice (ref:
+        Frame.ImportValue frame.go:885-947)."""
+        field = self.field(field_name)
+        column_ids = [int(c) for c in column_ids]
+        values = [int(v) for v in values]
+        for val in values:
+            if val < field.min:
+                raise perr.ErrFieldValueTooLow()
+            if val > field.max:
+                raise perr.ErrFieldValueTooHigh()
+        view = self._field_view(field)
+        by_slice = {}
+        for col, val in zip(column_ids, values):
+            by_slice.setdefault(col // SLICE_WIDTH, []).append((col, val))
+        for slice_num, pairs in sorted(by_slice.items()):
+            view.create_fragment_if_not_exists(slice_num).import_value_bits(
+                [c for c, _ in pairs], [v - field.min for _, v in pairs],
+                field.bit_depth())
+
+
 class FrameOptions:
-    def __init__(self, row_label="", inverse_enabled=False, cache_type="",
-                 cache_size=0):
+    def __init__(self, row_label="", inverse_enabled=False,
+                 range_enabled=False, cache_type="", cache_size=0,
+                 fields=None):
         self.row_label = row_label
         self.inverse_enabled = inverse_enabled
+        self.range_enabled = range_enabled
         self.cache_type = cache_type
         self.cache_size = cache_size
+        self.fields = fields or []

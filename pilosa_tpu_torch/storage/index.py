@@ -108,15 +108,27 @@ class Index:
                     or (not opt.row_label
                         and self.column_label == DEFAULT_ROW_LABEL)):
                 raise perr.ErrColumnRowLabelEqual()
+            if opt.range_enabled:
+                if opt.inverse_enabled:
+                    raise perr.ErrInverseRangeNotAllowed()
+                if opt.cache_type and opt.cache_type != "none":
+                    raise perr.ErrRangeCacheNotAllowed()
+            elif opt.fields:
+                raise perr.ErrFrameFieldsNotAllowed()
+            for fd in opt.fields:
+                fd.validate()
             frame = self._new_frame(name)
             frame.time_quantum = self.time_quantum
-            frame.cache_type = opt.cache_type or DEFAULT_CACHE_TYPE
+            frame.cache_type = ("none" if opt.range_enabled
+                                else opt.cache_type or DEFAULT_CACHE_TYPE)
             if opt.row_label:
                 perr.validate_label(opt.row_label)
                 frame.row_label = opt.row_label
             if opt.cache_size:
                 frame.cache_size = opt.cache_size
             frame.inverse_enabled = opt.inverse_enabled
+            frame.range_enabled = opt.range_enabled
+            frame.fields = list(opt.fields)
             frame.open()
             frame.save_meta()
             self.frames[name] = frame

@@ -1,5 +1,8 @@
 """View — a named container of fragments keyed by slice (ref: view.go;
-counterpart of pilosa_tpu/storage/view.py)."""
+counterpart of pilosa_tpu/storage/view.py).
+
+View names: ``standard``, ``inverse``, and ``field_<name>`` for BSI
+fields (view.go:32-38)."""
 import os
 import threading
 
@@ -8,6 +11,11 @@ from pilosa_tpu_torch.storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
 VIEW_INVERSE = "inverse"
+VIEW_FIELD_PREFIX = "field_"
+
+
+def view_field_name(field):
+    return VIEW_FIELD_PREFIX + field
 
 
 class View:
@@ -77,3 +85,12 @@ class View:
     def clear_bit(self, row_id, column_id):
         frag = self.fragment(column_id // SLICE_WIDTH)
         return frag.clear_bit(row_id, column_id) if frag else False
+
+    def set_field_value(self, column_id, bit_depth, value):
+        return self.create_fragment_if_not_exists(
+            column_id // SLICE_WIDTH).set_field_value(column_id, bit_depth,
+                                                      value)
+
+    def field_value(self, column_id, bit_depth):
+        frag = self.fragment(column_id // SLICE_WIDTH)
+        return frag.field_value(column_id, bit_depth) if frag else (0, False)

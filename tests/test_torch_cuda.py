@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each held exactly against its plain
-version on the same device tensors, and the executor's Count and TopN
-paths on a GPU holder against the same directory served on the CPU. Marked
+version on the same device tensors, and the executor's Count, TopN and
+BSI paths on a GPU holder against the same directory served on the CPU. Marked
 ``cuda``; where no GPU is present every test skips (decided inside the
 fixture, never at import). Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
@@ -11,7 +11,9 @@ import torch
 from pilosa_tpu_torch import SLICE_WIDTH
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.storage.frame import Field
 from pilosa_tpu_torch.storage.holder import Holder
+from pilosa_tpu_torch.storage.index import FrameOptions
 
 pytestmark = pytest.mark.cuda
 
@@ -63,7 +65,7 @@ def test_count_and_rows_equals_plain(gen, rows, width):
                        kernels.count_and_rows_plain(m, f))
 
 
-@pytest.mark.parametrize("n_rows", [0, 1, 8, 9, 300])
+@pytest.mark.parametrize("n_rows", [0, 1, 8, 9, 10, 11, 300])
 @pytest.mark.parametrize("shape", [(1, 32768), (5, 4097), (64, 32768)])
 def test_count_and_rows_stacks_equals_plain(gen, n_rows, shape):
     rows = [_rand(gen, *shape) for _ in range(n_rows)]
@@ -168,5 +170,44 @@ def test_topn_on_gpu_matches_cpu(gen, tmp_path):
             results[(device, p)] = [ex.execute("i", q)[0] for q in queries]
         if device == "cuda":
             assert kernels.launches["count_and_rows"] > 0
+        h.close()
+    assert len({repr(v) for v in results.values()}) == 1
+
+
+def test_bsi_on_gpu_matches_cpu(gen, tmp_path):
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    idx = h.create_index("i")
+    view = idx.create_frame("f").create_view_if_not_exists("standard")
+    g = idx.create_frame("g", FrameOptions(range_enabled=True, fields=[
+        Field("v", min=-5, max=1000), Field("big", max=1 << 40)]))
+    for s in (0, 1, 3):
+        cols = rng.choice(SLICE_WIDTH, 200000, replace=False) + s * SLICE_WIDTH
+        g.import_value("v", cols, rng.integers(-5, 1001, len(cols)))
+        g.import_value("big", cols[:5000], rng.integers(0, 1 << 40, 5000))
+        view.create_fragment_if_not_exists(s).import_bits(
+            rng.integers(0, 2, 300000),
+            rng.integers(0, SLICE_WIDTH, 300000) + s * SLICE_WIDTH)
+    h.close()
+    src = 'Bitmap(frame="f", rowID=0)'
+    queries = ['Sum(frame="g", field="v")', f'Sum({src}, frame="g", field="v")',
+               'Count(Range(frame="g", v > 30))',
+               'Count(Range(frame="g", v >< [10, 60]))',
+               f'Count(Intersect({src}, Range(frame="g", v >= 500)))',
+               'Min(frame="g", field="v")', 'Max(frame="g", field="v")',
+               f'Max({src}, frame="g", field="v")',
+               'Sum(frame="g", field="big")',
+               'Count(Range(frame="g", big > 4294967296))']
+    results = {}
+    for device in ("cpu", "cuda"):
+        h = Holder(path, device=device).open()
+        ex = Executor(h)
+        kernels.reset_launches()
+        for p in ("serial", "batched"):
+            ex._force_path = p
+            results[(device, p)] = [ex.execute("i", q)[0] for q in queries]
+        if device == "cuda":
+            assert all(kernels.launches.values()), kernels.launches
         h.close()
     assert len({repr(v) for v in results.values()}) == 1

@@ -248,7 +248,10 @@ def test_unported_calls_raise_and_missing_index(datadir):
     try:
         ex = TExecutor(th)
         with pytest.raises(NotImplementedError):
-            ex.execute("i", 'Sum(frame="f", field="v")')
+            ex.execute("i", 'Count(Range(frame="f", rowID=1, '
+                            'start="2017-01-01T00:00", end="2018-01-01T00:00"))')
+        with pytest.raises(NotImplementedError):
+            ex.execute("i", f"{R0}")
         with pytest.raises(terr.ErrIndexNotFound):
             ex.execute("nope", f"Count({R0})")
         assert ex.execute("i", f"Count({R0})", slices=[0, 1]) == [
