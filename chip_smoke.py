@@ -11,14 +11,19 @@ Phases, each of which fails the run (exit code != 0, no result line):
    device tensors, exactly, at the main-path shape [slices, 32768] and
    at ragged/edge shapes; time, bytes, bound and plain-version time at
    the main-path shape;
-4. main path, Count — a data directory of N slices (default 9,537 =
-   10.0B columns; one index, one frame, three dense rows of bit density
-   0.5, 0.5 and 0.25 from ``--seed``) written in parallel through
+4. main path, Count and bitmap results — a data directory of N slices
+   (default 9,537 = 10.0B columns; one index, one frame, three dense
+   rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
+   2^-10 from ``--seed``) written in parallel through
    ``Fragment.read_from``, reopened by a GPU ``Holder``, and queried
    through ``Executor.execute``: Count over Bitmap/Intersect/Union/
    Difference/Xor trees on the batched and the serial path, then
-   SetBit/ClearBit and recounts. Every answer must equal a numpy oracle
-   on the same words; both count kernels must have launched during this
+   SetBit/ClearBit and recounts; then Pilosa's Getting Started reads,
+   top-level ``Bitmap(frame="f", rowID=3)`` and sparse Intersect,
+   Difference and Xor results compared id by id, SetRowAttrs and the
+   attrs a Bitmap carries (with ``exclude_attrs``/``exclude_bits``),
+   and SetColumnAttrs. Every answer must equal a numpy oracle on the
+   same words; both count kernels must have launched during this
    phase;
 5. main path, TopN — a second frame ``t`` (ranked cache) of eight rows
    at every slice (densities 1/2 … 1/32, two identical rows), its
@@ -27,8 +32,10 @@ Phases, each of which fails the run (exit code != 0, no result line):
    query shape ``TopN(Bitmap(frame="f", rowID=0), frame="t", n=5)`` and
    its variants (no Src, an Intersect Src with a threshold, a Tanimoto
    threshold, explicit ids) answered on both paths, before and after a
-   SetBit and a ClearBit. Every answer must equal a numpy oracle of the
-   two-phase rule; ``count_and_rows`` must have launched;
+   SetBit and a ClearBit, and with an attribute filter (``field=
+   "category", filters=["a", "b"]``) after a bulk SetRowAttrs. Every
+   answer must equal a numpy oracle of the two-phase rule;
+   ``count_and_rows`` must have launched;
 6. main path, BSI — python-pilosa's documented integer field ``stars``
    (``type int``, ``min 0``, ``max 1000``: bit depth 10) on frame ``t``
    (range-enabled), a value in one column of two at every slice,
@@ -38,7 +45,23 @@ Phases, each of which fails the run (exit code != 0, no result line):
    reference's shortcuts, Min, Max and filtered Max on both paths,
    before and after two ``SetFieldValue`` writes. Every answer must
    equal a numpy oracle on the values; ``count_and_rows``,
-   ``count_op_rows`` and ``count_rows`` must all have launched.
+   ``count_op_rows`` and ``count_rows`` must all have launched;
+7. main path, time windows — Pilosa's event-analytics example
+   (``docs/examples.md:61-70``): a data directory of its own with index
+   ``events`` and frame ``clicks`` (``timeQuantum="YMD"``), four rows
+   over 1,024 slices, each (row, column) clicked with probability 1/64
+   on one day of 2017-06-01 … 14, so 17 views (``standard``,
+   ``standard_2017``, ``standard_201706``, one per day) written in
+   parallel by the port's codec; Count(Range(…)) over 14, 4, 1 (month,
+   year), 2 (of 4, two absent) and 0 views and an Intersect of two
+   Ranges on both paths, the top-level Ranges compared id by id, then a
+   timestamped SetBit into a day view that does not exist yet and a
+   ClearBit with a timestamp, with recounts. ``count_op_rows`` and
+   ``count_rows`` must have launched.
+
+The serial path of phases 4-6 runs over the first 1,024 slices (the
+batched path and the top-level bare ``Bitmap`` over all of them), so
+that the script stays well inside its time limit.
 
 The second-to-last line is a JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``. The script exits non-zero
@@ -65,6 +88,8 @@ ALU_OPS_PER_S = 67e12       # H100 SXM 32-bit (fp32) non-tensor rate
 OPS = ("and", "or", "xor", "andnot")
 DEVICE = "cuda"
 TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
+SERIAL_SLICES = 1024        # slices of the serial loops of phases 4-6
+EVENT_SLICES = 1024         # slices of phase 7
 
 
 class SmokeFailure(Exception):
@@ -316,8 +341,8 @@ def kernel_checks(slices, card):
 # ------------------------------------------------------------ phase 4
 
 ROW = 'Bitmap(frame="f", rowID={})'
-R0, R1, R2 = ROW.format(0), ROW.format(1), ROW.format(2)
-QUERIES = [  # (PQL, numpy oracle over (r0, r1, r2) words)
+R0, R1, R2, R3 = ROW.format(0), ROW.format(1), ROW.format(2), ROW.format(3)
+QUERIES = [  # (PQL, numpy oracle over (r0, r1, r2, r3) words)
     (f"Count({R0})", lambda w: w[0]),
     (f"Count({R2})", lambda w: w[2]),
     (f"Count(Intersect({R0}, {R1}))", lambda w: w[0] & w[1]),
@@ -328,29 +353,48 @@ QUERIES = [  # (PQL, numpy oracle over (r0, r1, r2) words)
     (f"Count(Difference(Union({R0}, {R2}), Intersect({R1}, {R2})))",
      lambda w: (w[0] | w[2]) & ~(w[1] & w[2])),
 ]
+# Getting Started's bitmap reads on the sparse row 3 (a stargazer's
+# repositories): (PQL, numpy oracle). Every result is sparse (5-10M ids
+# over 10.0B columns); a dense one would be 40 GB of ids on the host.
+BITMAP_QUERIES = [
+    (R3, lambda w: w[3]),
+    (f"Intersect({R3}, {R0})", lambda w: w[3] & w[0]),
+    (f"Difference({R3}, {R1})", lambda w: w[3] & ~w[1]),
+    (f"Xor({R3}, Intersect({R3}, {R0}))", lambda w: w[3] ^ (w[3] & w[0])),
+]
 
 
 def slice_words(seed, s):
-    """uint64[3, 16384]: rows 0 and 1 at bit density 0.5, row 2 at 0.25."""
+    """uint64[4, 16384]: rows 0 and 1 at bit density 0.5, row 2 at 0.25,
+    row 3 at 2^-10 (its own stream, so rows 0-2 do not depend on it)."""
     rng = np.random.default_rng([seed, s])
     w = rng.integers(0, 1 << 64, size=(4, 16384), dtype=np.uint64)
-    return np.stack([w[0], w[1], w[2] & w[3]])
+    r3 = np.random.default_rng([seed, s, 3]).integers(
+        0, 1 << 64, size=(10, 16384), dtype=np.uint64)
+    return np.stack([w[0], w[1], w[2] & w[3],
+                     np.bitwise_and.reduce(r3, axis=0)])
 
 
 def slice_counts(words):
     return [int(np.bitwise_count(fn(words)).sum()) for _, fn in QUERIES]
 
 
+def positions(words):
+    """Ascending bit positions of uint64 words, as uint64."""
+    return np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                        bitorder="little")).astype(np.uint64)
+
+
 def backup_tar(words):
-    """A fragment backup archive (data + cache members) of three rows,
+    """A fragment backup archive (data + cache members) of four rows,
     made by the port's codec."""
     from pilosa_tpu_torch.roaring import codec
 
-    keys = np.arange(3 * 16, dtype=np.uint64)  # rows 0-2 × 16 containers
-    data = codec.serialize_arrays(keys, words.reshape(48, 1024))
+    keys = np.arange(4 * 16, dtype=np.uint64)  # rows 0-3 × 16 containers
+    data = codec.serialize_arrays(keys, words.reshape(64, 1024))
     buf = io.BytesIO()
     with tarfile.open(fileobj=buf, mode="w") as tar:
-        for name, payload in (("data", data), ("cache", b"[0, 1, 2]")):
+        for name, payload in (("data", data), ("cache", b"[0, 1, 2, 3]")):
             info = tarfile.TarInfo(name)
             info.size = len(payload)
             tar.addfile(info, io.BytesIO(payload))
@@ -361,32 +405,109 @@ def backup_tar(words):
 def _write_f_slices(frag_dir, seed, lo, hi):
     """Worker: frame f's fragments of slices [lo, hi), each restored by
     ``Fragment.read_from`` from a backup archive of the port's codec;
-    returns their per-query oracle counts. The workers write disjoint
+    returns their per-query oracle counts and, per bitmap query, the
+    ascending column ids of its result. The workers write disjoint
     fragments of a closed holder's tree: ``holder_locked`` spares them
     the transient probe of ``.holder.lock``, which they would contend
     for."""
     from pilosa_tpu_torch.storage.fragment import Fragment
 
     counts = np.zeros((len(QUERIES), hi - lo), dtype=np.int64)
+    ids = [[] for _ in BITMAP_QUERIES]
     for i, s in enumerate(range(lo, hi)):
         words = slice_words(seed, s)
         counts[:, i] = slice_counts(words)
+        for k, (_, fn) in enumerate(BITMAP_QUERIES):
+            ids[k].append(positions(fn(words)) + np.uint64(s * SLICE_COLS))
         frag = Fragment(os.path.join(frag_dir, str(s)), "i", "f",
                         "standard", s, holder_locked=True).open()
         frag.read_from(backup_tar(words))
         frag.close()
-    return lo, counts
+    return lo, counts, [np.concatenate(x) for x in ids]
+
+
+def p50_ms(fn, reps):
+    """(p50 ms of ``fn`` over ``reps`` calls, host clock to
+    ``torch.cuda.synchronize()``, the last result)."""
+    out, ms = None, []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return float(np.percentile(ms, 50)), out
+
+
+def bitmap_reads(ex, slices, oracle_ids, card):
+    """Phase 4's bitmap results and attributes. ``oracle_ids`` holds,
+    per BITMAP_QUERIES entry, the ascending ids over every slice."""
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import ExecOptions
+
+    n_ser = min(SERIAL_SLICES, slices)
+    for path in ("batched", "serial"):
+        ex._force_path = path
+        span = range(slices) if path == "batched" else range(n_ser)
+        for (q, _), ids in zip(BITMAP_QUERIES, oracle_ids):
+            want = ids[:np.searchsorted(ids, np.uint64(n_ser * SLICE_WIDTH))
+                       ] if path == "serial" else ids
+            t = time.perf_counter()
+            bm = ex.execute("i", q, slices=span)[0]
+            got = bm.columns()
+            dt = (time.perf_counter() - t) * 1e3
+            check(bm.count() == len(want) and np.array_equal(got, want),
+                  f"{path} {q}: {bm.count()} ids ({len(got)} listed) != "
+                  f"oracle {len(want)}")
+            print(f"  bitmap {path:7s} {dt:9.2f} ms  {len(got):>10d} ids  "
+                  f"over {len(span)} slices  {q}")
+    ex._force_path = None
+
+    # A bare Bitmap takes the serial path; a compound one the batched.
+    leaf_ms, _ = p50_ms(lambda: ex.execute("i", R3)[0].columns(), 10)
+    q_and = BITMAP_QUERIES[1][0]
+    exec_ms, bm = p50_ms(lambda: ex.execute("i", q_and)[0], 10)
+    cols_ms, got = p50_ms(bm.columns, 10)
+    check(np.array_equal(got, oracle_ids[1]), "warm Intersect ids changed")
+    print(f"bitmap {card}: {R3} over {slices} slices (serial) p50 "
+          f"{leaf_ms:.3f} ms; {q_and} batched p50 {exec_ms + cols_ms:.3f} "
+          f"ms = fold and count_rows {exec_ms:.3f} ms + columns() "
+          f"{cols_ms:.3f} ms (extraction {cols_ms / (exec_ms + cols_ms):.1%}"
+          f"; n=10 each, host clock to torch.cuda.synchronize()); "
+          f"{len(got)} ids")
+
+    # Attributes: a row's attrs ride its Bitmap; the options strip them
+    # or the bits; a column's attrs land in the index's store.
+    res = ex.execute("i", 'SetRowAttrs(frame="f", rowID=3, name="stargazer", '
+                          'active=true)')
+    check(res == [None], f"SetRowAttrs returned {res}")
+    attrs = {"name": "stargazer", "active": True}
+    part = range(min(8, slices))
+    n_part = int(np.searchsorted(oracle_ids[0],
+                                 np.uint64(len(part) * SLICE_WIDTH)))
+    for opt, want_attrs, want_n in (
+            (None, attrs, n_part),
+            (ExecOptions(exclude_attrs=True), {}, n_part),
+            (ExecOptions(exclude_bits=True), attrs, 0)):
+        bm = ex.execute("i", R3, slices=part, opt=opt)[0]
+        check(bm.attrs == want_attrs and len(bm.columns()) == want_n
+              and bm.count() == want_n,
+              f"{R3} attrs {bm.attrs} and {bm.count()} ids != "
+              f"{want_attrs} and {want_n}")
+    res = ex.execute("i", 'SetColumnAttrs(columnID=100, category="x")')
+    check(res == [None], f"SetColumnAttrs returned {res}")
+    got = ex.holder.index("i").column_attr_store.attrs(100)
+    check(got == {"category": "x"}, f"column 100 attrs {got}")
+    print(f"  attrs: {R3} carries {attrs}; exclude_attrs and exclude_bits "
+          f"hold; column 100 carries {got}")
 
 
 def main_path(slices, seed, datadir, card):
-    import torch
-
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
     from pilosa_tpu_torch.storage.holder import Holder
 
-    need = slices * 3 * 16384 * 8 * 1.1
+    need = slices * 4 * 16384 * 8 * 1.1
     free = shutil.disk_usage(os.path.dirname(datadir)).free
     check(free > need, f"{free / 1e9:.1f} GB free on disk, the data "
           f"directory needs {need / 1e9:.1f} GB")
@@ -399,11 +520,14 @@ def main_path(slices, seed, datadir, card):
     frag_dir = os.path.join(view.path, "fragments")
     holder.close()
     procs, parts = in_processes(_write_f_slices, frag_dir, seed, slices)
-    for lo, c in parts:
+    for lo, c, _ in parts:
         per_slice[:, lo:lo + c.shape[1]] = c
+    oracle_ids = [np.concatenate([ids[k] for _, _, ids in parts])
+                  for k in range(len(BITMAP_QUERIES))]
+    del parts
     write_s = time.perf_counter() - t0
     print(f"main path: wrote {slices} slices ({slices * SLICE_WIDTH / 1e9:.2f}"
-          f"B columns, {slices * 3 * 16384 * 8 / 1e9:.2f} GB of rows) "
+          f"B columns, {slices * 4 * 16384 * 8 / 1e9:.2f} GB of rows) "
           f"through Fragment.read_from in {procs} processes in "
           f"{write_s:.1f} s")
 
@@ -421,17 +545,21 @@ def main_path(slices, seed, datadir, card):
     first_s = time.perf_counter() - t0
     want = [int(c) for c in per_slice.sum(axis=1)]
     check(got == want[2], f"{q_and}: {got} != oracle {want[2]}")
+    n_ser = min(SERIAL_SLICES, slices)
 
     def run_all(tag):
+        want_ser = per_slice[:, :n_ser].sum(axis=1)
         for path in ("batched", "serial"):
             ex._force_path = path
-            for (q, _), w in zip(QUERIES, want):
+            span = range(slices) if path == "batched" else range(n_ser)
+            for (q, _), w, ws in zip(QUERIES, want, want_ser):
+                w = w if path == "batched" else int(ws)
                 t = time.perf_counter()
-                got = ex.execute("i", q)[0]
+                got = ex.execute("i", q, slices=span)[0]
                 dt = time.perf_counter() - t
                 check(got == w, f"{tag} {path} {q}: {got} != oracle {w}")
                 print(f"  {tag} {path:7s} {dt * 1e3:9.2f} ms  {got:>13d}  "
-                      f"{q}")
+                      f"{q} over {len(span)} slices")
         ex._force_path = None
 
     run_all("query")
@@ -445,8 +573,9 @@ def main_path(slices, seed, datadir, card):
         check(got == want[2], "warm Count(Intersect) changed")
     lat_ms = np.asarray(lat) * 1e3
 
-    # SetBit/ClearBit on one slice, each followed by a recount.
-    s = slices // 2
+    # SetBit/ClearBit on one slice of the serial span, each followed by
+    # a recount.
+    s = n_ser // 2
     words = slice_words(seed, s)
     bit = int(np.flatnonzero(np.unpackbits(
         (~words[0]).view(np.uint8), bitorder="little"))[0])
@@ -458,6 +587,7 @@ def main_path(slices, seed, datadir, card):
         per_slice[:, s] = slice_counts(words)
         want = [int(c) for c in per_slice.sum(axis=1)]
         run_all(verb.lower())
+    bitmap_reads(ex, slices, oracle_ids, card)
     launches = dict(kernels.launches)
     peak = peak_bytes()
     holder.close()
@@ -489,7 +619,12 @@ TOPN_QUERIES = [  # (label, PQL, oracle over the per-slice count arrays)
      lambda o: topn_oracle(o["f1_tanimoto30"])),
     ("e", f'TopN({SRC.format(0)}, frame="t", ids=[12, 14, 17])',
      lambda o: topn_oracle(o["f0"], ids=[12, 14, 17])),
+    ("f", f'TopN({SRC.format(0)}, frame="t", n=5, field="category", '
+          'filters=["a", "b"])',
+     lambda o: topn_oracle(o["f0_ab"], n=5)),
 ]
+# Frame t's rows by attribute: filters=["a", "b"] drops rows 12 and 15.
+CATEGORY = dict(zip(T_ROWS, "abcabcab"))
 
 
 def t_slice_words(seed, s):
@@ -570,15 +705,15 @@ def topn_counts(counts, f1_n):
         score = (np.float32(100.0) * f1.astype(np.float32)
                  / denom.astype(np.float32))
     keep = (denom > 0) & (np.ceil(score) > 30)
+    allowed = np.asarray([CATEGORY[r] in ("a", "b") for r in T_ROWS])
     return {"rows": rows, "f0": f0, "f0f2": f0f2,
-            "f1_tanimoto30": np.where(keep, f1, 0)}
+            "f1_tanimoto30": np.where(keep, f1, 0),
+            "f0_ab": np.where(allowed[None, :], f0, 0)}
 
 
 def topn_path(slices, seed, datadir, card):
     """Phase 5: frame t beside phase 4's frame f, TopN on both paths
     against the numpy oracle, before and after writes."""
-    import torch
-
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
@@ -606,8 +741,26 @@ def topn_path(slices, seed, datadir, card):
     holder = Holder(datadir, device=DEVICE).open()
     open_s = time.perf_counter() - t0
     ex = Executor(holder)
-    want = {label: fn(topn_counts(counts, f1_n))
-            for label, q, fn in TOPN_QUERIES}
+    # Phase 4's attributes persist across the reopen.
+    got = (holder.index("i").frame("f").row_attr_store.attrs(3),
+           holder.index("i").column_attr_store.attrs(100))
+    check(got == ({"name": "stargazer", "active": True},
+                  {"category": "x"}), f"attributes after reopen: {got}")
+    res = ex.execute("i", " ".join(
+        f'SetRowAttrs(frame="t", rowID={r}, category="{c}")'
+        for r, c in CATEGORY.items()))
+    check(res == [None] * len(CATEGORY), f"bulk SetRowAttrs returned {res}")
+    n_ser = min(SERIAL_SLICES, slices)
+
+    def answers():
+        return ({label: fn(topn_counts(counts, f1_n))
+                 for label, q, fn in TOPN_QUERIES},
+                {label: fn(topn_counts(counts[:n_ser], f1_n[:n_ser]))
+                 for label, q, fn in TOPN_QUERIES})
+
+    want, want_ser = answers()
+    check(want["f"] != want["a"] and not {12, 15} & set(dict(want["f"])),
+          f"data: the filter should drop rows 12 and 15, {want['f']}")
     check(sorted(r for r, _ in want["d"]) == [10, 11],
           f"data: Tanimoto 30 should keep rows 10 and 11, {want['d']}")
     check(17 not in dict(want["c"]), f"data: threshold keeps 17 {want['c']}")
@@ -626,21 +779,22 @@ def topn_path(slices, seed, datadir, card):
     def run(tag, labels):
         for path in ("batched", "serial"):
             ex._force_path = path
+            span = range(slices) if path == "batched" else range(n_ser)
             for label, q, _ in TOPN_QUERIES:
                 if label not in labels:
                     continue
+                w = (want if path == "batched" else want_ser)[label]
                 t = time.perf_counter()
-                got = ex.execute("i", q)[0]
+                got = ex.execute("i", q, slices=span)[0]
                 dt = (time.perf_counter() - t) * 1e3
-                check(got == want[label],
-                      f"{tag} {path} {q}: {got} != oracle {want[label]}")
+                check(got == w, f"{tag} {path} {q}: {got} != oracle {w}")
                 if path == "serial":
                     serial_ms.append(dt)
-                print(f"  {tag} {path:7s} {dt:10.2f} ms  ({label}) {q} -> "
-                      f"{got}")
+                print(f"  {tag} {path:7s} {dt:10.2f} ms  ({label}) {q} over "
+                      f"{len(span)} slices -> {got}")
         ex._force_path = None
 
-    run("query", "abcde")
+    run("query", "abcdef")
     lat = []
     for _ in range(50):
         t = time.perf_counter()
@@ -650,10 +804,10 @@ def topn_path(slices, seed, datadir, card):
         check(got == want["a"], "warm TopN (a) changed")
     lat_ms = np.asarray(lat) * 1e3
 
-    # SetBit, then ClearBit, of row 17 on one slice at a column of the
-    # Src row f0 (so the answer of (e) moves), each followed by (a), (b)
-    # and (e) again.
-    s = slices // 2
+    # SetBit, then ClearBit, of row 17 on one slice of the serial span at
+    # a column of the Src row f0 (so the answer of (e) moves), each
+    # followed by (a), (b), (e) and (f) again.
+    s = n_ser // 2
     words = t_slice_words(seed, s)
     bit = int(np.flatnonzero(np.unpackbits(
         (~words[7] & slice_words(seed, s)[0]).view(np.uint8),
@@ -664,9 +818,8 @@ def topn_path(slices, seed, datadir, card):
         check(res == [True], f"{verb} at column {col} returned {res}")
         words[7][bit // 64] ^= np.uint64(1 << (bit % 64))
         counts[s], f1_n[s] = topn_slice_counts(words, slice_words(seed, s))
-        want = {label: fn(topn_counts(counts, f1_n))
-                for label, q, fn in TOPN_QUERIES}
-        run(verb.lower(), "abe")
+        want, want_ser = answers()
+        run(verb.lower(), "abef")
     launches = dict(kernels.launches)
     peak = peak_bytes()
     holder.close()
@@ -677,8 +830,8 @@ def topn_path(slices, seed, datadir, card):
           f"{np.percentile(lat_ms, 50):.3f} ms, p90 "
           f"{np.percentile(lat_ms, 90):.3f} ms, max {lat_ms.max():.3f} ms "
           f"(n=50, host clock to torch.cuda.synchronize()); serial path "
-          f"{np.mean(serial_ms):.1f} ms per query (mean of "
-          f"{len(serial_ms)}, {min(serial_ms):.1f}-{max(serial_ms):.1f}); "
+          f"over {n_ser} slices {np.mean(serial_ms):.1f} ms per query (mean "
+          f"of {len(serial_ms)}, {min(serial_ms):.1f}-{max(serial_ms):.1f}); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
           f"{launches}")
     return launches
@@ -800,8 +953,6 @@ def bsi_path(slices, seed, datadir, card):
     """Phase 6: the BSI field ``stars`` on frame t, every BSI query on
     both paths against the numpy oracle, before and after
     SetFieldValue."""
-    import torch
-
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -858,19 +1009,22 @@ def bsi_path(slices, seed, datadir, card):
           f"{want['a_sum']}")
 
     serial_ms = {}
+    n_ser = min(SERIAL_SLICES, slices)
+    want_ser = bsi_answers(hist[:n_ser])
 
     def run(tag, labels):
         for path in ("batched", "serial"):
             ex._force_path = path
+            span = range(slices) if path == "batched" else range(n_ser)
             for label in labels:
                 q = queries[label]
+                w = (want if path == "batched" else want_ser)[label]
                 t = time.perf_counter()
-                got = ex.execute("i", q)[0]
+                got = ex.execute("i", q, slices=span)[0]
                 dt = (time.perf_counter() - t) * 1e3
-                check(got == want[label],
-                      f"{tag} {path} {q}: {got} != oracle {want[label]}")
+                check(got == w, f"{tag} {path} {q}: {got} != oracle {w}")
                 if path == "serial":
-                    serial_ms.setdefault(label, []).append(dt / slices)
+                    serial_ms.setdefault(label, []).append(dt / n_ser)
                 print(f"  {tag} {path:7s} {dt:10.2f} ms  ({label}) {q} -> "
                       f"{got}")
         ex._force_path = None
@@ -899,7 +1053,7 @@ def bsi_path(slices, seed, datadir, card):
 
     # SetFieldValue: a column without a value gets 1000, a column with a
     # value in [100, 999] gets half of it; (a), (c) and Max move.
-    s = slices // 2
+    s = n_ser // 2
     v, nn = stars_values(seed, s)
     has = _bits(nn)
     empty_col = int(np.flatnonzero(~has)[0])
@@ -913,7 +1067,7 @@ def bsi_path(slices, seed, datadir, card):
         v[col] = value
         nn[col // 64] |= np.uint64(1 << (col % 64))
     hist[s] = bsi_slice_hist(v, nn, slice_words(seed, s))
-    want = bsi_answers(hist)
+    want, want_ser = bsi_answers(hist), bsi_answers(hist[:n_ser])
     run("setfieldvalue", ["a_sum", "c", "f_max"])
     launches = dict(kernels.launches)
     peak = peak_bytes()
@@ -930,11 +1084,227 @@ def bsi_path(slices, seed, datadir, card):
           f"(mirrors and stacks built); warm batched over {slices} slices "
           f"(n=50 each, host clock to torch.cuda.synchronize()): "
           f"{'; '.join(pct(lb) for lb in lat)}; descent of (c) alone "
-          f"{descent_ms:.4f} ms (CUDA events, 10 reps); serial path ms per "
-          f"slice: " + ", ".join(
+          f"{descent_ms:.4f} ms (CUDA events, 10 reps); serial path over "
+          f"{n_ser} slices, ms per slice: " + ", ".join(
               f"{lb} {np.mean(v):.3f}" for lb, v in serial_ms.items())
           + f"; max_memory_allocated {peak / 2**30:.2f} GiB; launches "
           f"{launches}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 7
+
+CLICK_ROWS = 4
+CLICK_DAYS = 14                 # 2017-06-01 … 2017-06-14
+CLICK_CELLS = 64 * CLICK_DAYS   # clicked with probability 1/64
+TIME_VIEWS = (["standard", "standard_2017", "standard_201706"]
+              + [f"standard_201706{d:02d}" for d in range(1, CLICK_DAYS + 1)])
+ALL_DAYS = frozenset(range(1, CLICK_DAYS + 1))
+# (label, start, end, days of June the window covers); row 3 unless said.
+WINDOWS = [
+    ("14 days", "2017-06-01T00:00", "2017-06-15T00:00", ALL_DAYS),
+    ("June 5-9", "2017-06-05T00:00", "2017-06-09T00:00",
+     frozenset(range(5, 9))),
+    ("month", "2017-06-01T00:00", "2017-07-01T00:00", ALL_DAYS),
+    ("year", "2017-01-01T00:00", "2018-01-01T00:00", ALL_DAYS),
+    ("May 30 - June 3", "2017-05-30T00:00", "2017-06-03T00:00",
+     frozenset({1, 2})),
+    ("5 hours", "2017-06-10T00:00", "2017-06-10T05:00", frozenset()),
+    ("June 15-25", "2017-06-15T00:00", "2017-06-25T00:00", frozenset()),
+]
+
+
+def time_range(row, start, end):
+    return (f'Range(frame="clicks", rowID={row}, start="{start}", '
+            f'end="{end}")')
+
+
+# Count(Intersect(row 3 over 14 days, row 1 over June 5-9)).
+INTERSECT_Q = (f"Count(Intersect({time_range(3, *WINDOWS[0][1:3])}, "
+               f"{time_range(1, *WINDOWS[1][1:3])}))")
+
+
+def click_rows(seed, s):
+    """(row, position, day) of every click of slice s: each (row,
+    column) is clicked with probability 1/64 on one day of 14."""
+    x = np.random.default_rng([seed, s, 7]).integers(
+        0, CLICK_CELLS, size=(CLICK_ROWS, SLICE_COLS), dtype=np.uint16)
+    rows, pos = np.nonzero(x < CLICK_DAYS)
+    return rows, pos, x[rows, pos].astype(np.int64) + 1
+
+
+def click_words(rows, pos, days):
+    """uint64[15, 4, 16384]: per day 1-14 (index d) and all days (index
+    0) the rows' words."""
+    out = np.zeros((CLICK_DAYS + 1, CLICK_ROWS, 16384), np.uint64)
+    np.bitwise_or.at(out, (days, rows, pos >> 6),
+                     np.uint64(1) << (pos & 63).astype(np.uint64))
+    out[0] = np.bitwise_or.reduce(out[1:], axis=0)
+    return out
+
+
+def _write_click_slices(views_dir, seed, lo, hi):
+    """Worker: the 17 fragment files of each slice in [lo, hi), written
+    by the port's codec; returns per-slice oracle counts (one per
+    WINDOWS entry for row 3, then the Intersect) and row 3's clicks as
+    (ascending absolute column ids, days)."""
+    from pilosa_tpu_torch.roaring import codec
+
+    keys = (np.arange(CLICK_ROWS, dtype=np.uint64)[:, None] * np.uint64(16)
+            + np.arange(16, dtype=np.uint64)).ravel()
+    counts = np.zeros((len(WINDOWS) + 1, hi - lo), np.int64)
+    cols3, days3 = [], []
+    for i, s in enumerate(range(lo, hi)):
+        rows, pos, days = click_rows(seed, s)
+        words = click_words(rows, pos, days)
+        for v, name in enumerate(TIME_VIEWS):
+            w = words[max(0, v - 2)]  # standard, year and month: all days
+            with open(os.path.join(views_dir, name, "fragments", str(s)),
+                      "wb") as fh:
+                fh.write(codec.serialize_arrays(keys, w.reshape(-1, 1024)))
+        r3, d3 = pos[rows == 3], days[rows == 3]
+        for k, (_, _, _, want_days) in enumerate(WINDOWS):
+            counts[k, i] = int(np.isin(d3, list(want_days)).sum())
+        r1 = pos[(rows == 1) & (days >= 5) & (days < 9)]
+        counts[-1, i] = len(np.intersect1d(r3, r1))
+        cols3.append(r3.astype(np.uint64) + np.uint64(s * SLICE_COLS))
+        days3.append(d3.astype(np.uint8))
+    return lo, counts, np.concatenate(cols3), np.concatenate(days3)
+
+
+def events_path(slices, seed, datadir, card):
+    """Phase 7: the event-analytics example over its own data directory,
+    every answer against the numpy oracle on both paths, before and
+    after timestamped writes."""
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import bitops, kernels
+    from pilosa_tpu_torch.storage.frame import FrameOptions
+    from pilosa_tpu_torch.storage.holder import Holder
+
+    holder = Holder(datadir, device=DEVICE).open()
+    frame = holder.create_index("events").create_frame(
+        "clicks", FrameOptions(time_quantum="YMD"))
+    views_dir = os.path.join(frame.path, "views")
+    holder.close()
+    for name in TIME_VIEWS:
+        os.makedirs(os.path.join(views_dir, name, "fragments"))
+    t0 = time.perf_counter()
+    procs, parts = in_processes(_write_click_slices, views_dir, seed, slices)
+    counts = np.concatenate([c for _, c, _, _ in parts], axis=1)
+    cols3 = np.concatenate([c for _, _, c, _ in parts])
+    days3 = np.concatenate([d for _, _, _, d in parts])
+    del parts
+    write_s = time.perf_counter() - t0
+    n_frag = len(TIME_VIEWS) * slices
+    print(f"events: wrote frame clicks (timeQuantum YMD), {CLICK_ROWS} rows "
+          f"x {slices} slices x {len(TIME_VIEWS)} views = {n_frag} fragments "
+          f"({n_frag * CLICK_ROWS * 16384 * 8 / 2**30:.2f} GiB of rows), "
+          f"{len(cols3)} clicks of row 3, in {procs} processes in "
+          f"{write_s:.1f} s")
+
+    reset_peak()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    holder = Holder(datadir, device=DEVICE).open()
+    open_s = time.perf_counter() - t0
+    check(holder.index("events").max_slice() == slices - 1, "max_slice")
+    ex = Executor(holder)
+    want = [int(c) for c in counts.sum(axis=1)]
+    check(want[0] == want[2] == want[3] == len(cols3) and want[5] == 0
+          and 0 < want[4] < want[1] < want[0],
+          f"data: window counts {want}")
+    q14 = f"Count({time_range(3, *WINDOWS[0][1:3])})"
+    t0 = time.perf_counter()
+    got = ex.execute("events", q14)[0]
+    sync()
+    first_s = time.perf_counter() - t0
+    check(got == want[0], f"{q14}: {got} != oracle {want[0]}")
+
+    def run(tag, labels):
+        for path in ("batched", "serial"):
+            ex._force_path = path
+            for k, (label, a, b, _) in enumerate(WINDOWS):
+                if label not in labels:
+                    continue
+                q = f"Count({time_range(3, a, b)})"
+                t = time.perf_counter()
+                got = ex.execute("events", q)[0]
+                dt = (time.perf_counter() - t) * 1e3
+                check(got == want[k], f"{tag} {path} {q}: {got} != oracle "
+                      f"{want[k]}")
+                print(f"  {tag} {path:7s} {dt:9.2f} ms  {got:>10d}  "
+                      f"({label}) {q}")
+            if "intersect" in labels:
+                got = ex.execute("events", INTERSECT_Q)[0]
+                check(got == want[-1], f"{tag} {path} {INTERSECT_Q}: {got} "
+                      f"!= oracle {want[-1]}")
+                print(f"  {tag} {path:7s} {got:>20d}  {INTERSECT_Q}")
+        ex._force_path = None
+
+    run("query", [w[0] for w in WINDOWS] + ["intersect"])
+
+    # The top-level Ranges (a bare Range runs serially), id by id.
+    for label, a, b, days in WINDOWS[:6]:
+        q = time_range(3, a, b)
+        t = time.perf_counter()
+        bm = ex.execute("events", q)[0]
+        got = bm.columns()
+        dt = (time.perf_counter() - t) * 1e3
+        ids = cols3[np.isin(days3, list(days))]
+        check(bm.count() == len(ids) and np.array_equal(got, ids),
+              f"{q}: {bm.count()} ids != oracle {len(ids)}")
+        print(f"  range   {dt:9.2f} ms  {len(got):>10d} ids  ({label}) {q}")
+
+    lat = []
+    for _ in range(50):
+        t = time.perf_counter()
+        got = ex.execute("events", q14)[0]
+        sync()
+        lat.append((time.perf_counter() - t) * 1e3)
+        check(got == want[0], "warm 14-view Count changed")
+    lat = np.asarray(lat)
+    stacks = [ex._leaf_stack("events", ("clicks", f"standard_201706{d:02d}",
+                                        3), range(slices))
+              for d in range(1, CLICK_DAYS + 1)]
+    fold = ("Union", [("leaf", i) for i in range(CLICK_DAYS - 1)])
+    fold_ms = timed_ms(lambda: Executor._eval_node(fold, stacks), reps=10)
+    acc = Executor._eval_node(fold, stacks)
+    kernel_ms = timed_ms(lambda: bitops.count_op_rows(acc, stacks[-1], "or"),
+                         reps=10)
+    del stacks, acc
+
+    # A click on 2017-06-20, a day view that does not exist yet, at a
+    # column row 3 never clicked; the month and June 15-25 see it, and
+    # a ClearBit with the timestamp takes it back.
+    s = slices // 2
+    clicked = set((cols3[(cols3 >= s * SLICE_WIDTH)
+                         & (cols3 < (s + 1) * SLICE_WIDTH)]
+                   - np.uint64(s * SLICE_WIDTH)).tolist())
+    col = s * SLICE_WIDTH + min(set(range(len(clicked) + 1)) - clicked)
+    check("standard_20170620" not in holder.index("events").frame(
+        "clicks").views, "data: the day view 2017-06-20 exists")
+    for verb, delta in (("SetBit", 1), ("ClearBit", 0)):
+        res = ex.execute("events", f'{verb}(frame="clicks", rowID=3, '
+                                   f'columnID={col}, '
+                                   'timestamp="2017-06-20T08:00")')
+        check(res == [True], f"timestamped {verb} returned {res}")
+        want[2] = want[3] = len(cols3) + delta   # the month and the year
+        want[6] = delta                           # June 15-25
+        run(verb.lower(), ["month", "June 15-25", "14 days"])
+    launches = dict(kernels.launches)
+    peak = peak_bytes()
+    holder.close()
+    check(launches["count_op_rows"] and launches["count_rows"],
+          f"a count kernel never launched on the time path: {launches}")
+    print(f"events {card}: open {open_s:.2f} s ({n_frag} fragments), first "
+          f"14-view Count {first_s:.2f} s (mirrors and stacks built); warm "
+          f"14-view Count over {slices} slices p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f}"
+          f" ms, max {lat.max():.3f} ms (n=50, host clock to "
+          f"torch.cuda.synchronize()); its fold of 13 views {fold_ms:.4f} ms "
+          f"and count_op_rows {kernel_ms:.4f} ms (CUDA events, 10 reps); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}")
     return launches
 
 
@@ -944,6 +1314,7 @@ def main():
                     help="slices of 2^20 columns (default 9537 = 10.0B)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     # Each line reaches a redirected log as it is printed.
     sys.stdout.reconfigure(line_buffering=True)
 
@@ -979,8 +1350,9 @@ def main():
     # Phase 3: kernels against their plain versions.
     stats = kernel_checks(args.slices, card)
 
-    # Phases 4, 5 and 6: the main path, Count, TopN and BSI, each read
-    # with the launch counts reset just before it.
+    # Phases 4-7: the main path, Count and bitmap results, TopN, BSI and
+    # time windows, each read with the launch counts reset just before
+    # it. Phase 7 has a data directory of its own.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
     try:
@@ -988,6 +1360,9 @@ def main():
             main_path(args.slices, args.seed, datadir, card),
             topn_path(args.slices, args.seed, datadir, card),
             bsi_path(args.slices, args.seed, datadir, card)]
+        shutil.rmtree(datadir)
+        phase_launches.append(events_path(min(EVENT_SLICES, args.slices),
+                                          args.seed, datadir, card))
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
 
@@ -997,6 +1372,7 @@ def main():
     replaces = {"count_op_rows": "pilosa_tpu/ops/pallas_kernels.py:126",
                 "count_rows": "pilosa_tpu/ops/pallas_kernels.py:195",
                 "count_and_rows": "pilosa_tpu/ops/pallas_kernels.py:173"}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all {card}")
     print(f"gpu: {smi}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],

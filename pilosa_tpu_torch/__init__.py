@@ -12,10 +12,14 @@ Layout (module names mirror ``pilosa_tpu``)
                 kernel wrappers
 - ``csrc/``     CUDA C++ kernel sources, built with nvcc at first use
 - ``roaring/``  host-side roaring on-disk codec (numpy)
-- ``storage/``  fragment / view / frame / index / holder hierarchy
+- ``storage/``  fragment / view / frame / index / holder hierarchy and
+                the attribute stores
 - ``pql/``      PQL scanner / parser / AST
-- ``executor``  Count, TopN, BSI Sum/Average/Min/Max and the writes over
-                Bitmap trees and BSI conditions, serial and batched
+- ``bitmap``    cross-slice result bitmaps
+- ``time_quantum`` time-view names and the view cover of a time range
+- ``executor``  Count, bitmap results, TopN, BSI Sum/Average/Min/Max and
+                the writes over Bitmap trees, BSI conditions and time
+                ranges, serial and batched
 
 Entry points run on the GPU (``device="cuda"``) unless the caller asks
 for the CPU; without a GPU they raise instead of falling back.

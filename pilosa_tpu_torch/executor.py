@@ -1,14 +1,18 @@
-"""Query executor — Count, TopN and the BSI aggregates (ref:
+"""Query executor — PQL's read surface and writes on one node (ref:
 executor.go; counterpart of pilosa_tpu/executor.py).
 
-``Executor.execute(index, pql)`` runs ``Count`` over trees of
-``Bitmap``/``Intersect``/``Union``/``Difference``/``Xor`` and BSI
-``Range(frame=…, field <op> value)`` conditions, ``TopN`` (with or
+``Executor.execute(index, pql)`` answers ``Count`` and top-level bitmap
+calls (a ``Bitmap`` with its row or column attributes) over trees of
+``Bitmap``/``Intersect``/``Union``/``Difference``/``Xor``, BSI
+``Range(frame=…, field <op> value)`` conditions and time
+``Range(frame=…, rowID=…, start=…, end=…)`` windows; ``TopN`` (with or
 without a Src tree, ``ids``, ``threshold``, ``tanimotoThreshold``,
-``inverse``), ``Sum``/``Average``/``Min``/``Max`` over a BSI integer
-field (with or without a filter tree) and ``SetBit``/``ClearBit``/
-``SetFieldValue``, on one node. A Count maps over the index's slices by
-one of two paths:
+``inverse``, attribute ``field``/``filters``); ``Sum``/``Average``/
+``Min``/``Max`` over a BSI integer field (with or without a filter
+tree); and the writes ``SetBit``/``ClearBit`` (with a ``timestamp``,
+into the frame's time views), ``SetFieldValue``, ``SetRowAttrs`` and
+``SetColumnAttrs``. A read maps over the index's slices by one of two
+paths:
 
 - **batched** (the default): each Bitmap leaf becomes one
   ``int32[n_slices, 32768]`` device stack (cached until a fragment
@@ -19,6 +23,15 @@ one of two paths:
   sum, so a 10B-column count cannot wrap.
 - **serial**: slice by slice through ``Bitmap`` algebra, two-operand
   nodes through the count kernels without materialising.
+
+A time Range is the Union of the leaves of its view cover
+(``time_quantum.views_by_time_range``), so ``Count(Range(…))`` folds
+n-1 view stacks and meets the last inside ``count_op_rows``. A compound
+top-level bitmap call folds into one ``int32[S, 32768]`` stack whose
+per-slice counts come from ``count_rows``; the ``Bitmap`` result defers
+the stack (``Bitmap.defer_stack``), so a count never splits it and
+``columns()`` finds the set bits on the device. A bare top-level
+``Bitmap``/``Range`` runs serially, as in the reference.
 
 A BSI field's plane i is row i of the view ``field_<name>`` and its
 not-null row is row ``depth``, so the batched path reads them as
@@ -55,6 +68,7 @@ import torch
 
 from pilosa_tpu_torch import WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch import time_quantum as tq
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -87,6 +101,15 @@ _COUNT_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot",
 # A batch function's answer when its stacks would exceed the stack
 # budget: the windowed wrapper then halves the slice list.
 BATCH_OVER_BUDGET = object()
+
+
+class ExecOptions:
+    """Per-request options (ref: ExecOptions executor.go): a bitmap
+    result without its attributes or without its bits."""
+
+    def __init__(self, exclude_attrs=False, exclude_bits=False):
+        self.exclude_attrs = exclude_attrs
+        self.exclude_bits = exclude_bits
 
 
 def _condition_target(field, cond):
@@ -135,6 +158,14 @@ def _fold_empty(op, kids):
     return (op, kids) if kids else ("empty",)
 
 
+def _leaf_pos(leaves, spec):
+    """Position of the leaf ``spec`` in a plan's leaf list, appended
+    when new."""
+    if spec not in leaves:
+        leaves.append(spec)
+    return leaves.index(spec)
+
+
 def pairs_add(a, b):
     """Merge pair lists, summing counts per id (ref: Pairs.Add
     cache.go:302-427); ordered by (-count, id)."""
@@ -159,28 +190,42 @@ class Executor:
         self._stack_bytes = 0
         self._cache_mu = threading.Lock()
 
-    def execute(self, index, query, slices=None):
+    def execute(self, index, query, slices=None, opt=None):
         """(ref: Executor.Execute executor.go:62-151) → one result per
-        call."""
+        call. ``slices`` pins the slice list of every read; ``opt`` is an
+        ``ExecOptions``."""
         if isinstance(query, str):
             query = parse(query)
+        opt = opt or ExecOptions()
         idx = self.holder.index(index)
         if idx is None:
             raise perr.ErrIndexNotFound()
+        if (len(query.calls) > 1
+                and all(c.name == "SetRowAttrs" for c in query.calls)):
+            # One attribute-store transaction per frame (ref:
+            # hasOnlySetRowAttrs executor.go:117-120).
+            return self._execute_bulk_set_row_attrs(index, query.calls)
         results = []
         for c in query.calls:
             call_slices = slices
             if call_slices is None and c.name not in WRITE_CALLS:
-                # Inverse-view calls span the inverse view's slices
-                # (ref: Executor.Execute executor.go:86-98).
-                top = (idx.max_inverse_slice()
-                       if c.name == "TopN" and c.args.get("inverse") is True
-                       else idx.max_slice())
-                call_slices = range(top + 1)
-            results.append(self._execute_call(index, c, call_slices))
+                call_slices = self._slices_for_call(idx, c)
+            results.append(self._execute_call(index, c, call_slices, opt))
         return results
 
-    def _execute_call(self, index, call, slices):
+    @staticmethod
+    def _slices_for_call(idx, call):
+        """Inverse-view calls — TopN(inverse=true), a top-level
+        Bitmap(columnID=…) — span the inverse view's slices, the rest
+        the standard ones (ref: Executor.Execute executor.go:86-98)."""
+        frame = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
+        row_label = frame.row_label if frame else "rowID"
+        top = (idx.max_inverse_slice()
+               if call.is_inverse(row_label, idx.column_label)
+               else idx.max_slice())
+        return range(top + 1)
+
+    def _execute_call(self, index, call, slices, opt):
         name = call.name
         if name not in KNOWN_CALLS:
             raise ValueError(f"unknown call: {name}")
@@ -190,6 +235,10 @@ class Executor:
             return self._execute_set_bit(index, call, set_value=False)
         if name == "SetFieldValue":
             return self._execute_set_field_value(index, call)
+        if name == "SetRowAttrs":
+            return self._execute_set_row_attrs(index, call)
+        if name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(index, call)
         if name == "Count":
             return self._execute_count(index, call, slices)
         if name == "TopN":
@@ -199,20 +248,16 @@ class Executor:
         if name in ("Min", "Max"):
             return self._execute_min_max(index, call, slices,
                                          find_max=name == "Max")
-        if name in ("SetRowAttrs", "SetColumnAttrs"):
-            raise NotImplementedError(
-                f"{name}() needs the attribute store, which is not ported "
-                "to pilosa_tpu_torch yet")
-        raise NotImplementedError(
-            f"{name}() at the top level returns a bitmap, and bitmap "
-            "results are not ported to pilosa_tpu_torch yet")
+        # every remaining KNOWN_CALLS member returns a bitmap
+        return self._execute_bitmap_call(index, call, slices, opt)
 
     # ------------------------------------------------------ map/reduce
 
     def _map_reduce(self, slices, map_fn, reduce_fn, batch_fn):
         """Single-node map/reduce (ref: mapReduce executor.go:1444-1535):
-        the batched path unless pinned serial or ineligible (None)."""
-        if self._force_path != "serial":
+        the batched path unless pinned serial, absent or ineligible
+        (None)."""
+        if self._force_path != "serial" and batch_fn is not None:
             out = batch_fn(slices)
             if out is not None:
                 return out
@@ -299,10 +344,128 @@ class Executor:
             if call.has_condition_arg():
                 return self._execute_field_range_slice(index, call,
                                                        slice_num)
-            raise NotImplementedError(
-                "a time Range() reads time-quantum views, which are not "
-                "ported to pilosa_tpu_torch yet")
+            return self._execute_time_range_slice(index, call, slice_num)
         raise ValueError(f"unknown call: {name}")
+
+    # ------------------------------------------------------ bitmap results
+
+    def _execute_bitmap_call(self, index, call, slices, opt):
+        """A top-level bitmap call (ref: executeBitmapCall
+        executor.go:241-306): the per-slice bitmaps merged, a compound
+        tree batched into one deferred stack; a ``Bitmap`` carries its
+        row's (or column's) attributes."""
+        def reduce_fn(prev, v):
+            return (Bitmap() if prev is None else prev).merge(v)
+
+        batch_fn = None
+        if call.children:
+            batch_fn = self._windowed_batch(
+                lambda ns: self._batched_bitmap(index, call, ns), reduce_fn)
+        bm = self._map_reduce(
+            slices, lambda s: self._bitmap_call_slice(index, call, s),
+            reduce_fn, batch_fn)
+        if bm is None:
+            bm = Bitmap()
+        if call.name == "Bitmap":
+            bm.attrs = ({} if opt.exclude_attrs
+                        else self._bitmap_attrs(index, call))
+        if opt.exclude_bits:
+            bm.segments = {}
+        return bm
+
+    def _bitmap_attrs(self, index, call):
+        """The attributes a top-level Bitmap carries: its column's when
+        it names a column, else its row's (ref: executeBitmapCall
+        executor.go:241-306)."""
+        idx = self.holder.index(index)
+        col_id, col_ok = call.uint_arg(idx.column_label)
+        if col_ok:
+            return idx.column_attr_store.attrs(col_id)
+        frame = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
+        if frame is not None:
+            row_id, row_ok = call.uint_arg(frame.row_label)
+            if row_ok:
+                return frame.row_attr_store.attrs(row_id)
+        return {}
+
+    def _batched_bitmap(self, index, call, slices):
+        """A compound tree over the slice list folded into ONE
+        ``int32[S, 32768]`` stack, its per-slice counts from
+        ``count_rows``; the result defers the stack unsplit. None when
+        ineligible; BATCH_OVER_BUDGET when the leaf stacks and the
+        result would not fit the stack budget together."""
+        if len(slices) == 0:
+            return None
+        leaves = []
+        plan = self._batched_plan(index, call, leaves)
+        if plan is None:
+            return None
+        if plan[0] == "empty":
+            return Bitmap()
+        if self._over_budget(len(leaves) + 1, slices):
+            return BATCH_OVER_BUDGET
+        stacks = [self._leaf_stack(index, spec, slices) for spec in leaves]
+        result = self._eval_node(plan, stacks)
+        counts = bitops.count_rows(result).cpu().numpy()
+        bm = Bitmap()
+        bm.defer_stack(result, slices, counts)
+        bm._count = int(counts.sum(dtype=np.int64))
+        return bm
+
+    # ------------------------------------------------------ time ranges
+
+    def _time_range_spec(self, index, call):
+        """(frame, view, row or column id, start, end) of a time Range,
+        with the reference's argument errors (ref: executeRangeSlice
+        executor.go:593-664)."""
+        idx = self.holder.index(index)
+        frame = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
+        if frame is None:
+            raise perr.ErrFrameNotFound()
+        col_id, col_ok = call.uint_arg(idx.column_label)
+        row_id, row_ok = call.uint_arg(frame.row_label)
+        if col_ok and row_ok:
+            raise ValueError(
+                f'Range() cannot contain both "{idx.column_label}" and '
+                f'"{frame.row_label}"')
+        if not col_ok and not row_ok:
+            raise ValueError(
+                f'Range() must specify either "{idx.column_label}" or '
+                f'"{frame.row_label}"')
+        view, id_ = ((VIEW_INVERSE, col_id) if col_ok
+                     else (VIEW_STANDARD, row_id))
+        start = call.args.get("start")
+        if not isinstance(start, str):
+            raise ValueError("Range() start time required")
+        end = call.args.get("end")
+        if not isinstance(end, str):
+            raise ValueError("Range() end time required")
+        try:
+            start_t = datetime.strptime(start, TIME_FORMAT)
+        except ValueError:
+            raise ValueError("cannot parse Range() start time")
+        try:
+            end_t = datetime.strptime(end, TIME_FORMAT)
+        except ValueError:
+            raise ValueError("cannot parse Range() end time")
+        return frame, view, id_, start_t, end_t
+
+    def _execute_time_range_slice(self, index, call, slice_num):
+        """The union of the row over the views that cover [start, end)
+        (ref: executeRangeSlice executor.go:665-680); empty when the
+        frame has no time quantum."""
+        frame, view, id_, start_t, end_t = self._time_range_spec(index,
+                                                                 call)
+        bm = Bitmap()
+        if not frame.time_quantum:
+            return bm
+        for v in tq.views_by_time_range(view, start_t, end_t,
+                                        frame.time_quantum):
+            frag = self.holder.fragment(index, frame.name, v, slice_num)
+            if frag is not None:
+                bm = bm.union(Bitmap.from_device(slice_num,
+                                                 frag.device_row(id_)))
+        return bm
 
     def _range_condition(self, index, call):
         """(frame name, field, ``_condition_target``) of a BSI Range
@@ -385,11 +548,11 @@ class Executor:
                 spec = self._leaf_spec(index, call)
             except (ValueError, perr.PilosaError):
                 return None
-            if spec not in leaves:
-                leaves.append(spec)
-            return ("leaf", leaves.index(spec))
+            return ("leaf", _leaf_pos(leaves, spec))
         if call.name == "Range" and call.has_condition_arg():
             return self._plan_bsi_range(index, call, leaves)
+        if call.name == "Range":
+            return self._plan_time_range(index, call, leaves)
         if call.name in _BATCH_OPS and call.children:
             kids = []
             for c in call.children:
@@ -416,10 +579,7 @@ class Executor:
         view = view_field_name(field.name)
 
         def leaf(row):
-            spec = (frame_name, view, row)
-            if spec not in leaves:
-                leaves.append(spec)
-            return leaves.index(spec)
+            return _leaf_pos(leaves, (frame_name, view, row))
 
         if target[0] == "empty":
             return target
@@ -428,6 +588,26 @@ class Executor:
         return ("bsi", tuple(leaf(i) for i in range(depth)), leaf(depth),
                 target[0], tuple(bsi_ops.value_to_bits(v, depth)
                                  for v in target[1:]))
+
+    def _plan_time_range(self, index, call, leaves):
+        """A time Range -> ``("Union", [leaf per cover view])`` (ref:
+        pilosa_tpu executor.py:1978-2008); a view absent from the index stacks zero
+        rows. None when the serial path answers: a malformed call (it
+        raises the reference's error), a frame without a time quantum, a
+        column (inverse) Range, an empty cover."""
+        try:
+            frame, view, id_, start_t, end_t = self._time_range_spec(
+                index, call)
+        except (ValueError, perr.PilosaError):
+            return None
+        if not frame.time_quantum or view != VIEW_STANDARD:
+            return None
+        views = tq.views_by_time_range(view, start_t, end_t,
+                                       frame.time_quantum)
+        if not views:
+            return None
+        return ("Union", [("leaf", _leaf_pos(leaves, (frame.name, v, id_)))
+                          for v in views])
 
     def _over_budget(self, n_stacks, slices):
         """True when ``n_stacks`` leaf stacks over the slice list would
@@ -715,14 +895,34 @@ class Executor:
         return trimmed[:n] if n else trimmed
 
     def _topn_map_reduce(self, index, call, slices, has_ids):
+        frame_name = call.args.get("frame") or DEFAULT_FRAME
+        allowed = self._topn_attr_allowed(index, call, frame_name)
+
         def batch_fn(ns):
             if has_ids:
-                return self._batched_topn_ids(index, call, ns)
-            return self._batched_topn_phase1(index, call, ns)
+                return self._batched_topn_ids(index, call, ns, allowed)
+            return self._batched_topn_phase1(index, call, ns, allowed)
 
         return self._map_reduce(
-            slices, lambda s: self._execute_topn_slice(index, call, s),
+            slices,
+            lambda s: self._execute_topn_slice(index, call, s, allowed),
             pairs_add, self._windowed_batch(batch_fn, pairs_add)) or []
+
+    def _topn_attr_allowed(self, index, call, frame_name):
+        """Row ids whose attribute ``field`` is one of ``filters``, read
+        from the frame's row attribute store once per call, or None when
+        the call has no filter (ref: executeTopNSlice
+        executor.go:433-500)."""
+        attr_name = call.args.get("field") or ""
+        filters = call.args.get("filters")
+        if not attr_name or filters is None:
+            return None
+        frame = self.holder.index(index).frame(frame_name)
+        if frame is None:
+            return frozenset()
+        store = frame.row_attr_store
+        return frozenset(rid for rid in store.ids()
+                         if store.attrs(rid).get(attr_name) in filters)
 
     def _topn_call_params(self, call):
         """Shared TopN argument parsing and validation: (frame, view, n,
@@ -737,16 +937,13 @@ class Executor:
                 else VIEW_STANDARD)
         n, _ = call.uint_arg("n")
         min_threshold, _ = call.uint_arg("threshold")
-        if call.args.get("field") and call.args.get("filters") is not None:
-            raise NotImplementedError(
-                "TopN() attribute filters need the row attribute store, "
-                "which is not ported to pilosa_tpu_torch yet")
         return (frame_name, view, int(n),
                 max(int(min_threshold), MIN_THRESHOLD), int(tanimoto))
 
-    def _execute_topn_slice(self, index, call, slice_num):
+    def _execute_topn_slice(self, index, call, slice_num, allowed):
         """(ref: executeTopNSlice executor.go:433-500): the slice's Src
-        words stay on the device and go straight to ``Fragment.top``."""
+        words stay on the device and go straight to ``Fragment.top``;
+        ``allowed`` is the attribute filter's row ids, or None."""
         frame_name, view, n, min_threshold, tanimoto = (
             self._topn_call_params(call))
         row_ids, has_ids = call.uint_slice_arg("ids")
@@ -759,7 +956,8 @@ class Executor:
             return []
         return frag.top(TopOptions(
             n=n, src=src, row_ids=row_ids if has_ids else None,
-            min_threshold=min_threshold, tanimoto_threshold=tanimoto))
+            filter_row_ids=allowed, min_threshold=min_threshold,
+            tanimoto_threshold=tanimoto))
 
     @staticmethod
     def _topn_pairs(row_ids, counts):
@@ -771,9 +969,10 @@ class Executor:
         pairs.sort(key=lambda rc: (-rc[1], rc[0]))
         return pairs
 
-    def _batched_topn_ids(self, index, call, slices):
+    def _batched_topn_ids(self, index, call, slices, allowed):
         """Exact TopN re-query (phase 2) over the slice list: per-slice
-        threshold, then the sum — the serial path's semantics. None when
+        threshold, then the sum — the serial path's semantics; only the
+        ids the attribute filter ``allowed`` (None: all). None when
         ineligible (no ids, an unbatchable Src tree)."""
         row_ids, has_ids = call.uint_slice_arg("ids")
         if not slices or not has_ids or not row_ids:
@@ -789,6 +988,10 @@ class Executor:
             plan = self._batched_plan(index, call.children[0], leaves)
             if plan is None:
                 return None
+        if allowed is not None:
+            row_ids = [rid for rid in row_ids if rid in allowed]
+            if not row_ids:
+                return []
         counts = self._topn_candidate_counts(
             index, frame_name, view, row_ids, slices, tanimoto, plan,
             leaves)
@@ -797,14 +1000,16 @@ class Executor:
         counts = np.where(counts >= min_threshold, counts, 0)
         return self._topn_pairs(row_ids, counts)
 
-    def _batched_topn_phase1(self, index, call, slices):
+    def _batched_topn_phase1(self, index, call, slices, allowed):
         """TopN phase 1 (candidate discovery) with a Src tree, bit-equal
         to the serial per-fragment walk: exact |row ∩ src| for every
         (candidate, slice) over the union of the slices' cache entries,
         masked back to each slice's own cache membership (ref:
         topBitmapPairs fragment.go:965), thresholded, cut to each
-        slice's top n by (-count, id), then merged. None without a Src
-        (the serial walk reads host row counts; no device work)."""
+        slice's top n by (-count, id), then merged; the attribute filter
+        ``allowed`` (None: all) narrows each slice's entries. None
+        without a Src (the serial walk reads host row counts; no device
+        work)."""
         if not slices:
             return None
         frame_name, view, n, min_threshold, tanimoto = (
@@ -819,6 +1024,8 @@ class Executor:
             frag.cache_entry_ids() if frag is not None else frozenset()
             for frag in self.holder.fragments(index, frame_name, view,
                                               slices)]
+        if allowed is not None:
+            ent_sets = [es & allowed for es in ent_sets]
         union_ids = sorted(set().union(*ent_sets))
         if not union_ids:
             return []
@@ -881,7 +1088,7 @@ class Executor:
     def _execute_set_bit(self, index, call, set_value):
         """(ref: executeSetBit executor.go:985-1056, executeClearBit :891):
         the standard view, plus the inverse view of inverse-enabled
-        frames."""
+        frames; with a ``timestamp``, each view's time views too."""
         verb = "SetBit" if set_value else "ClearBit"
         view = call.args.get("view") or ""
         frame_name = call.args.get("frame")
@@ -898,15 +1105,13 @@ class Executor:
         if not ok:
             raise ValueError(
                 f"{verb}() column field '{idx.column_label}' required")
+        timestamp = None
         ts = call.args.get("timestamp")
         if isinstance(ts, str):
             try:
-                datetime.strptime(ts, TIME_FORMAT)
+                timestamp = datetime.strptime(ts, TIME_FORMAT)
             except ValueError:
                 raise ValueError(f"invalid date: {ts}")
-            raise NotImplementedError(
-                f"{verb}() with a timestamp writes time views, which are "
-                "not ported to pilosa_tpu_torch yet")
         if view == VIEW_STANDARD:
             views = [(VIEW_STANDARD, col_id, row_id)]
         elif view == VIEW_INVERSE:
@@ -920,9 +1125,9 @@ class Executor:
         changed = False
         for view_name, c, r in views:
             if set_value:
-                changed |= frame.set_bit(view_name, r, c)
+                changed |= frame.set_bit(view_name, r, c, timestamp)
             else:
-                changed |= frame.clear_bit(view_name, r, c)
+                changed |= frame.clear_bit(view_name, r, c, timestamp)
         return changed
 
     # ------------------------------------------------------ SetFieldValue
@@ -952,3 +1157,64 @@ class Executor:
             frame.set_field_value(col_id, fname, value)
         return None
 
+    # ------------------------------------------------------ attributes
+
+    @staticmethod
+    def _attrs_from_args(call, exclude):
+        """The call's arguments but ``exclude``, as attributes."""
+        attrs = {}
+        for k, v in call.args.items():
+            if k in exclude:
+                continue
+            if isinstance(v, Condition):
+                raise ValueError("attribute value cannot be a condition")
+            attrs[k] = v
+        return attrs
+
+    def _row_attrs_call(self, idx, call):
+        """(frame, row id, attrs) of a SetRowAttrs call, with the
+        reference's argument errors."""
+        frame_name = call.args.get("frame")
+        if not isinstance(frame_name, str):
+            raise ValueError("SetRowAttrs() field required: frame")
+        frame = idx.frame(frame_name)
+        if frame is None:
+            raise perr.ErrFrameNotFound()
+        row_id, ok = call.uint_arg(frame.row_label)
+        if not ok:
+            raise ValueError(
+                f"SetRowAttrs() row field '{frame.row_label}' required")
+        return frame, row_id, self._attrs_from_args(
+            call, ("frame", frame.row_label))
+
+    def _execute_set_row_attrs(self, index, call):
+        """(ref: executeSetRowAttrs executor.go:1164-1220), one node."""
+        frame, row_id, attrs = self._row_attrs_call(
+            self.holder.index(index), call)
+        frame.row_attr_store.set_attrs(row_id, attrs)
+        return None
+
+    def _execute_bulk_set_row_attrs(self, index, calls):
+        """SetRowAttrs calls grouped into one ``set_bulk_attrs`` per
+        frame (ref: executeBulkSetRowAttrs executor.go:1222-1308)."""
+        idx = self.holder.index(index)
+        by_frame = {}
+        for call in calls:
+            frame, row_id, attrs = self._row_attrs_call(idx, call)
+            by_frame.setdefault(frame.name, {}).setdefault(
+                row_id, {}).update(attrs)
+        for frame_name, attr_map in by_frame.items():
+            idx.frame(frame_name).row_attr_store.set_bulk_attrs(attr_map)
+        return [None] * len(calls)
+
+    def _execute_set_column_attrs(self, index, call):
+        """(ref: executeSetColumnAttrs executor.go), one node."""
+        idx = self.holder.index(index)
+        col_id, ok = call.uint_arg(idx.column_label)
+        if not ok:
+            raise ValueError(
+                f"SetColumnAttrs() column field '{idx.column_label}' "
+                "required")
+        attrs = self._attrs_from_args(call, (idx.column_label, "frame"))
+        idx.column_attr_store.set_attrs(col_id, attrs)
+        return None

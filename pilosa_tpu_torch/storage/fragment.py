@@ -102,11 +102,12 @@ class MutationEpoch:
 class TopOptions:
     """TopN options (ref: fragment.go:1004-1021)."""
 
-    def __init__(self, n=0, src=None, row_ids=None, min_threshold=0,
-                 tanimoto_threshold=0):
+    def __init__(self, n=0, src=None, row_ids=None, filter_row_ids=None,
+                 min_threshold=0, tanimoto_threshold=0):
         self.n = n
         self.src = src                      # int32[32768] device words
         self.row_ids = row_ids              # explicit candidate rows
+        self.filter_row_ids = filter_row_ids  # rows an attr filter allows
         self.min_threshold = min_threshold
         self.tanimoto_threshold = tanimoto_threshold
 
@@ -706,7 +707,9 @@ class Fragment:
         counts — host row counts, or |row ∩ src| from the
         ``count_and_rows`` kernel against ``opt.src`` (the slice's Src
         words, on the fragment's device) — over the rows the cache
-        admits (all rows named by ``opt.row_ids`` when given). A
+        admits (all rows named by ``opt.row_ids`` when given), and of
+        those only the rows of ``opt.filter_row_ids`` when given (an
+        attribute filter). A
         ``none`` cache yields nothing without ids. Pairs are ordered by
         (-count, id); with ``n`` and no ids, count ties straddling the
         n-th place stay in and are cut by id."""
@@ -738,6 +741,9 @@ class Fragment:
                     opt.row_ids, dtype=np.uint64))
             elif not isinstance(self.cache, NopCache):
                 mask &= np.isin(row_ids, self.cache.ids_arr())
+            if opt.filter_row_ids is not None:
+                mask &= np.isin(row_ids, np.fromiter(
+                    opt.filter_row_ids, dtype=np.uint64))
             idx = np.nonzero(mask)[0]
             # Explicit ids (the phase-2 exact re-query) are never cut per
             # slice; trimming happens after the cross-slice merge (ref:

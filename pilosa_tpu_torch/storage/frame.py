@@ -7,15 +7,29 @@ carried through unchanged.
 A BSI integer field ``f`` stores each column's value, offset by the
 field's ``min``, in rows 0..depth-1 of the view ``field_f`` (row i holds
 bit i) and marks the column in the not-null row ``depth``
-(fragment.go:493-528)."""
+(fragment.go:493-528).
+
+A frame with a time quantum (``"YMD"``, …) also writes each timestamped
+bit into one view per unit (``standard_2017``, ``standard_201706``,
+``standard_20170601``; ``time_quantum.py``). Row attributes live in the
+sqlite store ``<frame>/.data``, shared with pilosa_tpu."""
 import json
 import os
 import threading
 import time
 
+import numpy as np
+
 from pilosa_tpu_torch import SLICE_WIDTH
 from pilosa_tpu_torch import errors as perr
-from pilosa_tpu_torch.storage.view import VIEW_INVERSE, View, view_field_name
+from pilosa_tpu_torch import time_quantum as tq
+from pilosa_tpu_torch.storage.attrs import AttrStore
+from pilosa_tpu_torch.storage.view import (
+    VIEW_INVERSE,
+    VIEW_STANDARD,
+    View,
+    view_field_name,
+)
 
 DEFAULT_ROW_LABEL = "rowID"        # ref: frame.go:34-43
 DEFAULT_CACHE_TYPE = "ranked"
@@ -114,6 +128,7 @@ class Frame:
         self.time_quantum = ""
         self.fields = []  # [Field]
         self.views = {}
+        self.row_attr_store = AttrStore(os.path.join(path, ".data"))
 
     @property
     def meta_path(self):
@@ -157,6 +172,7 @@ class Frame:
             for entry in sorted(os.listdir(views_dir)):
                 if os.path.isdir(os.path.join(views_dir, entry)):
                     self._open_view(entry)
+            self.row_attr_store.open()
         return self
 
     def close(self):
@@ -164,6 +180,7 @@ class Frame:
             for v in self.views.values():
                 v.close()
             self.views = {}
+            self.row_attr_store.close()
 
     def _open_view(self, name):
         """Caller holds self.mu."""
@@ -180,8 +197,14 @@ class Frame:
             return self.views.get(name)
 
     def create_view_if_not_exists(self, name):
+        """A new view bumps the index's epoch: a cached stack or plan
+        that found no such view is stale from then on."""
         with self.mu:
-            return self.views.get(name) or self._open_view(name)
+            v = self.views.get(name)
+            if v is None:
+                v = self._open_view(name)
+                self._bump_epoch()
+            return v
 
     def max_slice(self):
         """Max over every non-inverse view (ref: frame.go:115-127)."""
@@ -195,13 +218,81 @@ class Frame:
             v = self.views.get(VIEW_INVERSE)
             return v.max_slice() if v else 0
 
-    def set_bit(self, view_name, row_id, column_id):
-        return self.create_view_if_not_exists(view_name).set_bit(
-            row_id, column_id)
+    def set_time_quantum(self, q):
+        q = tq.validate_quantum(q)
+        with self.mu:
+            self.time_quantum = q
+            self.save_meta()
 
-    def clear_bit(self, view_name, row_id, column_id):
+    def set_bit(self, view_name, row_id, column_id, t=None):
+        """Write one bit and, with a timestamp ``t``, its time-quantum
+        views (ref: Frame.SetBit frame.go:610-649)."""
+        changed = self.create_view_if_not_exists(view_name).set_bit(
+            row_id, column_id)
+        if t is not None:
+            for sub in tq.views_by_time(view_name, t, self.time_quantum):
+                changed |= self.create_view_if_not_exists(sub).set_bit(
+                    row_id, column_id)
+        return changed
+
+    def clear_bit(self, view_name, row_id, column_id, t=None):
+        """(ref: Frame.ClearBit frame.go:652-700): time views that exist
+        are cleared; none is created."""
         v = self.view(view_name)
-        return v.clear_bit(row_id, column_id) if v else False
+        changed = v.clear_bit(row_id, column_id) if v else False
+        if t is not None:
+            for sub in tq.views_by_time(view_name, t, self.time_quantum):
+                sv = self.view(sub)
+                if sv:
+                    changed |= sv.clear_bit(row_id, column_id)
+        return changed
+
+    def import_bits(self, row_ids, column_ids, timestamps=None):
+        """Bulk import grouped by (view, slice): the standard view, the
+        inverse view of an inverse-enabled frame (rows and columns
+        swapped), and each timestamped bit's time views (ref:
+        Frame.Import frame.go:806-884). ``timestamps`` holds a datetime
+        or None per bit."""
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if len(row_ids) != len(column_ids):
+            raise ValueError("row/column id length mismatch")
+        has_ts = timestamps is not None and len(timestamps) > 0
+        if has_ts and len(timestamps) != len(row_ids):
+            raise ValueError("timestamp length mismatch")
+        if len(row_ids) == 0:
+            return
+
+        def import_view(view_name, rows, cols):
+            if len(rows) == 0:
+                return
+            slices = cols // SLICE_WIDTH
+            order = np.argsort(slices, kind="stable")
+            rows, cols, slices = rows[order], cols[order], slices[order]
+            bounds = np.flatnonzero(
+                np.concatenate(([True], slices[1:] != slices[:-1])))
+            bounds = np.append(bounds, len(slices))
+            view = self.create_view_if_not_exists(view_name)
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                frag = view.create_fragment_if_not_exists(int(slices[lo]))
+                frag.import_bits(rows[lo:hi], cols[lo:hi])
+
+        import_view(VIEW_STANDARD, row_ids, column_ids)
+        if self.inverse_enabled:
+            import_view(VIEW_INVERSE, column_ids, row_ids)
+        if has_ts:
+            groups = {}  # time view -> ([rows], [cols])
+            for row, col, t in zip(row_ids, column_ids, timestamps):
+                if t is None:
+                    continue
+                for sub in tq.views_by_time(VIEW_STANDARD, t,
+                                            self.time_quantum):
+                    g = groups.setdefault(sub, ([], []))
+                    g[0].append(row)
+                    g[1].append(col)
+            for view_name, (rows, cols) in sorted(groups.items()):
+                import_view(view_name, np.asarray(rows, dtype=np.uint64),
+                            np.asarray(cols, dtype=np.uint64))
 
 
     # ------------------------------------------------------------ fields
@@ -285,10 +376,11 @@ class Frame:
 class FrameOptions:
     def __init__(self, row_label="", inverse_enabled=False,
                  range_enabled=False, cache_type="", cache_size=0,
-                 fields=None):
+                 time_quantum="", fields=None):
         self.row_label = row_label
         self.inverse_enabled = inverse_enabled
         self.range_enabled = range_enabled
         self.cache_type = cache_type
         self.cache_size = cache_size
+        self.time_quantum = time_quantum
         self.fields = fields or []

@@ -76,7 +76,7 @@ class Holder:
         with self.mu:
             return self.indexes.get(name)
 
-    def create_index(self, name, column_label=""):
+    def create_index(self, name, column_label="", time_quantum=""):
         with self.mu:
             if not name:
                 raise perr.ErrIndexRequired()
@@ -85,6 +85,8 @@ class Holder:
             idx = self._new_index(name).open()
             if column_label:
                 idx.column_label = perr.validate_label(column_label)
+            if time_quantum:
+                idx.set_time_quantum(time_quantum)
             idx.save_meta()
             self.indexes[name] = idx
             return idx

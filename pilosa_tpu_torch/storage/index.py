@@ -1,11 +1,14 @@
 """Index — a database of frames (ref: index.go; counterpart of
-pilosa_tpu/storage/index.py). ``.meta`` keys match pilosa_tpu's."""
+pilosa_tpu/storage/index.py). ``.meta`` keys match pilosa_tpu's; column
+attributes live in the sqlite store ``<index>/.data``."""
 import json
 import os
 import threading
 import time
 
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch import time_quantum as tq
+from pilosa_tpu_torch.storage.attrs import AttrStore
 from pilosa_tpu_torch.storage.fragment import MutationEpoch
 from pilosa_tpu_torch.storage.frame import (
     CACHE_TYPES,
@@ -32,6 +35,7 @@ class Index:
         self.column_label = DEFAULT_COLUMN_LABEL
         self.time_quantum = ""
         self.frames = {}
+        self.column_attr_store = AttrStore(os.path.join(path, ".data"))
 
     @property
     def meta_path(self):
@@ -64,6 +68,7 @@ class Index:
                 full = os.path.join(self.path, entry)
                 if os.path.isdir(full) and not entry.startswith("."):
                     self.frames[entry] = self._new_frame(entry).open()
+            self.column_attr_store.open()
         return self
 
     def close(self):
@@ -71,6 +76,14 @@ class Index:
             for f in self.frames.values():
                 f.close()
             self.frames = {}
+            self.column_attr_store.close()
+
+    def set_time_quantum(self, q):
+        """The quantum new frames inherit (ref: index.go SetTimeQuantum)."""
+        q = tq.validate_quantum(q)
+        with self.mu:
+            self.time_quantum = q
+            self.save_meta()
 
     def _new_frame(self, name):
         return Frame(os.path.join(self.path, name), self.name, name,
@@ -118,7 +131,8 @@ class Index:
             for fd in opt.fields:
                 fd.validate()
             frame = self._new_frame(name)
-            frame.time_quantum = self.time_quantum
+            frame.time_quantum = tq.validate_quantum(
+                opt.time_quantum or self.time_quantum)
             frame.cache_type = ("none" if opt.range_enabled
                                 else opt.cache_type or DEFAULT_CACHE_TYPE)
             if opt.row_label:

@@ -1,14 +1,19 @@
 """The CUDA kernels on the card: each held exactly against its plain
-version on the same device tensors, and the executor's Count, TopN and
-BSI paths on a GPU holder against the same directory served on the CPU. Marked
+version on the same device tensors; the executor's Count, TopN, BSI,
+time Range and bitmap-result paths on a GPU holder against the same
+directory served on the CPU; and ``Bitmap.columns()`` on the card
+against a host unpacking of the same words. Marked
 ``cuda``; where no GPU is present every test skips (decided inside the
 fixture, never at import). Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+from datetime import datetime
+
 import numpy as np
 import pytest
 import torch
 
 from pilosa_tpu_torch import SLICE_WIDTH
+from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.storage.frame import Field
@@ -209,5 +214,82 @@ def test_bsi_on_gpu_matches_cpu(gen, tmp_path):
             results[(device, p)] = [ex.execute("i", q)[0] for q in queries]
         if device == "cuda":
             assert all(kernels.launches.values()), kernels.launches
+        h.close()
+    assert len({repr(v) for v in results.values()}) == 1
+
+
+def _host_columns(words, slice_ids):
+    """Ascending ids of the set bits of host int32[R, W] rows."""
+    out = [np.flatnonzero(np.unpackbits(w.view(np.uint8), bitorder="little"))
+           .astype(np.uint64) + np.uint64(s * SLICE_WIDTH)
+           for w, s in zip(words, slice_ids)]
+    return np.concatenate(out) if out else np.empty(0, np.uint64)
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense", "bit31", "zeros"])
+def test_columns_on_gpu_match_host(gen, kind):
+    """columns() finds the set bits on the card: a deferred stack read
+    whole and the same rows as split segments, against numpy's unpacking
+    of the same words (bit j of an int32 word is column 32·w + j)."""
+    r = _rand(gen, 300, 32768)
+    if kind == "sparse":
+        for _ in range(8):
+            r &= _rand(gen, 300, 32768)
+    elif kind == "bit31":
+        r = (r & _rand(gen, 300, 32768) & _rand(gen, 300, 32768)) | (-2**31)
+    elif kind == "zeros":
+        r = torch.zeros_like(r)
+    r[7] = 0                      # an empty slice inside the stack
+    slice_ids = list(range(0, 600, 2))
+    want = _host_columns(r.cpu().numpy(), slice_ids)
+    counts = kernels.count_rows(r).cpu().numpy()
+    bm = Bitmap()
+    bm.defer_stack(r, slice_ids, counts)
+    assert bm.count() == len(want)
+    assert np.array_equal(bm.columns(), want)
+    _ = bm.segments               # split into per-slice views
+    assert np.array_equal(bm.columns(), want)
+    cpu = Bitmap()
+    cpu.defer_stack(r.cpu(), slice_ids, counts)
+    assert np.array_equal(cpu.columns(), want)
+
+
+def test_results_and_time_on_gpu_match_cpu(gen, tmp_path):
+    rng = np.random.default_rng(6)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    idx = h.create_index("i")
+    f = idx.create_frame("f")
+    c = idx.create_frame("c", FrameOptions(time_quantum="YMD"))
+    for s in (0, 1, 3):
+        cols = rng.integers(0, SLICE_WIDTH, 200000) + s * SLICE_WIDTH
+        f.import_bits(rng.integers(0, 3, len(cols)), cols)
+        days = rng.integers(1, 15, 50000)
+        c.import_bits(rng.integers(0, 2, 50000), cols[:50000],
+                      [datetime(2017, 6, int(d)) for d in days])
+    h.close()
+    rng_q = ('Range(frame="c", rowID=1, start="2017-06-01T00:00", '
+             'end="2017-06-15T00:00")')
+    queries = ['Bitmap(frame="f", rowID=2)',
+               'Intersect(Bitmap(frame="f", rowID=0), '
+               'Bitmap(frame="f", rowID=1))',
+               'Xor(Bitmap(frame="f", rowID=2), Bitmap(frame="f", rowID=1))',
+               rng_q, f"Count({rng_q})",
+               f'Count(Intersect({rng_q}, Bitmap(frame="f", rowID=0)))',
+               'Count(Range(frame="c", rowID=0, start="2017-06-01T00:00", '
+               'end="2017-07-01T00:00"))']
+    results = {}
+    for device in ("cpu", "cuda"):
+        h = Holder(path, device=device).open()
+        ex = Executor(h)
+        kernels.reset_launches()
+        for p in ("serial", "batched"):
+            ex._force_path = p
+            results[(device, p)] = [
+                r if isinstance(r, int) else r.columns().tolist()
+                for r in (ex.execute("i", q)[0] for q in queries)]
+        if device == "cuda":
+            assert kernels.launches["count_rows"] > 0
+            assert kernels.launches["count_op_rows"] > 0
         h.close()
     assert len({repr(v) for v in results.values()}) == 1

@@ -243,15 +243,21 @@ def test_errors_match_reference(datadir, query, exc, path_name):
 
 
 def test_unported_calls_raise_and_missing_index(datadir):
-    path, _ = datadir
+    """The calls that once raised NotImplementedError answer now: a time
+    Range over a frame without a time quantum is empty, a top-level
+    Bitmap returns the row's columns; a missing index still raises."""
+    path, words = datadir
     th = THolder(path, device="cpu").open()
     try:
         ex = TExecutor(th)
-        with pytest.raises(NotImplementedError):
-            ex.execute("i", 'Count(Range(frame="f", rowID=1, '
-                            'start="2017-01-01T00:00", end="2018-01-01T00:00"))')
-        with pytest.raises(NotImplementedError):
-            ex.execute("i", f"{R0}")
+        assert ex.execute("i", 'Count(Range(frame="f", rowID=1, '
+                               'start="2017-01-01T00:00", '
+                               'end="2018-01-01T00:00"))') == [0]
+        got = ex.execute("i", f"{R0}")[0].columns()
+        want = np.concatenate([_positions(words[s][0])
+                               + np.uint64(s * SLICE_WIDTH)
+                               for s in range(N_SLICES)])
+        assert np.array_equal(got, want)
         with pytest.raises(terr.ErrIndexNotFound):
             ex.execute("nope", f"Count({R0})")
         assert ex.execute("i", f"Count({R0})", slices=[0, 1]) == [

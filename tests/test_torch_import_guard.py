@@ -46,6 +46,8 @@ print(json.dumps(sorted(sys.modules)))
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "pilosa_tpu_torch.executor" in mods
     assert "pilosa_tpu_torch.ops.kernels" in mods
+    assert "pilosa_tpu_torch.time_quantum" in mods
+    assert "pilosa_tpu_torch.storage.attrs" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
 

@@ -595,13 +595,22 @@ def test_errors_match_reference(datadir, query, path_name):
 
 
 def test_attribute_filters_are_not_ported(datadir):
-    th = THolder(datadir, device="cpu").open()
-    try:
-        with pytest.raises(NotImplementedError):
-            TExecutor(th).execute(
-                "i", 'TopN(frame="t", n=2, field="cat", filters=["x"])')
-    finally:
-        th.close()
+    """Attribute filters are ported now: with no row attributes stored,
+    a filtered TopN keeps no row, on both paths, as pilosa_tpu does
+    (tests/test_torch_results.py holds filters with attributes)."""
+    queries = ['TopN(frame="t", n=2, field="cat", filters=["x"])',
+               f'TopN({_src(0)}, frame="t", n=2, field="cat", '
+               'filters=["x"])']
+    for holder_cls, ex_cls, kw in ((JHolder, JExecutor, {}),
+                                   (THolder, TExecutor, {"device": "cpu"})):
+        h = holder_cls(datadir, **kw).open()
+        try:
+            ex = ex_cls(h)
+            for p in PATHS:
+                ex._force_path = p
+                assert [ex.execute("i", q)[0] for q in queries] == [[], []]
+        finally:
+            h.close()
 
 
 # ------------------------------------------------------ Tanimoto helpers
