@@ -57,11 +57,31 @@ Phases, each of which fails the run (exit code != 0, no result line):
    Ranges on both paths, the top-level Ranges compared id by id, then a
    timestamped SetBit into a day view that does not exist yet and a
    ClearBit with a timestamp, with recounts. ``count_op_rows`` and
-   ``count_rows`` must have launched.
+   ``count_rows`` must have launched;
+8. the HTTP server and the CLI — run after phase 6, on its data
+   directory, before phase 7. (a) ``Server(datadir, bind=
+   "127.0.0.1:0")`` on the card, driven over one keep-alive
+   ``http.client`` connection: ``/status`` and ``/schema`` list frames f
+   and t with their views; Count(Intersect(row 0, row 1)) in JSON and in
+   protobuf, then warm over HTTP (n=100) beside phase 4's in-process
+   p50; ``TopN(Bitmap(frame="f", rowID=0), frame="f", n=4)`` over frame
+   f's cached rows; Sum and Count(Range(stars > 30)) after phase 6's
+   writes; the batched Intersect(row 3, row 0)'s ~4.9M ids in the JSON
+   body id by id, its HTTP p50 (n=5) beside the query, ``columns()`` and
+   JSON-encoding times in process; SetBit and the recount; a protobuf
+   ``/import`` of 100,000 bits of a new row over 8 slices, one past the
+   last, its Count and ``/slices/max``; a protobuf ``/import-value`` of
+   1,000 values and Sum; ``/export`` of the new slice against numpy.
+   All three kernels must have launched. (b) ``python -m
+   pilosa_tpu_torch.cli server`` as a subprocess (the GPU by default):
+   Pilosa's Quick Start, ``cli import`` of a generated 10,000-line CSV
+   and recounts against numpy, then SIGTERM and exit 0.
 
 The serial path of phases 4-6 runs over the first 1,024 slices (the
 batched path and the top-level bare ``Bitmap`` over all of them), so
-that the script stays well inside its time limit.
+that the script stays inside its 1,200 s limit: 740-805 s in all on
+H100 hosts (PERF.md §5), of which phase 8 takes ~110 s, most of it a
+fourth open of frames f and t (~75 s).
 
 The second-to-last line is a JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``. The script exits non-zero
@@ -405,8 +425,9 @@ def backup_tar(words):
 def _write_f_slices(frag_dir, seed, lo, hi):
     """Worker: frame f's fragments of slices [lo, hi), each restored by
     ``Fragment.read_from`` from a backup archive of the port's codec;
-    returns their per-query oracle counts and, per bitmap query, the
-    ascending column ids of its result. The workers write disjoint
+    returns their per-query oracle counts, per bitmap query the
+    ascending column ids of its result, and |row r & row 0| per row and
+    slice (phase 8's TopN over frame f). The workers write disjoint
     fragments of a closed holder's tree: ``holder_locked`` spares them
     the transient probe of ``.holder.lock``, which they would contend
     for."""
@@ -414,16 +435,18 @@ def _write_f_slices(frag_dir, seed, lo, hi):
 
     counts = np.zeros((len(QUERIES), hi - lo), dtype=np.int64)
     ids = [[] for _ in BITMAP_QUERIES]
+    and_f0 = np.zeros((4, hi - lo), dtype=np.int64)
     for i, s in enumerate(range(lo, hi)):
         words = slice_words(seed, s)
         counts[:, i] = slice_counts(words)
+        and_f0[:, i] = np.bitwise_count(words & words[0]).sum(axis=1)
         for k, (_, fn) in enumerate(BITMAP_QUERIES):
             ids[k].append(positions(fn(words)) + np.uint64(s * SLICE_COLS))
         frag = Fragment(os.path.join(frag_dir, str(s)), "i", "f",
                         "standard", s, holder_locked=True).open()
         frag.read_from(backup_tar(words))
         frag.close()
-    return lo, counts, [np.concatenate(x) for x in ids]
+    return lo, counts, [np.concatenate(x) for x in ids], and_f0
 
 
 def p50_ms(fn, reps):
@@ -501,7 +524,9 @@ def bitmap_reads(ex, slices, oracle_ids, card):
           f"hold; column 100 carries {got}")
 
 
-def main_path(slices, seed, datadir, card):
+def main_path(slices, seed, datadir, card, oracle):
+    """Phase 4; leaves in ``oracle`` what phase 8 checks its answers
+    against."""
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
@@ -520,10 +545,11 @@ def main_path(slices, seed, datadir, card):
     frag_dir = os.path.join(view.path, "fragments")
     holder.close()
     procs, parts = in_processes(_write_f_slices, frag_dir, seed, slices)
-    for lo, c, _ in parts:
+    for lo, c, _, _ in parts:
         per_slice[:, lo:lo + c.shape[1]] = c
-    oracle_ids = [np.concatenate([ids[k] for _, _, ids in parts])
+    oracle_ids = [np.concatenate([ids[k] for _, _, ids, _ in parts])
                   for k in range(len(BITMAP_QUERIES))]
+    and_f0 = sum(p[3].sum(axis=1) for p in parts)
     del parts
     write_s = time.perf_counter() - t0
     print(f"main path: wrote {slices} slices ({slices * SLICE_WIDTH / 1e9:.2f}"
@@ -601,6 +627,10 @@ def main_path(slices, seed, datadir, card):
           f"(n=100, host clock to torch.cuda.synchronize()); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; "
           f"launches {launches}")
+    oracle.update(count_and=want[2], and_ids=oracle_ids[1],
+                  count_p50_ms=float(np.percentile(lat_ms, 50)),
+                  topn_f0=sorted(((r, int(c)) for r, c in enumerate(and_f0)
+                                  if c), key=lambda rc: (-rc[1], rc[0])))
     return launches
 
 
@@ -949,10 +979,10 @@ def bsi_answers(hist):
     }
 
 
-def bsi_path(slices, seed, datadir, card):
+def bsi_path(slices, seed, datadir, card, oracle):
     """Phase 6: the BSI field ``stars`` on frame t, every BSI query on
     both paths against the numpy oracle, before and after
-    SetFieldValue."""
+    SetFieldValue; leaves the answers after the writes in ``oracle``."""
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import bsi as bsi_ops
@@ -1080,6 +1110,8 @@ def bsi_path(slices, seed, datadir, card):
         return (f"({label}) p50 {np.percentile(a, 50):.3f} ms, p90 "
                 f"{np.percentile(a, 90):.3f} ms, max {a.max():.3f} ms")
 
+    oracle.update(stars_sum=want["a_sum"], stars_gt30=want["c"],
+                  stars_written=s)
     print(f"bsi {card}: open {open_s:.2f} s, first Sum {first_s:.2f} s "
           f"(mirrors and stacks built); warm batched over {slices} slices "
           f"(n=50 each, host clock to torch.cuda.synchronize()): "
@@ -1090,6 +1122,355 @@ def bsi_path(slices, seed, datadir, card):
           + f"; max_memory_allocated {peak / 2**30:.2f} GiB; launches "
           f"{launches}")
     return launches
+
+
+# ------------------------------------------------------------ phase 8
+
+NEW_ROW = 100                   # the row phase 8 imports into frame f
+IMPORT_PER_SLICE = 12500        # its bits per slice, over 8 slices
+CLI_LINES = 10000               # lines of the CSV that 8b imports
+
+
+def http_request(conn, method, path, body=b"", headers=None):
+    """(status, content type, body) of one request on a keep-alive
+    ``http.client`` connection."""
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    return resp.status, resp.getheader("Content-Type"), resp.read()
+
+
+def raw_post(sock, reader, host, path, body):
+    """POST ``body`` on a keep-alive socket and read the response by its
+    Content-Length; -> the response body."""
+    sock.sendall(b"POST %s HTTP/1.1\r\nHost: %s\r\nContent-Length: %d"
+                 b"\r\n\r\n%s" % (path.encode(), host.encode(), len(body),
+                                    body))
+    n = None
+    while True:
+        line = reader.readline()
+        check(line, "raw_post: connection closed")
+        if line == b"\r\n":
+            break
+        if line.lower().startswith(b"content-length:"):
+            n = int(line.split(b":", 1)[1])
+    return reader.read(n)
+
+
+def http_json(conn, method, path, body=b"", headers=None):
+    status, ctype, data = http_request(conn, method, path, body, headers)
+    check(status == 200 and ctype == "application/json",
+          f"{method} {path}: {status} {ctype} {data[:200]!r}")
+    return json.loads(data)
+
+
+def http_query(conn, pql):
+    """The results of one PQL query, JSON over HTTP."""
+    return http_json(conn, "POST", "/index/i/query", pql.encode())["results"]
+
+
+def server_path(slices, seed, datadir, card, oracle):
+    """Phase 8a: the in-process ``Server`` on the card over phases 4-6's
+    data directory, driven over one keep-alive connection; every answer
+    against the oracles of phases 4 and 6 and the numpy oracle of its
+    own writes. Returns the launches of the run."""
+    import http.client
+    import socket
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import wireproto
+    from pilosa_tpu_torch.server.handler import result_to_json
+    from pilosa_tpu_torch.server.server import Server
+
+    t0 = time.perf_counter()
+    server = Server(datadir, bind="127.0.0.1:0", device=DEVICE).open()
+    open_s = time.perf_counter() - t0
+    host, port = server.host.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    reset_peak()
+    kernels.reset_launches()
+    try:
+        schema = [{"name": "i", "frames": [
+            {"name": "f", "views": [{"name": "standard"}]},
+            {"name": "t", "views": [{"name": "field_stars"}]}]}]
+        got = http_json(conn, "GET", "/status")
+        check(got == {"status": {"state": "NORMAL", "nodes": [],
+                                 "indexes": schema}}, f"/status {got}")
+        got = http_json(conn, "GET", "/schema")
+        check(got == {"indexes": schema}, f"/schema {got}")
+
+        # Count(Intersect), JSON and protobuf, then warm over HTTP.
+        q_and = QUERIES[2][0]
+        want = oracle["count_and"]
+        t = time.perf_counter()
+        got = http_query(conn, q_and)
+        first_s = time.perf_counter() - t
+        check(got == [want], f"HTTP {q_and}: {got} != oracle {want}")
+        status, ctype, data = http_request(
+            conn, "POST", "/index/i/query",
+            wireproto.encode_query_request(q_and),
+            {"Content-Type": "application/x-protobuf"})
+        got = wireproto.decode_query_response(data)
+        check(status == 200 and ctype == "application/x-protobuf"
+              and got == {"error": None, "results": [want]},
+              f"protobuf {q_and}: {status} {ctype} {got}")
+        lat = []
+        for _ in range(100):
+            t = time.perf_counter()
+            got = http_query(conn, q_and)
+            lat.append((time.perf_counter() - t) * 1e3)
+            check(got == [want], "warm HTTP Count(Intersect) changed")
+        lat = np.asarray(lat)
+        p50, p90 = np.percentile(lat, 50), np.percentile(lat, 90)
+        # The handler alone, in this thread: parse, execute and JSON
+        # without the HTTP transport.
+        want_body = json.dumps({"results": [want]}).encode()
+        disp_ms, got = p50_ms(lambda: server.handler.dispatch(
+            "POST", "/index/i/query", {}, q_and.encode(), {}), 100)
+        check(got == (200, "application/json", want_body),
+              f"Handler.dispatch {q_and}: {got}")
+        # The same request from a raw socket: the server's transport
+        # without http.client's request and response handling.
+        sock = socket.create_connection((host, int(port)), timeout=60)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        with sock, sock.makefile("rb") as reader:
+            raw_ms, got = p50_ms(lambda: raw_post(
+                sock, reader, server.host, "/index/i/query",
+                q_and.encode()), 100)
+        check(got == want_body, f"raw-socket {q_and}: {got}")
+        print(f"server {card}: open {open_s:.2f} s, first Count(Intersect) "
+              f"{first_s:.2f} s; warm Count(Intersect) over {slices} slices "
+              f"over HTTP (JSON, one keep-alive connection, n=100, host "
+              f"clock): p50 {p50:.3f} ms, p90 {p90:.3f} ms, max "
+              f"{lat.max():.3f} ms; in process (phase 4) p50 "
+              f"{oracle['count_p50_ms']:.3f} ms; HTTP and JSON "
+              f"{p50 - oracle['count_p50_ms']:.3f} ms; Handler.dispatch "
+              f"alone p50 {disp_ms:.3f} ms; from a raw keep-alive socket "
+              f"p50 {raw_ms:.3f} ms (n=100 each)")
+
+        # TopN over frame f (its .cache sidecars hold rows 0-3).
+        q = f'TopN({R0}, frame="f", n=4)'
+        got = http_query(conn, q)
+        want = [[{"id": r, "count": c} for r, c in oracle["topn_f0"]]]
+        check(got == want, f"HTTP {q}: {got} != oracle {want}")
+        print(f"  {q} -> {got[0]}")
+
+        # BSI after phase 6's writes.
+        q_sum = 'Sum(frame="t", field="stars")'
+        q_gt = 'Count(Range(frame="t", stars > 30))'
+        s_want = oracle["stars_sum"]
+        got = http_query(conn, f"{q_sum} {q_gt}")
+        check(got == [{"sum": s_want.sum, "count": s_want.count},
+                      oracle["stars_gt30"]],
+              f"HTTP {q_sum} {q_gt}: {got} != oracle "
+              f"{s_want} {oracle['stars_gt30']}")
+        print(f"  {q_sum} {q_gt} -> {got}")
+
+        # The batched Intersect's ids, id by id, then its time split
+        # into the query, the ids' extraction and the JSON encoding.
+        q_ids = BITMAP_QUERIES[1][0]
+        status, ctype, body = http_request(conn, "POST", "/index/i/query",
+                                           q_ids.encode())
+        check(status == 200 and ctype == "application/json",
+              f"HTTP {q_ids}: {status} {ctype}")
+        bits = json.loads(body)["results"][0]["bits"]
+        check(np.array_equal(np.asarray(bits, dtype=np.uint64),
+                             oracle["and_ids"]),
+              f"HTTP {q_ids}: {len(bits)} ids != oracle "
+              f"{len(oracle['and_ids'])}")
+        del bits
+        http_ms = []
+        for _ in range(5):
+            t = time.perf_counter()
+            got = http_request(conn, "POST", "/index/i/query",
+                               q_ids.encode())
+            http_ms.append((time.perf_counter() - t) * 1e3)
+            check(got == (status, ctype, body), "HTTP Intersect changed")
+        ex = server.executor
+        query_ms, bm = p50_ms(lambda: ex.execute("i", q_ids)[0], 5)
+        cols_ms, cols = p50_ms(bm.columns, 5)
+        json_ms, _ = p50_ms(lambda: json.dumps({"results": [
+            {"attrs": bm.attrs, "bits": cols.tolist()}]}).encode(), 5)
+        check(json.dumps({"results": [result_to_json(bm)]}).encode()
+              == body, "in-process JSON != HTTP body")
+        h50 = np.percentile(http_ms, 50)
+        print(f"server {card}: {q_ids} over HTTP (JSON, n=5, host clock) "
+              f"p50 {h50:.1f} ms for {len(cols)} ids, {len(body)} bytes of "
+              f"body; in process p50: query {query_ms:.3f} ms, columns() "
+              f"{cols_ms:.3f} ms, JSON encoding {json_ms:.1f} ms "
+              f"({json_ms / h50:.1%} of the HTTP p50)")
+        del body, cols, bm
+
+        # SetBit over HTTP where row 0 has the bit and row 1 does not.
+        s = min(SERIAL_SLICES, slices) // 2 + 1
+        words = slice_words(seed, s)
+        bit = int(np.flatnonzero(np.unpackbits(
+            (words[0] & ~words[1]).view(np.uint8), bitorder="little"))[0])
+        col = s * SLICE_WIDTH + bit
+        got = http_query(conn, f'SetBit(frame="f", rowID=1, columnID={col})')
+        check(got == [True], f"HTTP SetBit at {col}: {got}")
+        want_and = oracle["count_and"] + 1
+        got = http_query(conn, q_and)
+        check(got == [want_and], f"HTTP {q_and} after SetBit: {got} != "
+              f"{want_and}")
+
+        # Protobuf import of a new row over 8 slices, one past the last.
+        rng = np.random.default_rng([seed, 8])
+        imp_slices = sorted(set(np.linspace(0, slices - 1, 7).astype(
+            int).tolist()) | {slices})
+        new_cols = {}
+        t = time.perf_counter()
+        for sl in imp_slices:
+            c = np.sort(rng.choice(SLICE_COLS, IMPORT_PER_SLICE,
+                                   replace=False)) + sl * SLICE_WIDTH
+            new_cols[sl] = c
+            status, _, data = http_request(
+                conn, "POST", "/import", wireproto.encode_import_request(
+                    "i", "f", sl, np.full(len(c), NEW_ROW), c),
+                {"Content-Type": "application/x-protobuf"})
+            check((status, data) == (200, b"{}"),
+                  f"POST /import slice {sl}: {status} {data[:200]!r}")
+        import_s = time.perf_counter() - t
+        n_new = sum(len(c) for c in new_cols.values())
+        got = http_query(conn, f'Count({ROW.format(NEW_ROW)})')
+        check(got == [n_new], f"Count of the imported row: {got} != {n_new}")
+        got = http_json(conn, "GET", "/slices/max")
+        check(got == {"maxSlices": {"i": slices}}, f"/slices/max {got}")
+        got = http_query(conn, q_and)
+        check(got == [want_and], f"{q_and} after the import: {got}")
+
+        # Protobuf import-value of 1,000 values into empty columns.
+        s = slices - 1 if slices - 1 != oracle["stars_written"] else 0
+        v, nn = stars_values(seed, s)
+        empty = np.flatnonzero(~_bits(nn))
+        vcols = np.sort(rng.choice(empty, 1000, replace=False))
+        vals = rng.integers(STARS_MIN, STARS_MAX + 1, 1000)
+        status, _, data = http_request(
+            conn, "POST", "/import-value",
+            wireproto.encode_import_value_request(
+                "i", "t", s, "stars", vcols + s * SLICE_WIDTH, vals),
+            {"Content-Type": "application/x-protobuf"})
+        check((status, data) == (200, b"{}"),
+              f"POST /import-value: {status} {data[:200]!r}")
+        want = [{"sum": s_want.sum + int(vals.sum()),
+                 "count": s_want.count + len(vals)},
+                oracle["stars_gt30"] + int((vals > 30).sum())]
+        got = http_query(conn, f"{q_sum} {q_gt}")
+        check(got == want, f"{q_sum} {q_gt} after import-value: {got} != "
+              f"{want}")
+
+        # Export of the slice past the last: the new row alone.
+        status, ctype, data = http_request(
+            conn, "GET", f"/export?index=i&frame=f&slice={slices}")
+        want = "".join(f"{NEW_ROW},{c}\n" for c in new_cols[slices].tolist())
+        check((status, ctype) == (200, "text/csv")
+              and data == want.encode(),
+              f"GET /export slice {slices}: {status} {ctype}, "
+              f"{len(data)} bytes != {len(want)}")
+        print(f"  SetBit and recount ({want_and}); POST /import of {n_new} "
+              f"bits of row {NEW_ROW} over slices {imp_slices} in "
+              f"{import_s:.2f} s, its Count and /slices/max; POST "
+              f"/import-value of 1000 stars and Sum; GET /export of slice "
+              f"{slices} ({len(data)} bytes) equal to numpy {card}")
+        launches = dict(kernels.launches)
+        peak = peak_bytes()
+    finally:
+        conn.close()
+        server.close()
+    check(all(launches.values()),
+          f"a kernel never launched on the server path: {launches}")
+    print(f"server {card}: max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"launches {launches}")
+    return launches
+
+
+def _listening_line(proc, timeout):
+    """The server's ``listening as`` line among its first lines of
+    output, or a failure after ``timeout`` seconds."""
+    import select
+
+    deadline = time.monotonic() + timeout
+    seen = []
+    while True:
+        left = deadline - time.monotonic()
+        ready = select.select([proc.stdout], [], [], max(left, 0))[0]
+        line = proc.stdout.readline().decode() if ready else ""
+        if line.startswith("pilosa-tpu listening as "):
+            return line
+        seen.append(line)
+        check(ready and line and left > 0,
+              f"the server did not listen in {timeout} s: {''.join(seen)}")
+
+
+def cli_path(seed, datadir, card):
+    """Phase 8b: ``python -m pilosa_tpu_torch.cli server`` on the card
+    as a subprocess, Pilosa's Quick Start against it, ``cli import`` of a
+    generated CSV, recounts against numpy, then SIGTERM."""
+    import http.client
+    import signal
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+
+    os.makedirs(datadir)
+    rng = np.random.default_rng([seed, 9])
+    rows = rng.integers(0, 5, CLI_LINES)
+    cols = rng.integers(0, 4 * SLICE_WIDTH, CLI_LINES)
+    csv_path = os.path.join(datadir, "import.csv")
+    with open(csv_path, "w") as fh:
+        fh.write("".join(f"{r},{c}\n" for r, c in zip(rows, cols)))
+    t0 = time.perf_counter()
+    # The entry point's own default device is the GPU.
+    device = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d",
+         os.path.join(datadir, "data"), "-b", "127.0.0.1:0", *device],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        line = _listening_line(proc, 180)
+        check(line.startswith("pilosa-tpu listening as http://127.0.0.1:"),
+              f"server said {line!r}")
+        start_s = time.perf_counter() - t0
+        host = line.split("http://")[1].strip()
+        conn = http.client.HTTPConnection(host, timeout=120)
+        try:
+            got = [http_json(conn, "POST", "/index/i", b"{}"),
+                   http_json(conn, "POST", "/index/i/frame/f", b"{}"),
+                   http_query(conn, 'SetBit(frame="f", rowID=1, '
+                                    'columnID=2)'),
+                   http_query(conn, 'Count(Bitmap(frame="f", rowID=1))')]
+            check(got == [{}, {}, [True], [1]], f"Quick Start: {got}")
+            t = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "import",
+                 "--host", host, "-i", "i", "-f", "f", csv_path], cwd=HERE,
+                capture_output=True, text=True, timeout=300)
+            import_s = time.perf_counter() - t
+            check(out.returncode == 0
+                  and out.stdout.strip() == f"imported {CLI_LINES} bits",
+                  f"cli import: {out.returncode} {out.stdout} {out.stderr}")
+            pairs = set(zip(rows.tolist(), cols.tolist())) | {(1, 2)}
+            want = [sum(1 for r, _ in pairs if r == k) for k in range(5)]
+            got = [http_query(conn, f'Count({ROW.format(k)})')[0]
+                   for k in range(5)]
+            check(got == want, f"counts after cli import: {got} != {want}")
+        finally:
+            conn.close()
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        stop_s = time.perf_counter() - t
+        rest = proc.stdout.read().decode()
+        check(rc == 0 and "pilosa-tpu closed" in rest,
+              f"server exit {rc}: {rest[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    print(f"cli {card}: server up in {start_s:.2f} s; the Quick Start's "
+          f"four requests answered {{}}, {{}}, [true], [1]; cli import of "
+          f"{CLI_LINES} lines in {import_s:.2f} s, counts per row {want} "
+          f"equal to numpy; SIGTERM -> exit 0 in {stop_s:.2f} s")
 
 
 # ------------------------------------------------------------ phase 7
@@ -1350,16 +1731,23 @@ def main():
     # Phase 3: kernels against their plain versions.
     stats = kernel_checks(args.slices, card)
 
-    # Phases 4-7: the main path, Count and bitmap results, TopN, BSI and
-    # time windows, each read with the launch counts reset just before
-    # it. Phase 7 has a data directory of its own.
+    # Phases 4-8: the main path, Count and bitmap results, TopN, BSI, the
+    # HTTP server over their data directory and the CLI, then time
+    # windows, each read with the launch counts reset just before it.
+    # Phase 7 has a data directory of its own.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
+    oracle = {}
     try:
         phase_launches = [
-            main_path(args.slices, args.seed, datadir, card),
+            main_path(args.slices, args.seed, datadir, card, oracle),
             topn_path(args.slices, args.seed, datadir, card),
-            bsi_path(args.slices, args.seed, datadir, card)]
+            bsi_path(args.slices, args.seed, datadir, card, oracle)]
+        t0 = time.perf_counter()
+        phase_launches.append(
+            server_path(args.slices, args.seed, datadir, card, oracle))
+        cli_path(args.seed, os.path.join(datadir, ".cli"), card)
+        print(f"phase 8: {time.perf_counter() - t0:.1f} s {card}")
         shutil.rmtree(datadir)
         phase_launches.append(events_path(min(EVENT_SLICES, args.slices),
                                           args.seed, datadir, card))

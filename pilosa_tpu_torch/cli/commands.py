@@ -1,0 +1,154 @@
+"""CLI command implementations (ref: ctl/; counterpart of
+pilosa_tpu/cli/commands.py for ``server``, ``import`` and ``export``).
+
+Each command takes an argv list and writes to stdout, so tests drive it
+directly.
+"""
+import argparse
+import csv
+import os
+import signal
+import sys
+import threading
+
+import numpy as np
+
+from pilosa_tpu_torch import SLICE_WIDTH
+from pilosa_tpu_torch.cluster.client import InternalClient
+
+DEFAULT_HOST = "localhost:10101"
+
+
+# ------------------------------------------------------------------ server
+
+def cmd_server(args):
+    """Serve a data directory until SIGTERM or Ctrl-C (ref:
+    ctl/server.go). The GPU unless ``--device cpu``."""
+    p = argparse.ArgumentParser(prog="server")
+    p.add_argument("-d", "--data-dir", default="~/.pilosa")
+    p.add_argument("-b", "--bind", default=DEFAULT_HOST)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the holder (default cuda)")
+    opts = p.parse_args(args)
+
+    from pilosa_tpu_torch.server.server import Server
+
+    server = Server(os.path.expanduser(opts.data_dir), bind=opts.bind,
+                    device=opts.device).open()
+    print(f"pilosa-tpu listening as {server.scheme}://{server.host}",
+          flush=True)
+    stop = threading.Event()
+    try:
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    except ValueError:
+        pass  # not the main thread (embedded/test invocation)
+    try:
+        while not stop.wait(0.5):
+            pass
+    except KeyboardInterrupt:
+        pass
+    server.close()
+    print("pilosa-tpu closed", flush=True)
+    return 0
+
+
+# ------------------------------------------------------------------ import
+
+def _read_csv(path):
+    """int64[n, 3] records of ``a,b[,c]`` lines, a missing field 0 and
+    blank lines skipped; ``-`` is standard input."""
+    fh = sys.stdin if path == "-" else open(path, newline="")
+    try:
+        recs = []
+        for rec in csv.reader(fh):
+            if not rec:
+                continue
+            vals = [int(x) for x in rec[:3]]
+            recs.append(vals + [0] * (3 - len(vals)))
+    finally:
+        if fh is not sys.stdin:
+            fh.close()
+    return np.asarray(recs, dtype=np.int64).reshape(-1, 3)
+
+
+def cmd_import(args):
+    """CSV import: ``row,col[,timestamp]`` lines (epoch seconds), or
+    ``col,value`` lines into the BSI field ``--field``, posted one slice
+    per request (ref: ctl/import.go:33-252)."""
+    p = argparse.ArgumentParser(prog="import")
+    p.add_argument("--host", default=DEFAULT_HOST)
+    p.add_argument("-i", "--index", required=True)
+    p.add_argument("-f", "--frame", required=True)
+    p.add_argument("-e", "--field", default=None,
+                   help="import into a BSI field (col,value rows)")
+    p.add_argument("paths", nargs="+")
+    opts = p.parse_args(args)
+
+    client = InternalClient()
+    try:
+        client.ensure_index(opts.host, opts.index)
+        client.ensure_frame(opts.host, opts.index, opts.frame,
+                            {"rangeEnabled": True} if opts.field else {})
+        rows = np.concatenate([_read_csv(path) for path in opts.paths])
+
+        # One stable argsort on the owning slice, then a request per run.
+        col_field = 0 if opts.field else 1
+        slices = rows[:, col_field] // SLICE_WIDTH
+        order = np.argsort(slices, kind="stable")
+        rows, slices = rows[order], slices[order]
+        groups = np.split(np.arange(len(rows)),
+                          np.flatnonzero(np.diff(slices)) + 1)
+        n = 0
+        if opts.field and len(rows):
+            # The field is created if absent, sized to the values.
+            vals = rows[:, 1]
+            client.ensure_field(opts.host, opts.index, opts.frame,
+                                opts.field, min(int(vals.min()), 0),
+                                int(vals.max()))
+        for g in groups:
+            if not len(g):
+                continue
+            slice_num = int(slices[g[0]])
+            if opts.field:
+                client.import_values(opts.host, opts.index, opts.frame,
+                                     slice_num, opts.field,
+                                     rows[g, 0].tolist(),
+                                     rows[g, 1].tolist())
+            else:
+                tss = rows[g, 2]
+                client.import_bits(opts.host, opts.index, opts.frame,
+                                   slice_num, rows[g, 0].tolist(),
+                                   rows[g, 1].tolist(),
+                                   tss.tolist() if tss.any() else None)
+            n += len(g)
+    finally:
+        client.close()
+    print(f"imported {n} bits")
+    return 0
+
+
+# ------------------------------------------------------------------ export
+
+def cmd_export(args):
+    """A frame's view as ``row,column`` CSV, slice by slice (ref:
+    ctl/export.go:27-117)."""
+    p = argparse.ArgumentParser(prog="export")
+    p.add_argument("--host", default=DEFAULT_HOST)
+    p.add_argument("-i", "--index", required=True)
+    p.add_argument("-f", "--frame", required=True)
+    p.add_argument("--view", default="standard")
+    p.add_argument("-o", "--output", default=None)
+    opts = p.parse_args(args)
+
+    client = InternalClient()
+    out = open(opts.output, "w") if opts.output else sys.stdout
+    try:
+        for slice_num in range(client.max_slices(opts.host)
+                               .get(opts.index, 0) + 1):
+            out.write(client.export_csv(opts.host, opts.index, opts.frame,
+                                        opts.view, slice_num))
+    finally:
+        client.close()
+        if opts.output:
+            out.close()
+    return 0

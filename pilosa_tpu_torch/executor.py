@@ -84,6 +84,7 @@ from pilosa_tpu_torch.storage.view import (
 DEFAULT_FRAME = "general"        # ref: executor.go:31
 MIN_THRESHOLD = 1                # ref: executor.go:33-35
 TIME_FORMAT = "%Y-%m-%dT%H:%M"   # ref: TimeFormat "2006-01-02T15:04"
+MAX_WRITES_PER_REQUEST = 5000   # ref: server.go MaxWritesPerRequest
 
 SumCount = namedtuple("SumCount", ["sum", "count"])
 
@@ -200,6 +201,8 @@ class Executor:
         idx = self.holder.index(index)
         if idx is None:
             raise perr.ErrIndexNotFound()
+        if query.write_call_n() > MAX_WRITES_PER_REQUEST:
+            raise perr.ErrTooManyWrites()
         if (len(query.calls) > 1
                 and all(c.name == "SetRowAttrs" for c in query.calls)):
             # One attribute-store transaction per frame (ref:

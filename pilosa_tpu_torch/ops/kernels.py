@@ -21,6 +21,7 @@ launches per wrapper.
 """
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -35,6 +36,8 @@ OPS = {"and": 1, "or": 2, "xor": 3, "andnot": 4}
 MAX_WIDTH = (1 << 26) - 1
 
 launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0}
+# Server threads launch concurrently; a count is a read-modify-write.
+_launches_mu = threading.Lock()
 
 # Row pointers per count_and_rows launch (the kernel's parameter table;
 # csrc/count_and_rows.cu MAX_ROWS).
@@ -45,8 +48,14 @@ _car_fn = None
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    with _launches_mu:
+        for name in launches:
+            launches[name] = 0
+
+
+def _count_launch(name):
+    with _launches_mu:
+        launches[name] += 1
 
 
 # ----------------------------------------------------------- plain versions
@@ -157,7 +166,7 @@ def _launch(name, a, b, op):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
                            f"({err_str(rc).decode()})")
-    launches[name] += 1
+    _count_launch(name)
     return out
 
 
@@ -195,7 +204,7 @@ def _launch_and_rows(ptrs, filt, slices, width, out):
                 raise RuntimeError(
                     f"count_and_rows: kernel launch failed: CUDA error "
                     f"{rc} ({err_str(rc).decode()})")
-            launches["count_and_rows"] += 1
+            _count_launch("count_and_rows")
 
 
 def count_and_rows(m, filt):

@@ -1,0 +1,629 @@
+"""HTTP API handler of one node (ref: handler.go:98-151 route table;
+counterpart of pilosa_tpu/server/handler.py).
+
+A regex route table over stdlib ``ThreadingHTTPServer``. JSON is the
+primary representation; the query and import routes also speak the
+reference's protobuf (``wireproto``) when the client sends
+``application/x-protobuf``. For the same request over the same data
+every route answers the status, content type and body bytes that
+pilosa_tpu's handler answers; only ``/version`` and ``/id`` differ.
+
+Every request is wrapped in panic recovery (ref: handler.go:157-194):
+errors become JSON ``{"error": ...}`` bodies with their status.
+"""
+import io
+import json
+import re
+import socket
+import threading
+import traceback
+from datetime import datetime
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from pilosa_tpu_torch import SLICE_WIDTH, __version__
+from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch.bitmap import Bitmap
+from pilosa_tpu_torch.executor import ExecOptions, SumCount
+from pilosa_tpu_torch.pql.parser import ParseError
+from pilosa_tpu_torch.server import wireproto
+from pilosa_tpu_torch.storage.frame import Field, FrameOptions
+
+# Request bodies above this many bytes are refused with 413 before any
+# of their bytes is read (pilosa_tpu's config.DEFAULT_MAX_BODY_SIZE).
+DEFAULT_MAX_BODY_SIZE = 8 << 20
+
+PROTOBUF = wireproto.CONTENT_TYPE
+
+
+def result_to_json(result):
+    """QueryResult encoding (ref: QueryResult tagged union,
+    internal/public.proto:60-70 + handler.go JSON path)."""
+    if isinstance(result, Bitmap):
+        return {"attrs": result.attrs, "bits": result.columns().tolist()}
+    if isinstance(result, SumCount):
+        return {"sum": result.sum, "count": result.count}
+    if isinstance(result, list):  # pairs
+        return [{"id": rid, "count": cnt} for rid, cnt in result]
+    return result  # bool / int / None
+
+
+class HTTPError(Exception):
+    def __init__(self, status, message):
+        self.status = status
+        self.message = message
+        super().__init__(message)
+
+
+def _json(status, doc):
+    return status, "application/json", json.dumps(doc).encode()
+
+
+_OK = (200, "application/json", b"{}")
+
+
+class Handler:
+    """Routing and endpoint logic, transport-independent:
+    ``dispatch(method, path, query_params, body, headers)`` ->
+    ``(status, content_type, payload)``."""
+
+    def __init__(self, holder, executor, local_host=None,
+                 version=__version__):
+        self.holder = holder
+        self.executor = executor
+        self.local_host = local_host
+        self.version = version
+        idx, fr = r"^/index/(?P<index>[^/]+)", "/frame/(?P<frame>[^/]+)"
+        self.routes = [(m, re.compile(p), fn) for m, p, fn in [
+            ("POST", idx + r"/query$", self.post_query),
+            ("GET", idx + r"/query$", self.method_not_allowed),
+            ("GET", r"^/index$", self.get_schema),
+            ("GET", r"^/schema$", self.get_schema),
+            ("GET", r"^/status$", self.get_status),
+            ("GET", r"^/version$", self.get_version),
+            ("GET", r"^/hosts$", self.get_hosts),
+            ("GET", r"^/id$", self.get_id),
+            ("GET", r"^/slices/max$", self.get_slices_max),
+            ("GET", idx + "$", self.get_index),
+            ("POST", idx + "$", self.post_index),
+            ("DELETE", idx + "$", self.delete_index),
+            ("PATCH", idx + r"/time-quantum$",
+             self.patch_index_time_quantum),
+            ("POST", idx + fr + "$", self.post_frame),
+            ("DELETE", idx + fr + "$", self.delete_frame),
+            ("PATCH", idx + fr + r"/time-quantum$",
+             self.patch_frame_time_quantum),
+            ("POST", idx + fr + r"/field/(?P<field>[^/]+)$",
+             self.post_field),
+            ("DELETE", idx + fr + r"/field/(?P<field>[^/]+)$",
+             self.delete_field),
+            ("GET", idx + fr + r"/fields$", self.get_fields),
+            ("POST", idx + fr + r"/views/(?P<view>[^/]+)$",
+             self.post_view),
+            ("GET", idx + fr + r"/views$", self.get_views),
+            ("DELETE", idx + fr + r"/view/(?P<view>[^/]+)$",
+             self.delete_view),
+            ("POST", r"^/import$", self.post_import),
+            ("POST", r"^/import-value$", self.post_import_value),
+            ("GET", r"^/export$", self.get_export),
+            ("GET", r"^/fragment/nodes$", self.get_fragment_nodes),
+            ("POST", r"^/recalculate-caches$",
+             self.post_recalculate_caches),
+        ]]
+
+    def dispatch(self, method, path, query_params, body, headers):
+        """-> (status, content_type, payload bytes)."""
+        for m, pattern, fn in self.routes:
+            if m != method:
+                continue
+            match = pattern.match(path)
+            if match:
+                try:
+                    return fn(match.groupdict(), query_params, body, headers)
+                except HTTPError as e:
+                    return _json(e.status, {"error": e.message})
+                except (perr.PilosaError, ParseError, ValueError) as e:
+                    return _json(400, {"error": str(e)})
+                except Exception as e:  # panic recovery (handler.go:157-194)
+                    traceback.print_exc()
+                    return _json(500, {"error": str(e)})
+        return _json(404, {"error": "not found"})
+
+    # ------------------------------------------------------------- query
+
+    def post_query(self, params, qp, body, headers):
+        """(ref: handlePostQuery handler.go:243-309)."""
+        index = params["index"]
+        ctype = headers.get("Content-Type", "")
+        if ctype == PROTOBUF:
+            try:
+                req = wireproto.decode_query_request(body)
+            except Exception:  # noqa: BLE001 — any undecodable body:
+                # wrong wire types surface as AttributeError/TypeError,
+                # truncation as IndexError, bad UTF-8 as ValueError
+                # (ref: handler.go:252 "unmarshal body error" → 400).
+                raise HTTPError(400, "unmarshal body error")
+            q_string = req["query"]
+            slices = req.get("slices") or None
+            opt = ExecOptions(exclude_attrs=req.get("exclude_attrs", False),
+                              exclude_bits=req.get("exclude_bits", False))
+        else:
+            q_string = body.decode()
+            slices = None
+            sl = qp.get("slices")
+            if sl:
+                slices = [int(s) for s in sl[0].split(",") if s]
+            opt = ExecOptions(
+                exclude_attrs=qp.get("excludeAttrs", ["false"])[0] == "true",
+                exclude_bits=qp.get("excludeBits", ["false"])[0] == "true")
+        if not q_string:
+            raise HTTPError(400, "query required")
+        proto = headers.get("Accept") == PROTOBUF or ctype == PROTOBUF
+        try:
+            results = self.executor.execute(index, q_string, slices=slices,
+                                            opt=opt)
+        except (perr.PilosaError, ValueError) as e:
+            if proto:
+                return (400, PROTOBUF,
+                        wireproto.encode_query_response([], error=str(e)))
+            return _json(400, {"error": str(e)})
+        if proto:
+            return 200, PROTOBUF, wireproto.encode_query_response(results)
+        return _json(200, {"results": [result_to_json(r) for r in results]})
+
+    def method_not_allowed(self, params, qp, body, headers):
+        """(ref: methodNotAllowedHandler handler.go:147)."""
+        return 405, "application/json", b""
+
+    # ------------------------------------------------------ schema, node
+
+    def get_schema(self, params, qp, body, headers):
+        return _json(200, {"indexes": self.holder.schema()})
+
+    def get_status(self, params, qp, body, headers):
+        """The single-node JSON status (ref: handler.go handleGetStatus)."""
+        return _json(200, {"status": {"state": "NORMAL", "nodes": [],
+                                      "indexes": self.holder.schema()}})
+
+    def get_version(self, params, qp, body, headers):
+        return _json(200, {"version": self.version})
+
+    def get_hosts(self, params, qp, body, headers):
+        return _json(200, [{"host": self.local_host or "localhost"}])
+
+    def get_id(self, params, qp, body, headers):
+        return 200, "text/plain", (self.holder.local_id or "").encode()
+
+    def get_slices_max(self, params, qp, body, headers):
+        if qp.get("inverse", ["false"])[0] == "true":
+            m = self.holder.max_inverse_slices()
+        else:
+            m = self.holder.max_slices()
+        return _json(200, {"maxSlices": m})
+
+    def get_fragment_nodes(self, params, qp, body, headers):
+        """(ref: handler.go:1366): this node owns every slice."""
+        return _json(200, [{"host": self.local_host or "localhost",
+                            "scheme": "http"}])
+
+    # ----------------------------------------------------------- indexes
+
+    def _index(self, name):
+        idx = self.holder.index(name)
+        if idx is None:
+            raise HTTPError(404, str(perr.ErrIndexNotFound()))
+        return idx
+
+    def get_index(self, params, qp, body, headers):
+        idx = self._index(params["index"])
+        return _json(200, {"index": {"name": idx.name,
+                                     "columnLabel": idx.column_label,
+                                     "timeQuantum": idx.time_quantum}})
+
+    def post_index(self, params, qp, body, headers):
+        opts = json.loads(body or b"{}").get("options", {})
+        try:
+            self.holder.create_index(
+                params["index"],
+                column_label=opts.get("columnLabel", ""),
+                time_quantum=opts.get("timeQuantum", ""))
+        except perr.ErrIndexExists as e:
+            raise HTTPError(409, str(e))
+        return _OK
+
+    def delete_index(self, params, qp, body, headers):
+        self.holder.delete_index(params["index"])
+        return _OK
+
+    def patch_index_time_quantum(self, params, qp, body, headers):
+        q = json.loads(body or b"{}").get("timeQuantum", "")
+        self._index(params["index"]).set_time_quantum(q)
+        return _OK
+
+    # ------------------------------------------------------------ frames
+
+    def _frame(self, index, frame):
+        fr = self._index(index).frame(frame)
+        if fr is None:
+            raise HTTPError(404, str(perr.ErrFrameNotFound()))
+        return fr
+
+    def post_frame(self, params, qp, body, headers):
+        opts = json.loads(body or b"{}").get("options", {})
+        try:
+            self._index(params["index"]).create_frame(
+                params["frame"], FrameOptions.from_dict(opts))
+        except perr.ErrFrameExists as e:
+            raise HTTPError(409, str(e))
+        return _OK
+
+    def delete_frame(self, params, qp, body, headers):
+        self._index(params["index"]).delete_frame(params["frame"])
+        return _OK
+
+    def patch_frame_time_quantum(self, params, qp, body, headers):
+        q = json.loads(body or b"{}").get("timeQuantum", "")
+        self._frame(params["index"], params["frame"]).set_time_quantum(q)
+        return _OK
+
+    def post_field(self, params, qp, body, headers):
+        opts = json.loads(body or b"{}")
+        field = Field(params["field"], opts.get("type", "int"),
+                      opts.get("min", 0), opts.get("max", 0))
+        self._frame(params["index"], params["frame"]).create_field(field)
+        return _OK
+
+    def delete_field(self, params, qp, body, headers):
+        self._frame(params["index"], params["frame"]).delete_field(
+            params["field"])
+        return _OK
+
+    def get_fields(self, params, qp, body, headers):
+        fr = self._frame(params["index"], params["frame"])
+        return _json(200, {"fields": [f.to_dict() for f in fr.fields]})
+
+    def post_view(self, params, qp, body, headers):
+        self._frame(params["index"], params["frame"]) \
+            .create_view_if_not_exists(params["view"])
+        return _OK
+
+    def get_views(self, params, qp, body, headers):
+        fr = self._frame(params["index"], params["frame"])
+        return _json(200, {"views": sorted(fr.views)})
+
+    def delete_view(self, params, qp, body, headers):
+        """(ref: handleDeleteView handler.go:127): a view that does not
+        exist is no error."""
+        fr = self._frame(params["index"], params["frame"])
+        try:
+            fr.delete_view(params["view"])
+        except perr.ErrInvalidView:
+            pass
+        return _OK
+
+    # ------------------------------------------------------------ import
+
+    @staticmethod
+    def _require(req, *keys):
+        """A missing field of a request body is the caller's fault (400),
+        not a handler bug (500)."""
+        for key in keys:
+            if key not in req:
+                raise HTTPError(400, f"missing field: {key}")
+
+    def post_import(self, params, qp, body, headers):
+        """Bulk bit import (ref: handlePostImport handler.go:1164-1243).
+        Body: protobuf ImportRequest or JSON {index, frame, slice,
+        rowIDs, columnIDs, timestamps?}; a timestamp of 0 is none."""
+        if headers.get("Content-Type") == PROTOBUF:
+            req = wireproto.decode_import_request(body)
+        else:
+            req = json.loads(body)
+        self._require(req, "index", "frame")
+        fr = self._frame(req["index"], req["frame"])
+        if req.get("rowKeys") or req.get("columnKeys"):
+            raise HTTPError(501, "keyed import is not supported")
+        timestamps = req.get("timestamps")
+        ts = None
+        if timestamps and any(timestamps):
+            ts = [datetime.fromtimestamp(t) if t else None
+                  for t in timestamps]
+        self._require(req, "rowIDs", "columnIDs")
+        fr.import_bits(req["rowIDs"], req["columnIDs"], ts)
+        return _OK
+
+    def post_import_value(self, params, qp, body, headers):
+        """(ref: handler.go:1244+). Body: {index, frame, field, slice,
+        columnIDs, values}."""
+        if headers.get("Content-Type") == PROTOBUF:
+            req = wireproto.decode_import_value_request(body)
+        else:
+            req = json.loads(body)
+        self._require(req, "index", "frame", "field", "columnIDs",
+                      "values")
+        fr = self._frame(req["index"], req["frame"])
+        fr.import_value(req["field"], req["columnIDs"], req["values"])
+        return _OK
+
+    def get_export(self, params, qp, body, headers):
+        """CSV of one view and slice, a ``row,column`` line per bit in
+        row order (ref: handler.go:1314-1364)."""
+        index = qp.get("index", [""])[0]
+        frame = qp.get("frame", [""])[0]
+        view = qp.get("view", ["standard"])[0]
+        slice_num = int(qp.get("slice", ["0"])[0])
+        frag = self.holder.fragment(index, frame, view, slice_num)
+        out = io.StringIO()
+        if frag is not None:
+            base = slice_num * SLICE_WIDTH
+            for row_id in frag.rows():
+                cols = np.flatnonzero(np.unpackbits(
+                    frag.row_words(row_id).view(np.uint8),
+                    bitorder="little")) + base
+                out.write("".join(f"{row_id},{c}\n" for c in cols.tolist()))
+        return 200, "text/csv", out.getvalue().encode()
+
+    def post_recalculate_caches(self, params, qp, body, headers):
+        """(ref: handler.go:2016): rebuild the TopN caches from storage."""
+        self.holder.recalculate_caches()
+        return 204, "application/json", b""
+
+
+class _FastHeaders(dict):
+    """Case-insensitive header mapping with Title-Case canonical keys."""
+
+    def get(self, key, default=None):
+        return dict.get(self, key.title(), default)
+
+    def __contains__(self, key):
+        return dict.__contains__(self, key.title())
+
+
+def make_http_server(handler, bind="localhost:0",
+                     max_body_size=DEFAULT_MAX_BODY_SIZE):
+    """Wrap a Handler in a ThreadingHTTPServer (one thread per
+    connection, HTTP/1.1 keep-alive, TCP_NODELAY). A request whose body
+    is larger than ``max_body_size`` is answered 413 before any byte of
+    the body is read (0 disables the check); chunked bodies are counted
+    as they arrive."""
+    host, _, port = bind.rpartition(":")
+
+    class _Req(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        # Headers and payload go out as separate writes; with Nagle on,
+        # the payload segment waits out the peer's delayed ACK (~40 ms
+        # per keep-alive request).
+        disable_nagle_algorithm = True
+
+        def parse_request(self):
+            """Fast request parse: plain ``METHOD path HTTP/1.x`` requests
+            read their headers in a direct line loop into a
+            case-insensitive dict (the stdlib's email parser costs ~130
+            µs per request); anything unusual in the request line goes to
+            the stdlib before a header byte is consumed."""
+            line = str(self.raw_requestline, "iso-8859-1").rstrip("\r\n")
+            words = line.split()
+            if (len(words) != 3
+                    or words[2] not in ("HTTP/1.1", "HTTP/1.0")):
+                return super().parse_request()
+            self.requestline = line
+            self.command, self.path, self.request_version = words
+            self.close_connection = words[2] == "HTTP/1.0"
+            headers = _FastHeaders()
+            last = None
+            for _ in range(201):
+                hline = self.rfile.readline(65537)
+                if len(hline) > 65536:
+                    self.send_error(431)  # header line too long
+                    return False
+                if hline in (b"\r\n", b"\n", b""):
+                    break
+                if hline[0] in (32, 9):
+                    if last is not None:
+                        # Obsolete line folding: append to the
+                        # anchoring field's value.
+                        headers[last] += " " + hline.strip().decode(
+                            "iso-8859-1")
+                    continue
+                name, sep, value = hline.decode("iso-8859-1") \
+                    .partition(":")
+                if not sep or not name.strip():
+                    last = None
+                    continue  # junk line: tolerated, as email parser
+                if name != name.strip():
+                    # RFC 7230 §3.2.4: whitespace between field name and
+                    # colon MUST be rejected (a request-smuggling
+                    # differential with proxies that drop the field).
+                    self.send_error(400, "whitespace in header name")
+                    return False
+                key = name.title()
+                value = value.strip()
+                if key in headers:
+                    if key == "Content-Length" \
+                            and dict.get(headers, key) != value:
+                        # Conflicting lengths desync body framing.
+                        self.send_error(400,
+                                        "conflicting Content-Length")
+                        return False
+                    last = None  # duplicate: the FIRST value wins
+                    continue
+                headers[key] = value
+                last = key
+            else:
+                self.send_error(431)  # too many headers
+                return False
+            self.headers = headers
+            conntype = headers.get("Connection", "").lower()
+            if conntype == "close":
+                self.close_connection = True
+            elif conntype == "keep-alive":
+                self.close_connection = False
+            # 100-continue must be answered or body-bearing clients
+            # (curl above 1 KB) stall waiting for it.
+            if (headers.get("Expect", "").lower() == "100-continue"
+                    and self.request_version >= "HTTP/1.1"):
+                if not self.handle_expect_100():
+                    return False
+            return True
+
+        def _content_length(self):
+            """Declared body length; None for an unparseable or negative
+            header (answered 400: a negative length would read to EOF
+            past the 413 gate)."""
+            try:
+                length = int(self.headers.get("Content-Length") or 0)
+            except ValueError:
+                return None
+            return None if length < 0 else length
+
+        def _read_chunked(self):
+            """RFC 7230 §4.1 chunked body with the cap enforced as the
+            chunks arrive. Returns (body, None) or (None, "bad" for
+            malformed framing | "too_large")."""
+            total = 0
+            parts = []
+            while True:
+                line = self.rfile.readline(65537)
+                if not line or len(line) > 65536:
+                    return None, "bad"
+                try:
+                    size = int(line.split(b";")[0].strip(), 16)
+                except ValueError:
+                    return None, "bad"
+                if size < 0:
+                    return None, "bad"
+                if size == 0:
+                    while True:  # trailer section
+                        t = self.rfile.readline(65537)
+                        if t in (b"\r\n", b"\n", b""):
+                            break
+                    return b"".join(parts), None
+                total += size
+                if max_body_size and total > max_body_size:
+                    return None, "too_large"
+                data = self.rfile.read(size)
+                if len(data) < size:
+                    return None, "bad"
+                parts.append(data)
+                if self.rfile.read(2) != b"\r\n":
+                    return None, "bad"
+
+        def handle_expect_100(self):
+            """Answer 413 instead of ``100 Continue`` when the declared
+            body is too large: the client then never sends it."""
+            length = self._content_length()
+            if length is None:
+                self.send_error(400, "bad Content-Length")
+                return False
+            if max_body_size and length > max_body_size:
+                self.send_error(413, "request body too large")
+                return False
+            return super().handle_expect_100()
+
+        def _serve(self):
+            parsed = urlparse(self.path)
+            qp = parse_qs(parsed.query)
+            te = (self.headers.get("Transfer-Encoding") or "").lower()
+            if "chunked" in te:
+                body, err = self._read_chunked()
+                if err is not None:
+                    # The peer may still be sending: the connection
+                    # cannot be reused either way.
+                    self.close_connection = True
+                    if err == "too_large":
+                        self._reject_oversized()
+                    else:
+                        self.send_error(400, "bad chunked encoding")
+                    return
+            else:
+                length = self._content_length()
+                if length is None:
+                    self.close_connection = True
+                    self.send_error(400, "bad Content-Length")
+                    return
+                if max_body_size and length > max_body_size:
+                    # Refused before a byte of it is buffered; the body
+                    # is never read, so the connection closes.
+                    self.close_connection = True
+                    self._reject_oversized()
+                    return
+                body = self.rfile.read(length) if length else b""
+            self._respond(handler.dispatch(self.command, parsed.path, qp,
+                                           body, self.headers))
+
+        def _reject_oversized(self):
+            payload = json.dumps(
+                {"error": "request body too large"}).encode()
+            self.send_response(413)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.send_header("Connection", "close")
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def _respond(self, resp):
+            status, ctype, payload = resp
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            # A small payload goes out in the headers' write (one
+            # syscall, no delayed-ACK interplay between two segments); a
+            # large one in a write of its own, not copied into the
+            # header buffer.
+            if (len(payload) < 16384
+                    and hasattr(self, "_headers_buffer")):
+                self._headers_buffer.append(b"\r\n")
+                self._headers_buffer.append(payload)
+                self.flush_headers()
+            else:
+                self.end_headers()
+                self.wfile.write(payload)
+
+        do_GET = do_POST = do_DELETE = do_PATCH = _serve
+
+        def setup(self):
+            super().setup()
+            self.server.track_conn(self.connection, True)
+
+        def finish(self):
+            self.server.track_conn(self.connection, False)
+            super().finish()
+
+        def log_message(self, fmt, *args):  # quiet test output
+            pass
+
+    class _Server(ThreadingHTTPServer):
+        # The default listen backlog of 5 resets a burst of connects.
+        request_queue_size = 128
+        daemon_threads = True
+
+        # Keep-alive connections outlive shutdown(), which stops only
+        # the accept loop: server_close() severs them, so that no
+        # connection thread answers from a closed holder.
+        def __init__(self, *args, **kw):
+            self._open_conns = set()
+            self._conns_mu = threading.Lock()
+            super().__init__(*args, **kw)
+
+        def track_conn(self, sock, on):
+            with self._conns_mu:
+                if on:
+                    self._open_conns.add(sock)
+                else:
+                    self._open_conns.discard(sock)
+
+        def server_close(self):
+            super().server_close()
+            with self._conns_mu:
+                conns = list(self._open_conns)
+                self._open_conns.clear()
+            for sock in conns:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                sock.close()
+
+    return _Server((host or "localhost", int(port or 0)), _Req)

@@ -84,19 +84,25 @@ def try_flock(path, err_cls, transient=False):
     return lock
 
 
+# Epoch values come from one process-wide sequence, so two epochs never
+# share a value: an index deleted and created again under its old name
+# cannot alias a stack cached for the old one.
+_EPOCH_SEQ = itertools.count(1)
+
+
 class MutationEpoch:
-    """A counter bumped by every fragment open, close and mutation under
+    """A value moved by every fragment open, close and mutation under
     one index: an O(1) "has anything changed?" test for the executor's
     device-stack cache, instead of re-reading every fragment's version
     per query."""
 
     def __init__(self):
-        self.value = 0
         self._mu = threading.Lock()
+        self.value = next(_EPOCH_SEQ)
 
     def bump(self):
         with self._mu:
-            self.value += 1
+            self.value = next(_EPOCH_SEQ)
 
 
 class TopOptions:
@@ -239,6 +245,11 @@ class Fragment:
     def _flush_cache_locked(self):
         with open(self.cache_path, "w") as f:
             json.dump(self.cache.ids(), f)
+
+    def flush_cache(self):
+        """Write the TopN cache's ids to the ``.cache`` sidecar."""
+        with self.mu:
+            self._flush_cache_locked()
 
     def recalculate_cache(self):
         """Rebuild the TopN cache from storage counts (ref: Cache.

@@ -15,6 +15,7 @@ bit into one view per unit (``standard_2017``, ``standard_201706``,
 sqlite store ``<frame>/.data``, shared with pilosa_tpu."""
 import json
 import os
+import shutil
 import threading
 import time
 
@@ -206,6 +207,17 @@ class Frame:
                 self._bump_epoch()
             return v
 
+    def delete_view(self, name):
+        """Close the view and remove its fragments (ref: Frame.DeleteView
+        frame.go:587-607)."""
+        with self.mu:
+            v = self.views.pop(name, None)
+            if v is None:
+                raise perr.ErrInvalidView()
+            v.close()
+            shutil.rmtree(v.path, ignore_errors=True)
+            self._bump_epoch()
+
     def max_slice(self):
         """Max over every non-inverse view (ref: frame.go:115-127)."""
         with self.mu:
@@ -384,3 +396,16 @@ class FrameOptions:
         self.cache_size = cache_size
         self.time_quantum = time_quantum
         self.fields = fields or []
+
+    @classmethod
+    def from_dict(cls, opts):
+        """The options of a frame's wire form (the body of POST
+        /index/{i}/frame/{f})."""
+        return cls(
+            row_label=opts.get("rowLabel", ""),
+            inverse_enabled=opts.get("inverseEnabled", False),
+            range_enabled=opts.get("rangeEnabled", False),
+            cache_type=opts.get("cacheType", ""),
+            cache_size=opts.get("cacheSize", 0),
+            time_quantum=opts.get("timeQuantum", ""),
+            fields=[Field.from_dict(f) for f in opts.get("fields", [])])

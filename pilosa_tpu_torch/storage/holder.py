@@ -13,7 +13,9 @@ queries run. It is the GPU unless the caller asks for the CPU; without
 a GPU, ``Holder(path)`` raises rather than carrying on on the CPU.
 """
 import os
+import shutil
 import threading
+import uuid
 
 import torch
 
@@ -38,6 +40,7 @@ class Holder:
         self.device = resolve_device(device)
         self.mu = threading.RLock()
         self.indexes = {}
+        self.local_id = None
         self._dir_lock = None
 
     def open(self):
@@ -52,6 +55,7 @@ class Holder:
                     full = os.path.join(self.path, entry)
                     if os.path.isdir(full) and not entry.startswith("."):
                         self.indexes[entry] = self._new_index(entry).open()
+                self._load_local_id()
             except BaseException:
                 self.close()
                 raise
@@ -67,6 +71,18 @@ class Holder:
                 if self._dir_lock is not None:
                     self._dir_lock.close()
                     self._dir_lock = None
+
+    def _load_local_id(self):
+        """The node's UUID, persisted at ``<data>/.id`` (ref:
+        holder.go:435-453; the file pilosa_tpu reads and writes)."""
+        id_path = os.path.join(self.path, ".id")
+        if os.path.exists(id_path):
+            with open(id_path) as f:
+                self.local_id = f.read().strip()
+        else:
+            self.local_id = str(uuid.uuid4())
+            with open(id_path, "w") as f:
+                f.write(self.local_id)
 
     def _new_index(self, name):
         return Index(os.path.join(self.path, name), name,
@@ -91,6 +107,45 @@ class Holder:
             self.indexes[name] = idx
             return idx
 
+    def delete_index(self, name):
+        """Close the index and remove its directory (ref: holder.go
+        DeleteIndex). Its fragments' closes move its epoch, and a new
+        index of the same name starts from a fresh epoch value, so no
+        cached stack of the deleted one is ever reused."""
+        with self.mu:
+            idx = self.indexes.pop(name, None)
+            if idx is None:
+                raise perr.ErrIndexNotFound()
+        idx.close()
+        idx.epoch.bump()
+        shutil.rmtree(idx.path, ignore_errors=True)
+
+    def schema(self):
+        """[{name, frames: [{name, views: [{name}]}]}], every list
+        sorted by name (ref: holder.go:173)."""
+        with self.mu:
+            indexes = [self.indexes[k] for k in sorted(self.indexes)]
+        out = []
+        for idx in indexes:
+            with idx.mu:
+                frames = [idx.frames[k] for k in sorted(idx.frames)]
+            out.append({"name": idx.name, "frames": [
+                {"name": fr.name,
+                 "views": [{"name": v} for v in sorted(list(fr.views))]}
+                for fr in frames]})
+        return out
+
+    def recalculate_caches(self):
+        """Rebuild every fragment's TopN cache from storage and write
+        its sidecar (ref: handleRecalculateCaches handler.go:2016)."""
+        with self.mu:
+            for idx in list(self.indexes.values()):
+                for frame in list(idx.frames.values()):
+                    for view in list(frame.views.values()):
+                        for frag in list(view.fragments.values()):
+                            frag.recalculate_cache()
+                            frag.flush_cache()
+
     def fragment(self, index, frame, view, slice_num):
         """Accessor chain (ref: holder.go:196-338)."""
         return self.fragments(index, frame, view, [slice_num])[0]
@@ -108,4 +163,10 @@ class Holder:
         """{index: max_slice}."""
         with self.mu:
             return {name: idx.max_slice()
+                    for name, idx in self.indexes.items()}
+
+    def max_inverse_slices(self):
+        """{index: max_inverse_slice}."""
+        with self.mu:
+            return {name: idx.max_inverse_slice()
                     for name, idx in self.indexes.items()}

@@ -3,6 +3,7 @@ pilosa_tpu/storage/index.py). ``.meta`` keys match pilosa_tpu's; column
 attributes live in the sqlite store ``<index>/.data``."""
 import json
 import os
+import shutil
 import threading
 import time
 
@@ -147,3 +148,14 @@ class Index:
             frame.save_meta()
             self.frames[name] = frame
             return frame
+
+    def delete_frame(self, name):
+        """Close the frame and remove its directory; a frame that does
+        not exist is no error (ref: index.go DeleteFrame)."""
+        with self.mu:
+            frame = self.frames.pop(name, None)
+            if frame is None:
+                return
+            frame.close()
+            shutil.rmtree(frame.path, ignore_errors=True)
+            self.epoch.bump()

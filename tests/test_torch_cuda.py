@@ -1,11 +1,13 @@
 """The CUDA kernels on the card: each held exactly against its plain
 version on the same device tensors; the executor's Count, TopN, BSI,
-time Range and bitmap-result paths on a GPU holder against the same
-directory served on the CPU; and ``Bitmap.columns()`` on the card
+time Range and bitmap-result paths on a GPU holder, and the HTTP
+``Server`` on the card, against the same directory served on the CPU;
+and ``Bitmap.columns()`` on the card
 against a host unpacking of the same words. Marked
 ``cuda``; where no GPU is present every test skips (decided inside the
 fixture, never at import). Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+import json
 from datetime import datetime
 
 import numpy as np
@@ -293,3 +295,48 @@ def test_results_and_time_on_gpu_match_cpu(gen, tmp_path):
             assert kernels.launches["count_op_rows"] > 0
         h.close()
     assert len({repr(v) for v in results.values()}) == 1
+
+
+def test_server_on_gpu_matches_cpu(gen, tmp_path):
+    """The in-process Server on the card answers a Count, a TopN and a
+    bitmap read, in JSON and protobuf, with the bytes the same Server on
+    the CPU answers over the same data, through all three kernels."""
+    import urllib.request
+
+    from pilosa_tpu_torch.server.server import Server
+
+    rng = np.random.default_rng(6)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    view = h.create_index("i").create_frame("f").create_view_if_not_exists(
+        "standard")
+    for s in (0, 1, 3):
+        cols = rng.integers(0, SLICE_WIDTH, 200000) + s * SLICE_WIDTH
+        view.create_fragment_if_not_exists(s).import_bits(
+            rng.integers(0, 4, len(cols)), cols)
+    h.close()
+    queries = ['Count(Intersect(Bitmap(frame="f", rowID=0), '
+               'Bitmap(frame="f", rowID=1)))',
+               'TopN(Bitmap(frame="f", rowID=0), frame="f", n=3)',
+               'Intersect(Bitmap(frame="f", rowID=3), '
+               'Bitmap(frame="f", rowID=2))']
+    answers = {}
+    for device in ("cpu", "cuda"):
+        s = Server(path, bind="127.0.0.1:0", device=device).open()
+        kernels.reset_launches()
+        try:
+            got = []
+            for q in queries:
+                for ctype in ("text/plain", "application/x-protobuf"):
+                    req = urllib.request.Request(
+                        f"http://{s.host}/index/i/query", data=q.encode(),
+                        method="POST", headers={"Accept": ctype})
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        got.append((resp.status, resp.read()))
+            answers[device] = got
+            if device == "cuda":
+                assert all(kernels.launches.values()), kernels.launches
+        finally:
+            s.close()
+    assert answers["cuda"] == answers["cpu"]
+    assert json.loads(answers["cpu"][0][1])["results"][0] > 0
