@@ -8,9 +8,12 @@ Phases, each of which fails the run (exit code != 0, no result line):
 1. device — the card's name and ``nvidia-smi`` name/power limit;
 2. build — compile every CUDA source under pilosa_tpu_torch/csrc;
 3. kernels — each kernel against its plain PyTorch version on the same
-   device tensors, exactly, at the main-path shape [slices, 32768] and
-   at ragged/edge shapes; time, bytes, bound and plain-version time at
-   the main-path shape;
+   device tensors, exactly, at the main-path shape [slices, 32768], at
+   every column-window width bucket the batched plans use ([slices, W]
+   for W = 128, 512, 2048, 8192, 32768, each kernel timed against its
+   bound), at ``count_and_rows``'s strided fragment form [524,288 × 128]
+   (one launch), and at ragged/edge shapes; time, bytes, bound and
+   plain-version time at the main-path shape;
 4. main path, Count and bitmap results — a data directory of N slices
    (default 9,537 = 10.0B columns; one index, one frame, three dense
    rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
@@ -24,7 +27,12 @@ Phases, each of which fails the run (exit code != 0, no result line):
    attrs a Bitmap carries (with ``exclude_attrs``/``exclude_bits``),
    and SetColumnAttrs. Every answer must equal a numpy oracle on the
    same words; both count kernels must have launched during this
-   phase;
+   phase. Then the directory is reopened with a host-memory budget
+   (``Holder(host_bytes=256 MiB)``, below its fragments' host bytes):
+   Count(Intersect) and TopN batched over the first 2,048 slices, a
+   serial TopN and the bitmap result of row 3 over the first 512 answer as
+   before, the governor's resident bytes stay within the budget after
+   each query, and it must have evicted and faulted fragments in;
 5. main path, TopN — a second frame ``t`` (ranked cache) of eight rows
    at every slice (densities 1/2 … 1/32, two identical rows), its
    fragment files and ``.cache`` sidecars written in parallel by the
@@ -49,7 +57,8 @@ Phases, each of which fails the run (exit code != 0, no result line):
 7. main path, time windows — Pilosa's event-analytics example
    (``docs/examples.md:61-70``): a data directory of its own with index
    ``events`` and frame ``clicks`` (``timeQuantum="YMD"``), four rows
-   over 1,024 slices, each (row, column) clicked with probability 1/64
+   over 4,096 slices (reduced from 9,537: EVENT_SLICES), each (row,
+   column) clicked with probability 1/64
    on one day of 2017-06-01 … 14, so 17 views (``standard``,
    ``standard_2017``, ``standard_201706``, one per day) written in
    parallel by the port's codec; Count(Range(…)) over 14, 4, 1 (month,
@@ -71,17 +80,30 @@ Phases, each of which fails the run (exit code != 0, no result line):
    JSON-encoding times in process; SetBit and the recount; a protobuf
    ``/import`` of 100,000 bits of a new row over 8 slices, one past the
    last, its Count and ``/slices/max``; a protobuf ``/import-value`` of
-   1,000 values and Sum; ``/export`` of the new slice against numpy.
+   1,000 values into those slices and Sum; ``/export`` of the new slice against numpy.
    All three kernels must have launched. (b) ``python -m
    pilosa_tpu_torch.cli server`` as a subprocess (the GPU by default):
    Pilosa's Quick Start, ``cli import`` of a generated 10,000-line CSV
-   and recounts against numpy, then SIGTERM and exit 0.
+   and recounts against numpy, then SIGTERM and exit 0;
+9. the chemical-similarity shape (the reference's showcase, pilosa_tpu
+   storage/fragment.py:87-90): index ``chem``, frame ``fingerprint``
+   with a ranked cache holding every row (cacheSize 500,000): 500,000
+   molecule rows × 4,096 fingerprint columns in slice 0, ~48 bits per
+   molecule in families of 100 near-duplicates, from ``--seed``; the
+   fragment's window must be (0, 128) words and its device bytes at most
+   twice its host window; TopN with a Src and ``tanimotoThreshold=70``
+   for four molecules, a Src-less TopN and Count(Intersect) of two
+   molecules on both paths against a numpy oracle; the TopN p50 and the
+   ``count_and_rows`` launches per TopN.
 
-The serial path of phases 4-6 runs over the first 1,024 slices (the
-batched path and the top-level bare ``Bitmap`` over all of them), so
-that the script stays inside its 1,200 s limit: 740-805 s in all on
-H100 hosts (PERF.md §5), of which phase 8 takes ~110 s, most of it a
-fourth open of frames f and t (~75 s).
+Every open is lazy (no fragment file is read until a query touches
+it); each phase prints its open and first-query seconds. The serial
+path of phases 4-7 runs over the first 1,024 slices (the batched path
+and the top-level bare ``Bitmap`` over all of them), so that the script
+stays inside its 1,200 s limit (PERF.md §5 has the measured total).
+``--event-slices`` sets phase 7's slice count and ``--only`` runs a
+subset of phases 4-9 (no phase 3 and no result lines): both are for
+measurements, and the contract run takes neither.
 
 The second-to-last line is a JSON object describing every kernel; the
 last is ``{"ok": true, "device": {...}}``. The script exits non-zero
@@ -108,8 +130,20 @@ ALU_OPS_PER_S = 67e12       # H100 SXM 32-bit (fp32) non-tensor rate
 OPS = ("and", "or", "xor", "andnot")
 DEVICE = "cuda"
 TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
-SERIAL_SLICES = 1024        # slices of the serial loops of phases 4-6
-EVENT_SLICES = 1024         # slices of phase 7
+SERIAL_SLICES = 1024        # slices of the serial loops of phases 4-7
+WINDOW_BUCKETS = (128, 512, 2048, 8192, 32768)  # batched stack widths
+GOVERNOR_BYTES = 256 << 20  # phase 4's host budget on its reopen
+GOVERNED_SLICES = 512       # slices of its serial TopN and bitmap read
+GOVERNED_BATCH = 2048       # slices of its batched Count and TopN
+# Slices of phase 7. reduced: at 9,537 slices (17 views, 162,129
+# fragment files) the phase alone took 600.4 s on an H100 machine
+# (writes 191.2 s, the first 14-view Count 240.4 s), which would carry
+# the script past its 1,200 s limit, so the event-analytics example
+# runs at 4,096 slices (4.3B columns; PERF.md §4).
+EVENT_SLICES = 4096
+CHEM_ROWS = 500_000         # phase 9's molecules
+CHEM_FAMILY = 100           # molecules per scaffold
+FRAG_FORM_ROWS = 524_288    # count_and_rows's fragment form in phase 3
 
 
 class SmokeFailure(Exception):
@@ -277,6 +311,60 @@ def kernel_checks(slices, card):
     cases += 4
     del m, f, base, stk
 
+    # The column-window buckets of the batched plans: every kernel at
+    # [slices, W] for each width W, timed against its bound.
+    buckets = []
+    for w in WINDOW_BUCKETS:
+        a, b = rand(slices, w), rand(slices, w)
+        compare(a, b)
+        cands = [rand(slices, w) for _ in range(TOPN_CANDIDATES)]
+        note("count_and_rows", kernels.count_and_rows_stacks(cands, a),
+             kernels.count_and_rows_stacks_plain(cands, a),
+             f"{TOPN_CANDIDATES} x [{slices}, {w}]")
+        cases += 2
+        row = {"width": w}
+        for name, fn, bound in (
+                ("count_op_rows", lambda: kernels.count_op_rows(a, b, "and"),
+                 bound_ms(slices, w, 2)),
+                ("count_rows", lambda: kernels.count_rows(a),
+                 bound_ms(slices, w, 1)),
+                ("count_and_rows",
+                 lambda: kernels.count_and_rows_stacks(cands, a),
+                 and_rows_bound_ms(TOPN_CANDIDATES, slices, w))):
+            row[name] = (timed_ms(fn, reps=20), bound[0])
+        buckets.append(row)
+        del a, b, cands
+    for row in buckets:
+        print(f"window bucket [{slices}, {row['width']}]: " + "; ".join(
+            f"{n} {row[n][0]:.4f} ms (bound {row[n][1]:.4f}, "
+            f"{row[n][1] / row[n][0]:.1%})"
+            for n in ("count_op_rows", "count_rows", "count_and_rows"))
+            + f" (count_and_rows: {TOPN_CANDIDATES} stacks) {card}")
+
+    # count_and_rows's fragment form: one strided launch for every row
+    # of a narrow fragment matrix (the chemical-similarity TopN's shape).
+    m, f = rand(FRAG_FORM_ROWS, 128), rand(128)
+    before = kernels.launches["count_and_rows"]
+    got = kernels.count_and_rows(m, f)
+    check(kernels.launches["count_and_rows"] - before == 1,
+          f"count_and_rows fragment form at [{FRAG_FORM_ROWS}, 128]: "
+          f"{kernels.launches['count_and_rows'] - before} launches, not 1")
+    note("count_and_rows", got, kernels.count_and_rows_plain(m, f),
+         f"fragment form [{FRAG_FORM_ROWS}, 128]")
+    cases += 1
+    frag_ms = timed_ms(lambda: kernels.count_and_rows(m, f), reps=20)
+    frag_plain = timed_ms(lambda: kernels.count_and_rows_plain(m, f),
+                          reps=5, warm=1)
+    nbytes = (FRAG_FORM_ROWS + 1) * 128 * 4 + FRAG_FORM_ROWS * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * FRAG_FORM_ROWS * 128 / ALU_OPS_PER_S * 1e3
+    print(f"count_and_rows fragment form [{FRAG_FORM_ROWS}, 128] & [128]: "
+          f"1 launch, {frag_ms:.4f} ms, plain version {frag_plain:.4f} ms, "
+          f"bytes {nbytes}, bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+          f"{max(t_bytes, t_ops) / frag_ms:.1%} of bound {card}")
+    del m, f, got
+
     a, b = rand(slices, WORDS32), rand(slices, WORDS32)
     compare(a, b)
     cands = [rand(slices, WORDS32) for _ in range(TOPN_CANDIDATES)]
@@ -294,7 +382,8 @@ def kernel_checks(slices, card):
     sync()
     print(f"kernels: {cases} shapes exact against the plain versions "
           f"(incl. [{slices}, {WORDS32}] and {TOPN_CANDIDATES}, "
-          f"{STARS_DEPTH} and {STARS_DEPTH + 1} stacks of it); max_abs_err "
+          f"{STARS_DEPTH} and {STARS_DEPTH + 1} stacks of it, every window "
+          f"bucket {WINDOW_BUCKETS} and the fragment form); max_abs_err "
           f"{max_err} {card}")
 
     stats = {}
@@ -549,7 +638,8 @@ def main_path(slices, seed, datadir, card, oracle):
         per_slice[:, lo:lo + c.shape[1]] = c
     oracle_ids = [np.concatenate([ids[k] for _, _, ids, _ in parts])
                   for k in range(len(BITMAP_QUERIES))]
-    and_f0 = sum(p[3].sum(axis=1) for p in parts)
+    and_f0_slices = np.concatenate([p[3] for p in parts], axis=1)
+    and_f0 = and_f0_slices.sum(axis=1)
     del parts
     write_s = time.perf_counter() - t0
     print(f"main path: wrote {slices} slices ({slices * SLICE_WIDTH / 1e9:.2f}"
@@ -620,7 +710,10 @@ def main_path(slices, seed, datadir, card, oracle):
     check(launches["count_op_rows"] and launches["count_rows"],
           f"a count kernel never launched on the Count path: {launches}")
 
-    print(f"main path {card}: open {open_s:.2f} s, first Count(Intersect) "
+    from pilosa_tpu_torch.storage.fragment import reader_cap
+
+    print(f"main path {card}: open {open_s:.2f} s (reader cap "
+          f"{reader_cap()}), first Count(Intersect) "
           f"{first_s:.2f} s (stacks built), warm Count(Intersect) over "
           f"{slices} slices: p50 {np.percentile(lat_ms, 50):.3f} ms, p90 "
           f"{np.percentile(lat_ms, 90):.3f} ms, max {lat_ms.max():.3f} ms "
@@ -628,9 +721,82 @@ def main_path(slices, seed, datadir, card, oracle):
           f"max_memory_allocated {peak / 2**30:.2f} GiB; "
           f"launches {launches}")
     oracle.update(count_and=want[2], and_ids=oracle_ids[1],
+                  and_slices=per_slice[2].copy(),
+                  r3_ids=oracle_ids[0], and_f0_slices=and_f0_slices,
                   count_p50_ms=float(np.percentile(lat_ms, 50)),
-                  topn_f0=sorted(((r, int(c)) for r, c in enumerate(and_f0)
-                                  if c), key=lambda rc: (-rc[1], rc[0])))
+                  topn_f0=topn_pairs(and_f0))
+    return launches
+
+
+def topn_pairs(totals):
+    """(row, count) pairs of non-zero totals by (-count, row)."""
+    return sorted(((r, int(c)) for r, c in enumerate(totals) if c),
+                  key=lambda rc: (-rc[1], rc[0]))
+
+
+def governor_path(slices, datadir, card, oracle):
+    """Phase 4, reopened with a host-memory budget below its fragments'
+    host bytes: Count and TopN batched over every slice, a serial TopN
+    (it counts on each fragment's matrix, so it faults fragments in) and
+    the bitmap result of row 3 over the first slices, each answer against
+    phase 4's oracle and the governor's resident bytes within the budget
+    after each; it must have evicted and faulted in."""
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.storage.holder import Holder
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    holder = Holder(datadir, device=DEVICE,
+                    host_bytes=GOVERNOR_BYTES).open()
+    open_s = time.perf_counter() - t0
+    gov = holder.governor
+    ex = Executor(holder)
+    n_ser = min(GOVERNED_SLICES, slices)
+    q_top = f'TopN({R0}, frame="f", n=4)'
+    ids = oracle["r3_ids"]
+    ids = ids[:np.searchsorted(ids, np.uint64(n_ser * SLICE_WIDTH))]
+    n_bat = min(GOVERNED_BATCH, slices)
+    f0 = oracle["and_f0_slices"]
+    steps = [
+        ("batched", QUERIES[2][0], range(n_bat),
+         int(oracle["and_slices"][:n_bat].sum())),
+        ("batched", q_top, range(n_bat), topn_pairs(f0[:, :n_bat].sum(1))),
+        ("serial", q_top, range(n_ser), topn_pairs(f0[:, :n_ser].sum(1))),
+        ("serial", R3, range(n_ser), ids),
+    ]
+    worst = 0
+    for path, q, span, want in steps:
+        ex._force_path = path
+        t = time.perf_counter()
+        got = ex.execute("i", q, slices=span)[0]
+        if q == R3:
+            got = got.columns()
+            ok = np.array_equal(got, want)
+            got = f"{len(got)} ids"
+        else:
+            ok = got == want
+        sync()
+        dt = (time.perf_counter() - t) * 1e3
+        rb = gov.resident_bytes()
+        worst = max(worst, rb)
+        check(ok, f"governed {path} {q}: {got} != oracle")
+        check(rb <= GOVERNOR_BYTES, f"governed {path} {q}: resident {rb} "
+              f"bytes > budget {GOVERNOR_BYTES}")
+        print(f"  governed {path:7s} {dt:10.2f} ms  over {len(span)} slices "
+              f"{q} -> {got}; resident {rb} bytes, evictions "
+              f"{gov.evictions}, faults {gov.faults}")
+    ex._force_path = None
+    launches = dict(kernels.launches)
+    snap = gov.snapshot()
+    holder.close()
+    check(snap["evictions"] > 0 and snap["faults"] > 0,
+          f"the governor neither evicted nor faulted in: {snap}")
+    print(f"governor {card}: budget {GOVERNOR_BYTES} bytes, open "
+          f"{open_s:.2f} s; governor.evictions {snap['evictions']}, "
+          f"governor.faults {snap['faults']}, resident bytes at most {worst} "
+          f"after each query; launches {launches}")
     return launches
 
 
@@ -916,9 +1082,9 @@ def _bits(words):
 def stars_rows(v, nn):
     """uint64[11, 16384]: the 10 bit planes of the values and the
     not-null row, as the field view stores them."""
-    shifts = np.arange(STARS_DEPTH, dtype=np.int16)[:, None]
-    planes = np.packbits(((v[None, :] >> shifts) & 1).astype(np.uint8),
-                         axis=1, bitorder="little").view(np.uint64)
+    planes = np.stack([np.packbits((v >> i).astype(np.uint8) & 1,
+                                   bitorder="little")
+                       for i in range(STARS_DEPTH)]).view(np.uint64)
     return np.concatenate([planes & nn, nn[None]])
 
 
@@ -1113,7 +1279,7 @@ def bsi_path(slices, seed, datadir, card, oracle):
     oracle.update(stars_sum=want["a_sum"], stars_gt30=want["c"],
                   stars_written=s)
     print(f"bsi {card}: open {open_s:.2f} s, first Sum {first_s:.2f} s "
-          f"(mirrors and stacks built); warm batched over {slices} slices "
+          f"(stacks built from the files); warm batched over {slices} slices "
           f"(n=50 each, host clock to torch.cuda.synchronize()): "
           f"{'; '.join(pct(lb) for lb in lat)}; descent of (c) alone "
           f"{descent_ms:.4f} ms (CUDA events, 10 reps); serial path over "
@@ -1591,7 +1757,9 @@ def events_path(slices, seed, datadir, card):
     open_s = time.perf_counter() - t0
     check(holder.index("events").max_slice() == slices - 1, "max_slice")
     ex = Executor(holder)
+    n_ser = min(SERIAL_SLICES, slices)
     want = [int(c) for c in counts.sum(axis=1)]
+    want_ser = [int(c) for c in counts[:, :n_ser].sum(axis=1)]
     check(want[0] == want[2] == want[3] == len(cols3) and want[5] == 0
           and 0 < want[4] < want[1] < want[0],
           f"data: window counts {want}")
@@ -1605,34 +1773,38 @@ def events_path(slices, seed, datadir, card):
     def run(tag, labels):
         for path in ("batched", "serial"):
             ex._force_path = path
+            span = range(slices) if path == "batched" else range(n_ser)
+            w_path = want if path == "batched" else want_ser
             for k, (label, a, b, _) in enumerate(WINDOWS):
                 if label not in labels:
                     continue
                 q = f"Count({time_range(3, a, b)})"
                 t = time.perf_counter()
-                got = ex.execute("events", q)[0]
+                got = ex.execute("events", q, slices=span)[0]
                 dt = (time.perf_counter() - t) * 1e3
-                check(got == want[k], f"{tag} {path} {q}: {got} != oracle "
-                      f"{want[k]}")
+                check(got == w_path[k], f"{tag} {path} {q}: {got} != oracle "
+                      f"{w_path[k]}")
                 print(f"  {tag} {path:7s} {dt:9.2f} ms  {got:>10d}  "
-                      f"({label}) {q}")
+                      f"({label}) {q} over {len(span)} slices")
             if "intersect" in labels:
-                got = ex.execute("events", INTERSECT_Q)[0]
-                check(got == want[-1], f"{tag} {path} {INTERSECT_Q}: {got} "
-                      f"!= oracle {want[-1]}")
+                got = ex.execute("events", INTERSECT_Q, slices=span)[0]
+                check(got == w_path[-1], f"{tag} {path} {INTERSECT_Q}: "
+                      f"{got} != oracle {w_path[-1]}")
                 print(f"  {tag} {path:7s} {got:>20d}  {INTERSECT_Q}")
         ex._force_path = None
 
     run("query", [w[0] for w in WINDOWS] + ["intersect"])
 
-    # The top-level Ranges (a bare Range runs serially), id by id.
+    # The top-level Ranges (a bare Range runs serially), id by id, over
+    # the serial loops' slices.
+    in_ser = cols3 < np.uint64(n_ser * SLICE_WIDTH)
     for label, a, b, days in WINDOWS[:6]:
         q = time_range(3, a, b)
         t = time.perf_counter()
-        bm = ex.execute("events", q)[0]
+        bm = ex.execute("events", q, slices=range(n_ser))[0]
         got = bm.columns()
         dt = (time.perf_counter() - t) * 1e3
-        ids = cols3[np.isin(days3, list(days))]
+        ids = cols3[np.isin(days3, list(days)) & in_ser]
         check(bm.count() == len(ids) and np.array_equal(got, ids),
               f"{q}: {bm.count()} ids != oracle {len(ids)}")
         print(f"  range   {dt:9.2f} ms  {len(got):>10d} ids  ({label}) {q}")
@@ -1658,7 +1830,7 @@ def events_path(slices, seed, datadir, card):
     # A click on 2017-06-20, a day view that does not exist yet, at a
     # column row 3 never clicked; the month and June 15-25 see it, and
     # a ClearBit with the timestamp takes it back.
-    s = slices // 2
+    s = n_ser // 2
     clicked = set((cols3[(cols3 >= s * SLICE_WIDTH)
                          & (cols3 < (s + 1) * SLICE_WIDTH)]
                    - np.uint64(s * SLICE_WIDTH)).tolist())
@@ -1670,8 +1842,9 @@ def events_path(slices, seed, datadir, card):
                                    f'columnID={col}, '
                                    'timestamp="2017-06-20T08:00")')
         check(res == [True], f"timestamped {verb} returned {res}")
-        want[2] = want[3] = len(cols3) + delta   # the month and the year
-        want[6] = delta                           # June 15-25
+        for w, n in ((want, len(cols3)), (want_ser, int(in_ser.sum()))):
+            w[2] = w[3] = n + delta   # the month and the year
+            w[6] = delta              # June 15-25
         run(verb.lower(), ["month", "June 15-25", "14 days"])
     launches = dict(kernels.launches)
     peak = peak_bytes()
@@ -1679,7 +1852,7 @@ def events_path(slices, seed, datadir, card):
     check(launches["count_op_rows"] and launches["count_rows"],
           f"a count kernel never launched on the time path: {launches}")
     print(f"events {card}: open {open_s:.2f} s ({n_frag} fragments), first "
-          f"14-view Count {first_s:.2f} s (mirrors and stacks built); warm "
+          f"14-view Count {first_s:.2f} s (stacks built from the files); warm "
           f"14-view Count over {slices} slices p50 "
           f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f}"
           f" ms, max {lat.max():.3f} ms (n=50, host clock to "
@@ -1689,12 +1862,172 @@ def events_path(slices, seed, datadir, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 9
+
+CHEM_COLS = 4096               # fingerprint bits per molecule
+CHEM_SCAFFOLD_BITS = 48        # bits of a family's scaffold
+CHEM_KEEP = 0.95               # share of its scaffold's bits a molecule keeps
+CHEM_EXTRA = 3                 # bits a molecule adds of its own
+CHEM_TANIMOTO = 70
+CHEM_QUERIES = (0, 12345, 250_001, CHEM_ROWS - 1)  # Src molecules
+
+
+def chem_words(seed, n_rows):
+    """uint64[n_rows, 64]: molecule m keeps each bit of its family's
+    scaffold (family m // CHEM_FAMILY) with probability CHEM_KEEP and adds
+    CHEM_EXTRA random bits, ~48 bits in all, so family members score
+    ~80 in Tanimoto against each other and ~1 against the rest."""
+    rng = np.random.default_rng([seed, 9])
+    n_fam = (n_rows + CHEM_FAMILY - 1) // CHEM_FAMILY
+    scaffold = rng.integers(0, CHEM_COLS, (n_fam, CHEM_SCAFFOLD_BITS))
+    cols = scaffold[np.arange(n_rows) // CHEM_FAMILY]
+    cols = np.where(rng.random(cols.shape) < CHEM_KEEP, cols, -1)
+    cols = np.concatenate(
+        [cols, rng.integers(0, CHEM_COLS, (n_rows, CHEM_EXTRA))], axis=1)
+    r, k = np.nonzero(cols >= 0)
+    c = cols[r, k]
+    words = np.zeros((n_rows, CHEM_COLS // 64), np.uint64)
+    np.bitwise_or.at(words.reshape(-1), r * (CHEM_COLS // 64) + (c >> 6),
+                     np.left_shift(np.uint64(1), (c & 63).astype(np.uint64)))
+    return words
+
+
+def chem_oracle(words, counts, q, n):
+    """TopN(Bitmap(q), n, tanimotoThreshold) of one slice whose cache
+    holds every row: |row ∩ q| of the rows whose float32 Tanimoto score
+    ×100 has a ceiling above the threshold, by (-count, id), top n."""
+    inter = np.bitwise_count(words & words[q]).sum(axis=1, dtype=np.int64)
+    denom = counts + counts[q] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        score = (np.float32(100.0) * inter.astype(np.float32)
+                 / denom.astype(np.float32))
+    keep = (denom > 0) & (np.ceil(score) > CHEM_TANIMOTO) & (inter > 0)
+    rows = np.flatnonzero(keep)
+    order = np.lexsort((rows, -inter[rows]))[:n]
+    return [(int(r), int(inter[r])) for r in rows[order]]
+
+
+def chem_path(seed, datadir, card):
+    """Phase 9: the chemical-similarity shape — 500,000 molecule rows of
+    4,096 fingerprint columns in one fragment, held in a 128-word column
+    window — TopN with a Src and a Tanimoto threshold, a Src-less TopN
+    and Count(Intersect) on both paths against the numpy oracle."""
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.roaring import codec
+    from pilosa_tpu_torch.storage.frame import FrameOptions
+    from pilosa_tpu_torch.storage.holder import Holder
+
+    holder = Holder(datadir, device=DEVICE).open()
+    frame = holder.create_index("chem").create_frame(
+        "fingerprint", FrameOptions(cache_size=CHEM_ROWS))
+    frag_dir = os.path.join(frame.path, "views", "standard", "fragments")
+    holder.close()
+    t0 = time.perf_counter()
+    words = chem_words(seed, CHEM_ROWS)
+    counts = np.bitwise_count(words).sum(axis=1, dtype=np.int64)
+    keys = np.arange(CHEM_ROWS, dtype=np.uint64) * np.uint64(16)
+    os.makedirs(frag_dir)
+    path = os.path.join(frag_dir, "0")
+    with open(path, "wb") as fh:
+        fh.write(codec.serialize_arrays(keys, words))
+    with open(path + ".cache", "w") as fh:
+        json.dump(np.flatnonzero(counts).tolist(), fh)
+    write_s = time.perf_counter() - t0
+    print(f"chem: wrote {CHEM_ROWS} molecules x {CHEM_COLS} fingerprint "
+          f"columns ({int(counts.sum())} bits, {counts.mean():.1f} per "
+          f"molecule; {os.path.getsize(path)} file bytes) in {write_s:.1f} s")
+
+    reset_peak()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    holder = Holder(datadir, device=DEVICE).open()
+    open_s = time.perf_counter() - t0
+    ex = Executor(holder)
+    frag = holder.fragment("chem", "fingerprint", "standard", 0)
+    lazy_win = frag.win32()
+    check(lazy_win == (0, 128) and not frag._resident,
+          f"chem window before the fault-in {lazy_win}")
+    q1, q2 = CHEM_QUERIES[1], CHEM_QUERIES[1] + 1  # two of one family
+    q_and = (f'Count(Intersect(Bitmap(frame="fingerprint", rowID={q1}), '
+             f'Bitmap(frame="fingerprint", rowID={q2})))')
+    want_and = int(np.bitwise_count(words[q1] & words[q2]).sum())
+    t0 = time.perf_counter()
+    got = ex.execute("chem", q_and)[0]
+    sync()
+    first_s = time.perf_counter() - t0
+    check(got == want_and, f"{q_and}: {got} != oracle {want_and}")
+
+    def topn(q):
+        return (f'TopN(Bitmap(frame="fingerprint", rowID={q}), '
+                f'frame="fingerprint", n=10, tanimotoThreshold='
+                f'{CHEM_TANIMOTO})')
+
+    q_bare = 'TopN(frame="fingerprint", n=10)'
+    order = np.lexsort((np.arange(CHEM_ROWS), -counts))[:10]
+    cases = [(topn(q), chem_oracle(words, counts, q, 10))
+             for q in CHEM_QUERIES]
+    cases += [(q_bare, [(int(r), int(counts[r])) for r in order]),
+              (q_and, want_and)]
+    check(all(len(w) > 1 for _, w in cases[:len(CHEM_QUERIES)]),
+          "data: a Src molecule without similar molecules")
+    first_topn_s = None
+    for path in ("batched", "serial"):
+        ex._force_path = path
+        for q, w in cases:
+            t = time.perf_counter()
+            got = ex.execute("chem", q)[0]
+            dt = time.perf_counter() - t
+            first_topn_s = first_topn_s or dt
+            check(got == w, f"chem {path} {q}: {got} != oracle {w}")
+            print(f"  chem {path:7s} {dt * 1e3:10.2f} ms  {q} -> {got}")
+    ex._force_path = None
+    win = frag.win32()
+    check(win == (0, 128) and frag._resident, f"chem window {win}")
+    mem = frag.memory_stats()
+    host_window = frag._matrix.nbytes
+    full_width = CHEM_ROWS * WORDS32 * 4
+    check(mem["deviceBytes"] <= 2 * host_window,
+          f"chem device bytes {mem['deviceBytes']} > 2x the host window "
+          f"{host_window}")
+
+    q0 = topn(CHEM_QUERIES[0])
+    before = kernels.launches["count_and_rows"]
+    ex.execute("chem", q0)
+    per_topn = kernels.launches["count_and_rows"] - before
+    lat_ms, got = p50_ms(lambda: ex.execute("chem", q0)[0], 20)
+    check(got == cases[0][1], "warm chem TopN changed")
+    launches = dict(kernels.launches)
+    peak = peak_bytes()
+    holder.close()
+    check(all(launches.values()),
+          f"a kernel never launched on the chem path: {launches}")
+    print(f"chem {card}: open {open_s:.2f} s, first Count(Intersect) "
+          f"{first_s:.2f} s (no fault-in), first TopN {first_topn_s:.2f} s "
+          f"(fault-in and mirror); win32 {lazy_win} before the fault-in and "
+          f"{win} after; host matrix {host_window} bytes, device "
+          f"{mem['deviceBytes']} bytes, full width would be {full_width} "
+          f"bytes ({full_width / host_window:.0f}x); warm TopN p50 "
+          f"{lat_ms:.3f} ms (n=20, host clock to torch.cuda.synchronize()),"
+          f" {per_topn} count_and_rows launches per TopN; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slices", type=int, default=MAIN_SLICES,
                     help="slices of 2^20 columns (default 9537 = 10.0B)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--event-slices", type=int, default=EVENT_SLICES,
+                    help="phase 7's slices (a measurement option)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases of 4, 4g, 5, 6, 8a, 8b, 7 "
+                         "and 9 to run, without phase 3 and the result "
+                         "lines (a measurement option)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
     t_start = time.perf_counter()
     # Each line reaches a redirected log as it is printed.
     sys.stdout.reconfigure(line_buffering=True)
@@ -1729,30 +2062,54 @@ def main():
         print(f"  {name}: {'; '.join(regs) or 'cached'}")
 
     # Phase 3: kernels against their plain versions.
-    stats = kernel_checks(args.slices, card)
+    stats = None if only else kernel_checks(args.slices, card)
 
-    # Phases 4-8: the main path, Count and bitmap results, TopN, BSI, the
-    # HTTP server over their data directory and the CLI, then time
-    # windows, each read with the launch counts reset just before it.
-    # Phase 7 has a data directory of its own.
+    # Phases 4-9: the main path, Count and bitmap results (then under a
+    # host budget), TopN, BSI, the HTTP server over their data directory
+    # and the CLI, then time windows and the chemical-similarity shape,
+    # each read with the launch counts reset just before it. Phases 7
+    # and 9 have data directories of their own.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
     oracle = {}
+    phase_launches = []
+
+    def phase(key, name, fn, *a):
+        if only and key not in only:
+            return
+        t = time.perf_counter()
+        phase_launches.append(fn(*a))
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s {card}")
+
     try:
-        phase_launches = [
-            main_path(args.slices, args.seed, datadir, card, oracle),
-            topn_path(args.slices, args.seed, datadir, card),
-            bsi_path(args.slices, args.seed, datadir, card, oracle)]
-        t0 = time.perf_counter()
-        phase_launches.append(
-            server_path(args.slices, args.seed, datadir, card, oracle))
-        cli_path(args.seed, os.path.join(datadir, ".cli"), card)
-        print(f"phase 8: {time.perf_counter() - t0:.1f} s {card}")
-        shutil.rmtree(datadir)
-        phase_launches.append(events_path(min(EVENT_SLICES, args.slices),
-                                          args.seed, datadir, card))
+        for key, name, fn, a in (
+                ("4", "4", main_path, (args.slices, args.seed, datadir,
+                                       card, oracle)),
+                ("4g", "4 governed", governor_path, (args.slices, datadir,
+                                                     card, oracle)),
+                ("5", "5", topn_path, (args.slices, args.seed, datadir,
+                                       card)),
+                ("6", "6", bsi_path, (args.slices, args.seed, datadir,
+                                      card, oracle)),
+                ("8a", "8a", server_path, (args.slices, args.seed, datadir,
+                                           card, oracle))):
+            phase(key, name, fn, *a)
+        if not only or "8b" in only:  # its launches are another process's
+            t = time.perf_counter()
+            cli_path(args.seed, os.path.join(datadir, ".cli"), card)
+            print(f"phase 8b: {time.perf_counter() - t:.1f} s {card}")
+        shutil.rmtree(datadir, ignore_errors=True)
+        phase("7", "7", events_path, min(args.event_slices, args.slices),
+              args.seed, datadir, card)
+        shutil.rmtree(datadir, ignore_errors=True)
+        phase("9", "9", chem_path, args.seed, datadir, card)
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
+    if only:
+        print(f"chip_smoke: phases {sorted(only)} in "
+              f"{time.perf_counter() - t_start:.1f} s {card}; a partial "
+              f"run prints no result")
+        return 0
 
     sources = {"count_op_rows": "pilosa_tpu_torch/csrc/popcount.cu",
                "count_rows": "pilosa_tpu_torch/csrc/popcount.cu",

@@ -5,11 +5,13 @@ A segment is one slice's words as an ``int32[32768]`` tensor on the
 holder's device, so algebra between result bitmaps stays on the device
 and counts run through the count kernels.
 
-A batched result arrives as ONE ``int32[S, 32768]`` device stack with
-its per-slice counts (``defer_stack``): ``count()`` reads the counts,
-``columns()`` finds the set bits in the stack on the device, and only a
-caller that touches ``segments`` splits it into per-slice rows (views of
-the stack, no copy; rows with zero count are dropped).
+A batched result arrives as ONE ``int32[S, W]`` device stack with its
+per-slice counts and its column window's first word (``defer_stack``):
+``count()`` reads the counts, ``columns()`` finds the set bits in the
+stack on the device, offset by the window, and only a caller that
+touches ``segments`` splits it into per-slice rows (views of a
+full-width stack, rebased copies of a narrower one; rows with zero
+count are dropped).
 """
 import numpy as np
 import torch
@@ -29,10 +31,11 @@ def _seg_count(seg):
     return int(bitops.count(seg))
 
 
-def _stack_columns(stack, slice_ids, counts):
+def _stack_columns(stack, slice_ids, counts, word_base=0):
     """Absolute column ids of the set bits of ``int32[R, W]`` rows, row i
-    being slice ``slice_ids[i]`` with ``counts[i]`` set bits, as host
-    ``uint64``; ascending when ``slice_ids`` is. Found on the stack's
+    being slice ``slice_ids[i]`` with ``counts[i]`` set bits and word 0
+    of each row the slice's word ``word_base``, as host ``uint64``;
+    ascending when ``slice_ids`` is. Found on the stack's
     device, in passes of consecutive rows cut by their bit counts:
     ``nonzero`` lists a pass's nonzero words in row-major order, their
     32 bits expand to a [n, 32] matrix (``(w >> j) & 1`` reads bit j of
@@ -53,8 +56,8 @@ def _stack_columns(stack, slice_ids, counts):
         rw = torch.nonzero(part)
         words = part[rw[:, 0], rw[:, 1]]
         k, j = torch.nonzero((words[:, None] >> shifts) & 1, as_tuple=True)
-        base = torch.tensor(slice_ids[lo:hi], dtype=torch.int64,
-                            device=dev) * SLICE_WIDTH
+        base = (torch.tensor(slice_ids[lo:hi], dtype=torch.int64,
+                             device=dev) * SLICE_WIDTH + word_base * WORD_BITS)
         cols = base[rw[k, 0]] + rw[k, 1] * WORD_BITS + j
         out.append(cols.cpu().numpy().view(np.uint64))
     if not out:
@@ -67,16 +70,24 @@ class Bitmap:
         self._segments = {}  # slice -> int32[WORDS_PER_SLICE] tensor
         self.attrs = attrs or {}
         self._count = None   # cached count (ref: bitmap.go:205-238)
-        self._stack = None   # deferred (stack, slice list, host counts)
+        self._stack = None   # deferred (stack, slices, counts, word base)
 
     @property
     def segments(self):
         """slice -> words map; splits a deferred stack first."""
         if self._stack is not None:
-            stack, slice_list, counts = self._stack
+            stack, slice_list, counts, word_base = self._stack
             self._stack = None
+            width = stack.shape[-1]
             for i in np.flatnonzero(counts).tolist():
                 s, seg = slice_list[i], stack[i]
+                if width < WORDS_PER_SLICE:
+                    # A window's row, rebased to the full slice so that
+                    # segment algebra stays aligned.
+                    full = torch.zeros(WORDS_PER_SLICE, dtype=seg.dtype,
+                                       device=seg.device)
+                    full[word_base:word_base + width] = seg
+                    seg = full
                 mine = self._segments.get(s)
                 self._segments[s] = (seg if mine is None
                                      else bitops.bitmap_or(mine, seg))
@@ -88,14 +99,17 @@ class Bitmap:
         self._stack = None
         self.invalidate_count()
 
-    def defer_stack(self, stack, slice_list, counts):
+    def defer_stack(self, stack, slice_list, counts, word_base=0):
         """Adopt a batched ``int32[S, W]`` result stack and its host
         per-slice counts without splitting it (rows with zero counts are
-        dropped when it is split). Existing content is split first, and
-        the new rows merge into it."""
+        dropped when it is split); ``word_base`` is the slice word of
+        the stack's word 0 when it is narrower than the slice (ref:
+        pilosa_tpu bitmap.py:56-93). Existing content is split first,
+        and the new rows merge into it."""
         if self._stack is not None or self._segments:
             _ = self.segments
-        self._stack = (stack, list(slice_list), np.asarray(counts))
+        self._stack = (stack, list(slice_list), np.asarray(counts),
+                       int(word_base))
         self.invalidate_count()
 
     # ------------------------------------------------------ construction
@@ -237,9 +251,9 @@ class Bitmap:
         searched whole with its counts, segments in stacked groups
         counted by ``count_rows``."""
         if self._stack is not None and not self._segments:
-            stack, slice_list, counts = self._stack
+            stack, slice_list, counts, word_base = self._stack
             if all(a < b for a, b in zip(slice_list, slice_list[1:])):
-                return _stack_columns(stack, slice_list, counts)
+                return _stack_columns(stack, slice_list, counts, word_base)
         segs = self.segments
         keys = sorted(segs)
         out = []

@@ -23,7 +23,9 @@ DEFAULT_HOST = "localhost:10101"
 
 def cmd_server(args):
     """Serve a data directory until SIGTERM or Ctrl-C (ref:
-    ctl/server.go). The GPU unless ``--device cpu``."""
+    ctl/server.go). The GPU unless ``--device cpu``; the host memory of
+    resident fragments is bounded by ``PILOSA_TPU_HOST_BYTES`` when set
+    (the holder reads it)."""
     p = argparse.ArgumentParser(prog="server")
     p.add_argument("-d", "--data-dir", default="~/.pilosa")
     p.add_argument("-b", "--bind", default=DEFAULT_HOST)

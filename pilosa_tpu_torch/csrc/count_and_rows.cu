@@ -6,8 +6,10 @@
 //   - the Pallas kernel count_and_rows (ops/pallas_kernels.py:173,
 //     pallas_call at :179): per-row popcount(m & filt) for m[R, W] and one
 //     filter row filt[W] — here the fragment form, S = 1 and row r at
-//     m + r*W (TopN with a Src bitmap, storage/fragment.py:2977, and its
-//     Tanimoto numerators through ops/topn.py:62);
+//     m + r * row_stride (TopN with a Src bitmap, storage/fragment.py:2977,
+//     and its Tanimoto numerators through ops/topn.py:62), ONE launch for
+//     any R: 500,000 molecule rows of a 128-word window at the
+//     chemical-similarity shape;
 //   - the XLA fusions of batched TopN (executor.py _batched_topn_fn
 //     :4365-4371 and _batched_topn_tanimoto_fn :4393-4397), which count
 //     |candidate ∩ src| per slice for R candidate stacks [S, W] against a
@@ -26,13 +28,20 @@
 // accumulators, so the filter is read once per chunk instead of once per
 // candidate. Then a warp-shuffle reduction per row, a shared-memory
 // reduction across the block's warps and one plain store per (r, s): no
-// atomics, so counts are deterministic and exact. The R row pointers
-// travel by value in a kernel-parameter table (MAX_ROWS of them, 2 KiB of
-// the 4 KiB parameter space), so the candidates need no stacking copy and
-// no device pointer array; the wrapper launches again for more rows. A
-// chunk whose rows are not all 16-byte aligned relative to the filter, and
-// every row's unaligned head and ragged tail, take the scalar path, so any
-// width and any storage offset work without padding.
+// atomics, so counts are deterministic and exact. In the stacked form the R
+// row pointers travel by value in a kernel-parameter table (MAX_ROWS of
+// them, 2 KiB of the 4 KiB parameter space), so the candidates need no
+// stacking copy and no device pointer array; the wrapper launches again
+// for more rows. In the strided form (row_stride != 0) row r sits at
+// ptr[0] + r * row_stride, so a fragment matrix of any row count is one
+// launch. Blocks walk a 1-D space of (slice, chunk) pairs, a slice's
+// chunks adjacent so that they meet its filter in L2, and the grid strides
+// over it: no grid dimension limits R or S. A chunk whose rows are not all
+// 16-byte aligned relative to the filter, and every row's unaligned head
+// and ragged tail, take the scalar path, so any width and any storage
+// offset work without padding. At a narrow window (W = 128 words, 32
+// vectors) most of a block's 256 threads idle: the launch shape is tuned
+// for full-width rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,23 +61,30 @@ __device__ __forceinline__ int popc_and4(const uint4& a, const uint4& f) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-count_and_rows_kernel(const __grid_constant__ RowTable rows, int nrows,
+count_and_rows_kernel(const __grid_constant__ RowTable rows,
+                      long long row_stride, long long nrows,
                       const uint32_t* __restrict__ filt, long long slices,
                       long long width, int32_t* __restrict__ out,
                       long long out_stride) {
   __shared__ int warp_sums[WARPS][RB];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.y * RB;
-  const int nr = min(RB, nrows - r0);
+  const long long chunks = (nrows + RB - 1) / RB;
 
-  for (long long s = blockIdx.x; s < slices; s += gridDim.x) {
+  for (long long b = blockIdx.x; b < slices * chunks; b += gridDim.x) {
+    const long long s = b / chunks;
+    const long long r0 = (b % chunks) * RB;
+    const int nr = (int)min((long long)RB, nrows - r0);
     const uint32_t* fs = filt + s * width;
     const uint32_t* rs[RB];
     bool aligned = true;
 #pragma unroll
     for (int k = 0; k < RB; ++k) {
-      rs[k] = k < nr ? rows.ptr[r0 + k] + s * width : fs;
+      const uint32_t* row =
+          k >= nr ? nullptr
+          : row_stride ? rows.ptr[0] + (r0 + k) * row_stride
+                       : rows.ptr[r0 + k];
+      rs[k] = k < nr ? row + s * width : fs;
       aligned &= ((reinterpret_cast<uintptr_t>(rs[k]) ^
                    reinterpret_cast<uintptr_t>(fs)) & 15) == 0;
     }
@@ -124,13 +140,26 @@ count_and_rows_kernel(const __grid_constant__ RowTable rows, int nrows,
       for (int w = 0; w < WARPS; ++w) total += warp_sums[w][threadIdx.x];
       out[(long long)(r0 + threadIdx.x) * out_stride + s] = total;
     }
-    __syncthreads();  // warp_sums is reused by the next slice
+    __syncthreads();  // warp_sums is reused by the next (slice, chunk)
   }
 }
 
 // Message for a CUDA error code, for the wrapper's exception text.
 extern "C" const char* pilosa_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+static int launch(const RowTable& table, long long row_stride,
+                  long long nrows, const void* filt, long long slices,
+                  long long width, void* out, long long out_stride,
+                  void* stream) {
+  const long long blocks = slices * ((nrows + RB - 1) / RB);
+  count_and_rows_kernel<<<(unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID),
+                          THREADS, 0,
+                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      table, row_stride, nrows, static_cast<const uint32_t*>(filt), slices,
+      width, static_cast<int32_t*>(out), out_stride);
+  return (int)cudaGetLastError();
 }
 
 // C interface, bound with ctypes. `row_ptrs` is a HOST array of `nrows`
@@ -151,11 +180,24 @@ extern "C" int pilosa_count_and_rows(const unsigned long long* row_ptrs,
     table.ptr[r] = r < nrows
                        ? reinterpret_cast<const uint32_t*>(row_ptrs[r])
                        : nullptr;
-  const dim3 grid((unsigned)(slices < MAX_GRID ? slices : MAX_GRID),
-                  (unsigned)((nrows + RB - 1) / RB));
-  count_and_rows_kernel<<<grid, THREADS, 0,
-                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      table, nrows, static_cast<const uint32_t*>(filt), slices, width,
-      static_cast<int32_t*>(out), out_stride);
-  return (int)cudaGetLastError();
+  return launch(table, 0, nrows, filt, slices, width, out, out_stride,
+                stream);
+}
+
+// The strided form: row r's slice s starts at base + r * row_stride +
+// s * width words (row_stride > 0), for any `nrows`; otherwise as above.
+extern "C" int pilosa_count_and_rows_strided(const void* base,
+                                             long long row_stride,
+                                             long long nrows,
+                                             const void* filt,
+                                             long long slices,
+                                             long long width, void* out,
+                                             long long out_stride,
+                                             void* stream) {
+  if (nrows <= 0 || slices <= 0) return (int)cudaSuccess;
+  if (row_stride <= 0 || width < 0) return (int)cudaErrorInvalidValue;
+  RowTable table = {};
+  table.ptr[0] = static_cast<const uint32_t*>(base);
+  return launch(table, row_stride, nrows, filt, slices, width, out,
+                out_stride, stream);
 }

@@ -15,7 +15,7 @@ into the frame's time views), ``SetFieldValue``, ``SetRowAttrs`` and
 paths:
 
 - **batched** (the default): each Bitmap leaf becomes one
-  ``int32[n_slices, 32768]`` device stack (cached until a fragment
+  ``int32[n_slices, W]`` device stack (cached until a fragment
   changes), the tree folds with PyTorch bitwise ops, and its ROOT op is
   fused into the ``count_op_rows`` kernel — a two-leaf Count reads each
   stack once and materialises nothing. A single leaf counts with
@@ -27,11 +27,22 @@ paths:
 A time Range is the Union of the leaves of its view cover
 (``time_quantum.views_by_time_range``), so ``Count(Range(…))`` folds
 n-1 view stacks and meets the last inside ``count_op_rows``. A compound
-top-level bitmap call folds into one ``int32[S, 32768]`` stack whose
+top-level bitmap call folds into one ``int32[S, W]`` stack whose
 per-slice counts come from ``count_rows``; the ``Bitmap`` result defers
 the stack (``Bitmap.defer_stack``), so a count never splits it and
 ``columns()`` finds the set bits on the device. A bare top-level
 ``Bitmap``/``Range`` runs serially, as in the reference.
+
+Column windows (ref: pilosa_tpu executor.py:3743-3830). Every stack of
+one batched plan spans the plan's window: the union of the windows of
+the fragments it reads (``Fragment.win32``), widened to a power-of-four
+width bucket — 128, 512, 2048, 8192 or 32768 words — with its base
+aligned to the width, so device bytes stay within 2× the host windows
+and the kernels see five widths. A stack is assembled on the host from
+each fragment's words in the window (decoded container by container
+from a fragment that is not resident, so a cold read faults nothing
+in) and uploaded once. ``PILOSA_TPU_FULL_WIN=1`` pins every plan to the
+full slice.
 
 A BSI field's plane i is row i of the view ``field_<name>`` and its
 not-null row is row ``depth``, so the batched path reads them as
@@ -59,6 +70,7 @@ window.
 batched planner does not cover (errors, unsupported leaves) goes serial,
 where the reference's error messages are raised.
 """
+import os
 import threading
 from collections import namedtuple
 from datetime import datetime
@@ -167,6 +179,12 @@ def _leaf_pos(leaves, spec):
     return leaves.index(spec)
 
 
+def _slice_key(slices):
+    """A hashable key of a slice list."""
+    return (("range", slices.start, slices.stop, slices.step)
+            if isinstance(slices, range) else tuple(slices))
+
+
 def pairs_add(a, b):
     """Merge pair lists, summing counts per id (ref: Pairs.Add
     cache.go:302-427); ordered by (-count, id)."""
@@ -179,15 +197,27 @@ def pairs_add(a, b):
 
 
 class Executor:
-    # Device bytes the leaf-stack cache may hold (each stack is
-    # n_slices × 128 KiB; 9,537 slices = 1.25 GB).
-    STACK_CACHE_BYTES = 16 << 30
+    # Device bytes the leaf-stack cache may hold (a full-width stack is
+    # n_slices × 128 KiB; 9,537 slices = 1.25 GB, and a 14-day time
+    # window reads 14 of them besides its month and year views).
+    STACK_CACHE_BYTES = 32 << 30
+    # The narrowest stack window, in 32-bit words: twice the fragment's
+    # 64-word minimum (ref: pilosa_tpu executor.py MIN_WIN32).
+    MIN_WIN32 = 128
+    # Candidate rows a batched TopN counts at once (ref: pilosa_tpu
+    # executor.py's r_pad limit); more go serial, one fragment-form
+    # count_and_rows launch per slice.
+    MAX_TOPN_CANDIDATES = 1024
 
     def __init__(self, holder):
         self.holder = holder
         self.device = holder.device
+        # Operator opt-out of the window economy (one fixed width).
+        self._fixed_full_window = os.environ.get(
+            "PILOSA_TPU_FULL_WIN", "").lower() in ("1", "true", "yes")
         self._force_path = None  # "serial" | "batched" | None
         self._stack_cache = {}   # key -> (epoch, tokens, stack)
+        self._win_memo = {}      # (index, views, slices) -> (epoch, window)
         self._stack_bytes = 0
         self._cache_mu = threading.Lock()
 
@@ -393,7 +423,7 @@ class Executor:
 
     def _batched_bitmap(self, index, call, slices):
         """A compound tree over the slice list folded into ONE
-        ``int32[S, 32768]`` stack, its per-slice counts from
+        ``int32[S, W]`` stack at the plan's window, its per-slice counts from
         ``count_rows``; the result defers the stack unsplit. None when
         ineligible; BATCH_OVER_BUDGET when the leaf stacks and the
         result would not fit the stack budget together."""
@@ -405,13 +435,14 @@ class Executor:
             return None
         if plan[0] == "empty":
             return Bitmap()
-        if self._over_budget(len(leaves) + 1, slices):
-            return BATCH_OVER_BUDGET
-        stacks = [self._leaf_stack(index, spec, slices) for spec in leaves]
+        pre = self._plan_stacks(index, leaves, slices, extra=1)
+        if pre is BATCH_OVER_BUDGET:
+            return pre
+        win, stacks = pre
         result = self._eval_node(plan, stacks)
         counts = bitops.count_rows(result).cpu().numpy()
         bm = Bitmap()
-        bm.defer_stack(result, slices, counts)
+        bm.defer_stack(result, slices, counts, word_base=win[0])
         bm._count = int(counts.sum(dtype=np.int64))
         return bm
 
@@ -612,11 +643,76 @@ class Executor:
         return ("Union", [("leaf", _leaf_pos(leaves, (frame.name, v, id_)))
                           for v in views])
 
-    def _over_budget(self, n_stacks, slices):
-        """True when ``n_stacks`` leaf stacks over the slice list would
-        not fit the stack budget together."""
-        return (n_stacks * len(slices) * WORDS_PER_SLICE * 4
+    def _over_budget(self, n_stacks, slices, width32):
+        """True when ``n_stacks`` leaf stacks over the slice list at
+        ``width32`` words would not fit the stack budget together."""
+        return (n_stacks * len(slices) * width32 * 4
                 > self.STACK_CACHE_BYTES)
+
+    def _leaf_frags(self, index, leaves, slices):
+        """{(frame, view): fragments over the slice list}, one holder
+        lookup per (frame, view) of the leaf specs: the lists shared by
+        the window negotiation and the stack builds."""
+        frag_map = {}
+        for frame_name, view, _ in leaves:
+            if (frame_name, view) not in frag_map:
+                frag_map[(frame_name, view)] = self.holder.fragments(
+                    index, frame_name, view, slices)
+        return frag_map
+
+    def _union_window(self, frag_map):
+        """(base, width) in 32-bit words of the window covering every
+        fragment of ``frag_map`` (ref: pilosa_tpu executor.py:3770-3830):
+        the union of their windows, its width bucketed to a power of
+        four from MIN_WIN32 (128, 512, 2048, 8192, 32768) with the base
+        aligned to it — host windows are powers of two, so a stack's
+        device bytes stay within 2× its fragments' host windows. The
+        full slice when the data spans it, or under PILOSA_TPU_FULL_WIN."""
+        if self._fixed_full_window:
+            return 0, WORDS_PER_SLICE
+        lo = hi = None
+        for frags in frag_map.values():
+            for f in frags:
+                win = f.win32() if f is not None else None
+                if win is None:
+                    continue
+                b, w = win
+                lo = b if lo is None else min(lo, b)
+                hi = b + w if hi is None else max(hi, b + w)
+        if lo is None:
+            return 0, self.MIN_WIN32
+        w = self.MIN_WIN32
+        while True:
+            b = lo // w * w
+            if hi <= b + w or w >= WORDS_PER_SLICE:
+                break
+            w *= 4
+        if w >= WORDS_PER_SLICE:
+            return 0, WORDS_PER_SLICE
+        return b, w
+
+    def _plan_stacks(self, index, leaves, slices, extra=0):
+        """(window, leaf stacks) of a batched plan at the window of every
+        fragment its leaves read, or BATCH_OVER_BUDGET when the leaf
+        stacks and ``extra`` stacks of the same shape would not fit the
+        stack budget together. The window is memoized on the index's
+        mutation epoch: a warm query walks no fragment."""
+        epoch = self.holder.index(index).epoch.value
+        mkey = (index, frozenset(spec[:2] for spec in leaves),
+                _slice_key(slices))
+        memo = self._win_memo.get(mkey)
+        frag_map = None
+        if memo is not None and memo[0] == epoch:
+            win = memo[1]
+        else:
+            frag_map = self._leaf_frags(index, leaves, slices)
+            win = self._union_window(frag_map)
+            if len(self._win_memo) >= 4096:
+                self._win_memo.clear()
+            self._win_memo[mkey] = (epoch, win)
+        if self._over_budget(len(leaves) + extra, slices, win[1]):
+            return BATCH_OVER_BUDGET
+        return win, self._leaf_stacks(index, leaves, slices, win, frag_map)
 
     def _batched_count(self, index, child, slices):
         """Count over the slice list with one device stack per leaf: the
@@ -632,10 +728,10 @@ class Executor:
             return None
         if plan[0] == "empty":
             return 0
-        if self._over_budget(len(leaves), slices):
-            return BATCH_OVER_BUDGET
-        stacks = [self._leaf_stack(index, spec, slices) for spec in leaves]
-        return int(self._count_node(plan, stacks).sum(dtype=torch.int64))
+        pre = self._plan_stacks(index, leaves, slices)
+        if pre is BATCH_OVER_BUDGET:
+            return pre
+        return int(self._count_node(plan, pre[1]).sum(dtype=torch.int64))
 
     @staticmethod
     def _eval_node(node, stacks):
@@ -672,33 +768,87 @@ class Executor:
         last = Executor._eval_node(node[1][-1], stacks)
         return bitops.count_op_rows(acc, last, _COUNT_OPS[node[0]])
 
-    def _leaf_stack(self, index, spec, slices):
-        """``int32[len(slices), 32768]`` device stack of one row across
-        the slice list; absent fragments stack zero rows. Cached until a
-        fragment of the index changes: the index's mutation epoch is the
-        O(1) check, per-fragment (uid, version) tokens the exact one."""
-        frame_name, view, row_id = spec
-        skey = (("range", slices.start, slices.stop, slices.step)
-                if isinstance(slices, range) else tuple(slices))
-        key = (index, frame_name, view, row_id, skey)
+    def _leaf_stack(self, index, spec, slices, win=(0, WORDS_PER_SLICE)):
+        """``int32[len(slices), width32]`` device stack of one row across
+        the slice list in the window ``win`` = (base32, width32), the
+        full slice by default (see ``_leaf_stacks``)."""
+        return self._leaf_stacks(index, [spec], slices, win)[0]
+
+    def _leaf_stacks(self, index, specs, slices, win, frag_map=None):
+        """Device stacks ``int32[len(slices), width32]`` of the rows
+        ``specs`` = [(frame, view, row)] across the slice list in the
+        window ``win`` = (base32, width32); absent fragments stack zero
+        rows. Each is cached until a fragment of the index changes: the
+        index's mutation epoch is the O(1) check, per-fragment (uid,
+        version) tokens the exact one (an eviction by the host-memory
+        governor keeps the version, so it keeps the stack). A stack
+        whose tokens moved at some slices is patched there, out of
+        place (a write or a fault-in touches few fragments; re-reading
+        every cold fragment would cost a file read each), and the stack
+        of ``range(n)`` grows from that of ``range(n - 1)`` when a new
+        slice appears; any other is assembled on the host and uploaded
+        once. Every fragment is visited once for all of its rows, last
+        slice first, so the readers the window walk just opened are
+        reused before the reader cap closes them."""
+        base32, width32 = win
+        skey = _slice_key(slices)
         epoch = self.holder.index(index).epoch.value
-        with self._cache_mu:
-            hit = self._stack_cache.get(key)
-        if hit is not None and hit[0] == epoch:
-            return hit[2]
-        frags = self.holder.fragments(index, frame_name, view, slices)
-        tokens = tuple((f._uid, f._version) if f is not None else None
-                       for f in frags)
-        if hit is not None and hit[1] == tokens:
+        frag_map = dict(frag_map or {})
+        out, build = {}, {}
+        for spec in dict.fromkeys(specs):
+            key = (index, *spec, skey, base32, width32)
             with self._cache_mu:
-                self._stack_cache[key] = (epoch, tokens, hit[2])
-            return hit[2]
-        zero = torch.zeros(WORDS_PER_SLICE, dtype=torch.int32,
-                           device=self.device)
-        stack = torch.stack([f.device_row(row_id) if f is not None else zero
-                             for f in frags])
-        self._cache_put(key, (epoch, tokens, stack))
-        return stack
+                hit = self._stack_cache.get(key)
+            if hit is not None and hit[0] == epoch:
+                out[spec] = hit[2]
+                continue
+            view = spec[:2]
+            if frag_map.get(view) is None:
+                frag_map[view] = self.holder.fragments(index, *view, slices)
+            tokens = tuple((f._uid, f._version) if f is not None else None
+                           for f in frag_map[view])
+            if hit is None and skey[0] == "range" and skey[1:] == (
+                    0, len(tokens), 1) and len(tokens) > 1:
+                with self._cache_mu:
+                    hit = self._stack_cache.get(
+                        (index, *spec, ("range", 0, len(tokens) - 1, 1),
+                         base32, width32))
+            base = [] if hit is None else hit[1]
+            changed = [i for i, t in enumerate(tokens)
+                       if i >= len(base) or base[i] != t]
+            if not changed:
+                with self._cache_mu:
+                    self._stack_cache[key] = (epoch, tokens, hit[2])
+                out[spec] = hit[2]
+                continue
+            build.setdefault(view, []).append(
+                (spec, key, tokens, hit, changed))
+        # Views in the reverse of the window walk's order too: its
+        # last-opened readers are reused first.
+        for view, todo in reversed(list(build.items())):
+            frags = frag_map[view]
+            hosts = [np.zeros((len(changed), width32 // 2), np.uint64)
+                     for _, _, _, _, changed in todo]
+            at = {}  # slice position -> [(row, host row)]
+            for (spec, _, _, _, changed), host in zip(todo, hosts):
+                for j, i in enumerate(changed):
+                    at.setdefault(i, []).append((spec[2], host[j]))
+            for i in sorted(at, reverse=True):
+                if frags[i] is not None:
+                    frags[i].host_rows_win(at[i], base32, width32)
+            for (spec, key, tokens, hit, changed), host in zip(todo, hosts):
+                rows = torch.from_numpy(host.view(np.int32)).to(self.device)
+                if hit is None:
+                    stack = rows
+                else:
+                    stack = hit[2]
+                    if len(tokens) > stack.shape[0]:  # a new last slice
+                        stack = torch.cat([stack, rows[-1:]])
+                    stack = stack.index_copy(
+                        0, torch.tensor(changed, device=self.device), rows)
+                self._cache_put(key, (epoch, tokens, stack))
+                out[spec] = stack
+        return [out[spec] for spec in specs]
 
     def _cache_put(self, key, entry):
         nbytes = entry[2].numel() * entry[2].element_size()
@@ -832,15 +982,15 @@ class Executor:
         if plan is not None and plan[0] == "empty":
             return SumCount(0, 0)
         depth = field.bit_depth()
-        if self._over_budget(depth + 1 + len(leaves), slices):
-            return BATCH_OVER_BUDGET
         view = view_field_name(field.name)
-        bsi_stacks = [self._leaf_stack(index, (frame_name, view, i), slices)
-                      for i in range(depth + 1)]
-        filt = bsi_stacks[depth]
+        planes = [(frame_name, view, i) for i in range(depth + 1)]
+        pre = self._plan_stacks(index, planes + leaves, slices)
+        if pre is BATCH_OVER_BUDGET:
+            return pre
+        stacks = pre[1]
+        bsi_stacks, filt = stacks[:depth + 1], stacks[depth]
         if plan is not None:
-            filt = filt & self._eval_node(
-                plan, [self._leaf_stack(index, sp, slices) for sp in leaves])
+            filt = filt & self._eval_node(plan, stacks[depth + 1:])
         return field, bsi_stacks, filt
 
     def _batched_sum(self, index, call, slices):
@@ -995,6 +1145,8 @@ class Executor:
             row_ids = [rid for rid in row_ids if rid in allowed]
             if not row_ids:
                 return []
+        if len(row_ids) > self.MAX_TOPN_CANDIDATES:
+            return None
         counts = self._topn_candidate_counts(
             index, frame_name, view, row_ids, slices, tanimoto, plan,
             leaves)
@@ -1029,9 +1181,12 @@ class Executor:
                                               slices)]
         if allowed is not None:
             ent_sets = [es & allowed for es in ent_sets]
-        union_ids = sorted(set().union(*ent_sets))
+        union_ids = set().union(*ent_sets)
         if not union_ids:
             return []
+        if len(union_ids) > self.MAX_TOPN_CANDIDATES:
+            return BATCH_OVER_BUDGET  # fewer in a smaller slice window
+        union_ids = sorted(union_ids)
         counts = self._topn_candidate_counts(
             index, frame_name, view, union_ids, slices, tanimoto, plan,
             leaves)
@@ -1060,20 +1215,21 @@ class Executor:
         slice): |row ∩ src| from one ``count_and_rows`` launch against
         the Src stack (zeroed by the Tanimoto ceil gate when asked), or
         |row| from ``count_rows`` without a Src. Candidate rows and Src
-        leaves come from the cached leaf stacks; BATCH_OVER_BUDGET when
-        they would not fit the stack budget together. A statically empty
-        Src counts zero everywhere."""
+        leaves come from the cached leaf stacks, at the window of every
+        fragment involved; BATCH_OVER_BUDGET when they would not fit the
+        stack budget together. A statically empty Src counts zero
+        everywhere."""
         if plan is not None and plan[0] == "empty":
             return np.zeros((len(row_ids), len(slices)), np.int64)
-        if self._over_budget(len(row_ids) + len(leaves), slices):
-            return BATCH_OVER_BUDGET
-        stacks = [self._leaf_stack(index, (frame_name, view, rid), slices)
-                  for rid in row_ids]
+        cands = [(frame_name, view, rid) for rid in row_ids]
+        pre = self._plan_stacks(index, cands + leaves, slices)
+        if pre is BATCH_OVER_BUDGET:
+            return pre
+        stacks, leaf_stacks = pre[1][:len(cands)], pre[1][len(cands):]
         if plan is None:
             counts = torch.stack([bitops.count_rows(st) for st in stacks])
             return counts.cpu().numpy().astype(np.int64)
-        src = self._eval_node(plan, [self._leaf_stack(index, sp, slices)
-                                     for sp in leaves])
+        src = self._eval_node(plan, leaf_stacks)
         inter = bitops.count_and_rows_stacks(stacks, src)
         if not tanimoto:
             return inter.cpu().numpy().astype(np.int64)

@@ -11,7 +11,8 @@ and its design:
 - :func:`count_and_rows` / :func:`count_and_rows_stacks` — per-row
   popcount(row & filter) against one filter, read once for all rows;
   ports the Pallas ``count_and_rows`` and serves TopN with a Src
-  (``csrc/count_and_rows.cu``).
+  (``csrc/count_and_rows.cu``): the fragment form is one strided launch
+  for any row count, the stacked form a table of row pointers.
 
 Words are ``int32`` views of the 32-bit device words, shape
 ``[..., W]``; results are ``int32[...]``. A wrapper takes the plain
@@ -45,6 +46,7 @@ CAR_MAX_ROWS = 256
 
 _fn = None
 _car_fn = None
+_car_strided_fn = None
 
 
 def reset_launches():
@@ -185,6 +187,19 @@ def _car_kernel():
     return _car_fn
 
 
+def _car_strided_kernel():
+    global _car_strided_fn
+    if _car_strided_fn is None:
+        lib = loader.library("count_and_rows")
+        fn = lib.pilosa_count_and_rows_strided
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _car_strided_fn = (fn, _car_kernel()[1])
+    return _car_strided_fn
+
+
 def _launch_and_rows(ptrs, filt, slices, width, out):
     """Queue count_and_rows over device row addresses ``ptrs`` (row r's
     slice s at ptrs[r] + s·width words) against ``filt``, into ``out``
@@ -219,12 +234,21 @@ def count_and_rows(m, filt):
     _check("count_and_rows", filt)
     if filt.device.type == "cpu":
         return count_and_rows_plain(m, filt)
+    if filt.device.type != "cuda":
+        raise ValueError(f"count_and_rows: no kernel for device {filt.device}")
     rows, width = m.shape
     out = torch.empty(rows, dtype=torch.int32, device=m.device)
     if rows:
-        base = m.data_ptr()
-        _launch_and_rows([base + r * width * 4 for r in range(rows)], filt,
-                         1, width, out)
+        # Row r at m + r·width words: one launch for every row.
+        fn, err_str = _car_strided_kernel()
+        with torch.cuda.device(filt.device):
+            stream = torch.cuda.current_stream(filt.device).cuda_stream
+            rc = fn(m.data_ptr(), max(width, 1), rows, filt.data_ptr(), 1,
+                    width, out.data_ptr(), 1, stream)
+        if rc != 0:
+            raise RuntimeError(f"count_and_rows: kernel launch failed: CUDA "
+                               f"error {rc} ({err_str(rc).decode()})")
+        _count_launch("count_and_rows")
     return out
 
 

@@ -6,6 +6,9 @@ pilosa_tpu/server/server.py).
 serves Pilosa's public HTTP API on a thread; ``close()`` stops the
 listener, then closes the holder, which releases the directory's lock.
 It runs on the CPU only when the caller passes ``device="cpu"``.
+``host_bytes`` bounds the host memory of resident fragments (the
+holder's governor; None reads ``PILOSA_TPU_HOST_BYTES``, unset is
+unbounded).
 """
 import threading
 
@@ -20,13 +23,15 @@ from pilosa_tpu_torch.storage.holder import Holder
 
 class Server:
     def __init__(self, data_dir, bind="localhost:10101", device="cuda",
-                 max_body_size=DEFAULT_MAX_BODY_SIZE):
+                 max_body_size=DEFAULT_MAX_BODY_SIZE, host_bytes=None):
         self.data_dir = data_dir
         self.bind = bind
         self.host = bind  # host:port once open; the bound port for port 0
         self.scheme = "http"
         self.max_body_size = max_body_size
-        self.holder = Holder(data_dir, device=device)  # raises without GPU
+        # Raises without a GPU unless device="cpu".
+        self.holder = Holder(data_dir, device=device,
+                             host_bytes=host_bytes or None)
         self.executor = None
         self.handler = None
         self._httpd = None

@@ -110,8 +110,8 @@ class Field:
 
 
 class Frame:
-    def __init__(self, path, index_name, name, device="cpu", epoch=None,
-                 holder_locked=False):
+    def __init__(self, path, index_name, name, device="cuda", epoch=None,
+                 holder_locked=False, governor=None):
         perr.validate_name(name)
         self.path = path
         self.index_name = index_name
@@ -119,6 +119,7 @@ class Frame:
         self.device = device
         self.epoch = epoch
         self.holder_locked = holder_locked
+        self.governor = governor  # the holder's host-memory governor
         self.created_at = time.time()
         self.mu = threading.RLock()
         self.row_label = DEFAULT_ROW_LABEL
@@ -188,7 +189,8 @@ class Frame:
         v = View(os.path.join(self.path, "views", name), self.index_name,
                  self.name, name, device=self.device, epoch=self.epoch,
                  holder_locked=self.holder_locked,
-                 cache_type=self.cache_type, cache_size=self.cache_size)
+                 cache_type=self.cache_type, cache_size=self.cache_size,
+                 governor=self.governor)
         v.open()
         self.views[name] = v
         return v

@@ -11,8 +11,17 @@ before the other opens it.
 The holder's device is where every fragment mirrors its rows and where
 queries run. It is the GPU unless the caller asks for the CPU; without
 a GPU, ``Holder(path)`` raises rather than carrying on on the CPU.
+
+Opening reads no fragment file: fragments load on first touch, and a
+host-memory governor (``storage/memgov.py``) bounds the host bytes of
+resident fragments at ``host_bytes`` (or ``PILOSA_TPU_HOST_BYTES``),
+unloading the least recently used; None is unbounded. A fragment read
+lazily holds its file's descriptor while its reader lives, so opening
+raises the soft descriptor limit toward the hard one, as the reference
+does, and the reader cap follows it (``fragment.reader_cap``).
 """
 import os
+import resource
 import shutil
 import threading
 import uuid
@@ -22,6 +31,7 @@ import torch
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.storage.fragment import HOLDER_LOCK_NAME, try_flock
 from pilosa_tpu_torch.storage.index import Index
+from pilosa_tpu_torch.storage.memgov import HostMemGovernor
 
 
 def resolve_device(device):
@@ -34,10 +44,27 @@ def resolve_device(device):
     return dev
 
 
+def host_bytes_from_env():
+    """The host-memory budget ``PILOSA_TPU_HOST_BYTES`` names, or None
+    when it is unset or not a positive byte count (read as pilosa_tpu
+    holder.py:36-45 reads it)."""
+    env = os.environ.get("PILOSA_TPU_HOST_BYTES")
+    if not env:
+        return None
+    try:
+        value = int(env)
+    except ValueError:
+        return None
+    return value if value > 0 else None
+
+
 class Holder:
-    def __init__(self, path, device="cuda"):
+    def __init__(self, path, device="cuda", host_bytes=None):
         self.path = path
         self.device = resolve_device(device)
+        if host_bytes is None:
+            host_bytes = host_bytes_from_env()
+        self.governor = HostMemGovernor(host_bytes)
         self.mu = threading.RLock()
         self.indexes = {}
         self.local_id = None
@@ -51,6 +78,7 @@ class Holder:
                 os.path.join(self.path, HOLDER_LOCK_NAME),
                 perr.ErrHolderLocked)
             try:
+                self._set_file_limit()
                 for entry in sorted(os.listdir(self.path)):
                     full = os.path.join(self.path, entry)
                     if os.path.isdir(full) and not entry.startswith("."):
@@ -72,6 +100,27 @@ class Holder:
                     self._dir_lock.close()
                     self._dir_lock = None
 
+    @staticmethod
+    def _set_file_limit(target=262144):
+        """Raise the soft RLIMIT_NOFILE toward ``target`` within the hard
+        limit (ref: setFileLimit holder.go:385-431; pilosa_tpu
+        holder.py:190-216): the readers of lazily read fragments hold a
+        descriptor each, and a default soft limit of 1,024 runs out long
+        before the reader cap. Where the kernel refuses the hard limit
+        (darwin), the reference's fallback of 10,240."""
+        soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+        if soft == resource.RLIM_INFINITY:
+            return
+        want = target if hard == resource.RLIM_INFINITY else min(target,
+                                                                 hard)
+        if soft >= want:
+            return
+        try:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+        except (ValueError, OSError):
+            if soft < 10240:
+                resource.setrlimit(resource.RLIMIT_NOFILE, (10240, hard))
+
     def _load_local_id(self):
         """The node's UUID, persisted at ``<data>/.id`` (ref:
         holder.go:435-453; the file pilosa_tpu reads and writes)."""
@@ -86,7 +135,8 @@ class Holder:
 
     def _new_index(self, name):
         return Index(os.path.join(self.path, name), name,
-                     device=self.device, holder_locked=True)
+                     device=self.device, holder_locked=True,
+                     governor=self.governor)
 
     def index(self, name):
         with self.mu:
@@ -145,6 +195,39 @@ class Holder:
                         for frag in list(view.fragments.values()):
                             frag.recalculate_cache()
                             frag.flush_cache()
+
+    _MEM_KEYS = ("hostBytes", "deviceBytes", "lazyBytes", "diskBytes",
+                 "cacheEntries")
+
+    def memory_stats(self):
+        """Per-index and total memory occupancy — host matrix bytes of
+        resident fragments, device bytes of their tensors, lazy-read
+        memo bytes, file bytes on disk, TopN cache entries, fragment and
+        resident-fragment counts — and the governor's gauges (ref:
+        pilosa_tpu holder.py:649-704, without its 2 s memo and the
+        compressed-container rollup)."""
+        with self.mu:
+            indexes = [(name, self.indexes[name])
+                       for name in sorted(self.indexes)]
+        per_index = {}
+        totals = dict.fromkeys(self._MEM_KEYS, 0)
+        totals["fragments"] = totals["residentFragments"] = 0
+        for name, idx in indexes:
+            agg = dict.fromkeys(self._MEM_KEYS, 0)
+            agg["fragments"] = agg["residentFragments"] = 0
+            for frame in list(idx.frames.values()):
+                for view in list(frame.views.values()):
+                    for frag in list(view.fragments.values()):
+                        m = frag.memory_stats()
+                        agg["fragments"] += 1
+                        agg["residentFragments"] += int(m["resident"])
+                        for k in self._MEM_KEYS:
+                            agg[k] += m[k]
+            per_index[name] = agg
+            for k, v in agg.items():
+                totals[k] += v
+        return {"indexes": per_index, "totals": totals,
+                "governor": self.governor.snapshot()}
 
     def fragment(self, index, frame, view, slice_num):
         """Accessor chain (ref: holder.go:196-338)."""

@@ -23,12 +23,14 @@ DEFAULT_COLUMN_LABEL = "columnID"  # ref: index.go
 
 
 class Index:
-    def __init__(self, path, name, device="cpu", holder_locked=False):
+    def __init__(self, path, name, device="cuda", holder_locked=False,
+                 governor=None):
         perr.validate_name(name)
         self.path = path
         self.name = name
         self.device = device
         self.holder_locked = holder_locked
+        self.governor = governor  # the holder's host-memory governor
         # Bumped by every fragment open/close/mutation in this index.
         self.epoch = MutationEpoch()
         self.created_at = time.time()
@@ -89,7 +91,8 @@ class Index:
     def _new_frame(self, name):
         return Frame(os.path.join(self.path, name), self.name, name,
                      device=self.device, epoch=self.epoch,
-                     holder_locked=self.holder_locked)
+                     holder_locked=self.holder_locked,
+                     governor=self.governor)
 
     def max_slice(self):
         """(ref: index.go:275-322, single node)."""

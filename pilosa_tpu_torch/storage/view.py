@@ -19,8 +19,9 @@ def view_field_name(field):
 
 
 class View:
-    def __init__(self, path, index, frame, name, device="cpu", epoch=None,
-                 holder_locked=False, cache_type="ranked", cache_size=50000):
+    def __init__(self, path, index, frame, name, device="cuda", epoch=None,
+                 holder_locked=False, cache_type="ranked", cache_size=50000,
+                 governor=None):
         self.path = path
         self.index = index
         self.frame = frame
@@ -30,17 +31,22 @@ class View:
         self.device = device
         self.epoch = epoch
         self.holder_locked = holder_locked
+        self.governor = governor  # the holder's host-memory governor
         self.mu = threading.RLock()
         self.fragments = {}  # slice -> Fragment
 
     def open(self):
-        """Open every fragment file of the view (ref: view.go:100-158)."""
+        """Open every fragment file of the view (ref: view.go:100-158);
+        a fragment reads nothing at open, and one listing of the
+        directory stands in for each fragment's own file checks."""
         with self.mu:
             frag_dir = os.path.join(self.path, "fragments")
             os.makedirs(frag_dir, exist_ok=True)
-            for entry in sorted(os.listdir(frag_dir)):
+            names = set(os.listdir(frag_dir))
+            for entry in sorted(names):
                 if entry.isdigit():  # skips .cache/.lock/.snapshotting
-                    self._open_fragment(int(entry))
+                    self._open_fragment(int(entry),
+                                        lock_file=entry + ".lock" in names)
         return self
 
     def close(self):
@@ -52,14 +58,16 @@ class View:
     def fragment_path(self, slice_num):
         return os.path.join(self.path, "fragments", str(slice_num))
 
-    def _open_fragment(self, slice_num):
-        """Caller holds self.mu."""
+    def _open_fragment(self, slice_num, lock_file=None):
+        """Caller holds self.mu. ``lock_file`` (whether the fragment's
+        ``.lock`` exists) comes from a listing that found the file."""
         frag = Fragment(self.fragment_path(slice_num), self.index,
                         self.frame, self.name, slice_num, device=self.device,
                         epoch=self.epoch, holder_locked=self.holder_locked,
                         cache_type=self.cache_type,
                         cache_size=self.cache_size)
-        frag.open()
+        frag.governor = self.governor
+        frag.open(lock_file=lock_file)
         self.fragments[slice_num] = frag
         return frag
 

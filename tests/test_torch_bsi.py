@@ -272,7 +272,7 @@ def test_fragment_field_methods_match_reference(frag_pair):
     jf = JFragment(frag_pair, "i", "g", "field_v", 0).open()
     want = _frag_answers(jf, filt, lambda w: np.asarray(w, np.uint64))
     jf.close()
-    tf = TFragment(frag_pair, "i", "g", "field_v", 0).open()
+    tf = TFragment(frag_pair, "i", "g", "field_v", 0, device="cpu").open()
     got = _frag_answers(tf, _t(filt),
                         lambda w: w.numpy().copy().view(np.uint64))
     planes = tf.planes(DEPTH)
@@ -289,7 +289,7 @@ def test_fragment_field_methods_match_reference(frag_pair):
 
 def test_fragment_planes_gather_absent_and_reordered_rows(tmp_path):
     path = str(tmp_path / "frag")
-    tf = TFragment(path, "i", "g", "field_v", 0).open()
+    tf = TFragment(path, "i", "g", "field_v", 0, device="cpu").open()
     tf.set_bit(3, 70)                  # row 3 first: rows out of order
     tf.set_field_value(64, 4, 0b1010)  # rows 0, 2 never get a bit
     planes = tf.planes(4).numpy().view(np.uint32)

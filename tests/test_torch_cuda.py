@@ -72,6 +72,32 @@ def test_count_and_rows_equals_plain(gen, rows, width):
                        kernels.count_and_rows_plain(m, f))
 
 
+@pytest.mark.parametrize("width", [128, 512, 2048, 8192, 32768])
+def test_kernels_at_every_window_bucket(gen, width):
+    """The batched plans' stack widths: every kernel against its plain
+    version at [S, W] for each power-of-four bucket."""
+    a, b = _rand(gen, 37, width), _rand(gen, 37, width)
+    for op in OPS:
+        assert torch.equal(kernels.count_op_rows(a, b, op),
+                           kernels.count_op_rows_plain(a, b, op))
+    assert torch.equal(kernels.count_rows(a), kernels.count_rows_plain(a))
+    rows = [_rand(gen, 37, width) for _ in range(9)]
+    assert torch.equal(kernels.count_and_rows_stacks(rows, a),
+                       kernels.count_and_rows_stacks_plain(rows, a))
+
+
+@pytest.mark.parametrize("rows", [1, 9, 70_000, 524_288])
+def test_count_and_rows_fragment_form_is_one_launch(gen, rows):
+    """The strided fragment form: any row count in one launch, past the
+    65,535-block limit of a grid dimension, exact against the plain
+    version."""
+    m, f = _rand(gen, rows, 128), _rand(gen, 128)
+    kernels.reset_launches()
+    got = kernels.count_and_rows(m, f)
+    assert kernels.launches["count_and_rows"] == 1
+    assert torch.equal(got, kernels.count_and_rows_plain(m, f))
+
+
 @pytest.mark.parametrize("n_rows", [0, 1, 8, 9, 10, 11, 300])
 @pytest.mark.parametrize("shape", [(1, 32768), (5, 4097), (64, 32768)])
 def test_count_and_rows_stacks_equals_plain(gen, n_rows, shape):
@@ -340,3 +366,51 @@ def test_server_on_gpu_matches_cpu(gen, tmp_path):
             s.close()
     assert answers["cuda"] == answers["cpu"]
     assert json.loads(answers["cpu"][0][1])["results"][0] > 0
+
+
+def test_windows_and_cold_reads_on_gpu_match_cpu(gen, tmp_path):
+    """A narrow, row-heavy frame (a 128-word window) written on the CPU,
+    reopened on the GPU under a host budget: cold batched reads build
+    CUDA stacks at the window without a fault-in, and Count, TopN with a
+    Tanimoto threshold and a bitmap result answer as on the CPU."""
+    rng = np.random.default_rng(3)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    fr = h.create_index("i").create_frame("f", FrameOptions(cache_size=5000))
+    rows = np.repeat(np.arange(3000), 40)
+    cols = rng.integers(0, 4096, len(rows)) + (rows % 2) * SLICE_WIDTH
+    fr.import_bits(rows.tolist(), cols.tolist())
+    h.close()
+    queries = ['Count(Intersect(Bitmap(frame="f", rowID=7), '
+               'Bitmap(frame="f", rowID=9)))',
+               'TopN(Bitmap(frame="f", rowID=7), frame="f", n=5, '
+               'tanimotoThreshold=5)',
+               'TopN(frame="f", n=5)',
+               'Union(Bitmap(frame="f", rowID=7), Bitmap(frame="f", '
+               'rowID=8))']
+
+    def run(device, **kw):
+        hh = Holder(path, device=device, **kw).open()
+        ex = Executor(hh)
+        out = {}
+        for p in ("batched", "serial"):
+            ex._force_path = p
+            for q in queries:
+                v = ex.execute("i", q)[0]
+                out[(p, q)] = v.columns().tolist() if hasattr(
+                    v, "columns") else v
+            if p == "batched":
+                with ex._cache_mu:
+                    stacks = [e[2] for e in ex._stack_cache.values()]
+                assert stacks and all(st.device.type == device and
+                                      st.shape[1] == 128 for st in stacks)
+        out["faults"] = hh.governor.faults
+        hh.close()
+        return out
+
+    kernels.reset_launches()
+    got = run("cuda", host_bytes=1 << 20)
+    assert all(kernels.launches.values())
+    want = run("cpu")
+    assert got.pop("faults") > 0 and {k: v for k, v in got.items()} == {
+        k: v for k, v in want.items() if k != "faults"}

@@ -48,6 +48,7 @@ print(json.dumps(sorted(sys.modules)))
     assert "pilosa_tpu_torch.ops.kernels" in mods
     assert "pilosa_tpu_torch.time_quantum" in mods
     assert "pilosa_tpu_torch.storage.attrs" in mods
+    assert "pilosa_tpu_torch.storage.memgov" in mods
     for name in ("server.wireproto", "server.handler", "server.server",
                  "cluster.client", "cli.commands", "cli.__main__"):
         assert f"pilosa_tpu_torch.{name}" in mods
