@@ -13,7 +13,10 @@ Phases, each of which fails the run (exit code != 0, no result line):
    for W = 128, 512, 2048, 8192, 32768, each kernel timed against its
    bound), at ``count_and_rows``'s strided fragment form [524,288 × 128]
    (one launch), and at ragged/edge shapes; time, bytes, bound and
-   plain-version time at the main-path shape;
+   plain-version time at the main-path shape; the coalescer's group
+   kernels ``count_op_pairs`` at 8 distinct pairs of the main shape
+   (and every bucket) and ``count_and_rows_multi`` at 10 rows × 8
+   filters of it;
 4. main path, Count and bitmap results — a data directory of N slices
    (default 9,537 = 10.0B columns; one index, one frame, three dense
    rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
@@ -84,7 +87,20 @@ Phases, each of which fails the run (exit code != 0, no result line):
    All three kernels must have launched. (b) ``python -m
    pilosa_tpu_torch.cli server`` as a subprocess (the GPU by default):
    Pilosa's Quick Start, ``cli import`` of a generated 10,000-line CSV
-   and recounts against numpy, then SIGTERM and exit 0;
+   and recounts against numpy, then SIGTERM and exit 0. (c), inside
+   (a)'s server before its writes: concurrent clients in processes that
+   import no torch, each on one keep-alive connection — the count mix
+   (Count(Intersect(row a, row b)) of frame f, (a, b) drawn per request)
+   and pilosa_tpu's mixed mix (~80% those, ~15% ``TopN(Bitmap(frame=
+   "f", rowID=0), frame="t", n=5)``, ~5% SetBit of row 9, which no query
+   reads) at 1, 8 and 32 clients, and 32 with the coalescer off, each
+   2 s of warm-up and 3 s measured: q/s, p50, p99, the coalescer's
+   rounds, fused queries and largest group, launches per query; then
+   eight differently filtered Sums and eight Maxes, each released by a
+   Barrier into one group, against the same served one after another;
+   then warm repeats with the result memos and the response cache on.
+   Every answer against phases 4-6's oracles; ``count_op_pairs`` and
+   ``count_and_rows_multi`` must have launched;
 9. the chemical-similarity shape (the reference's showcase, pilosa_tpu
    storage/fragment.py:87-90): index ``chem``, frame ``fingerprint``
    with a ranked cache holding every row (cacheSize 500,000): 500,000
@@ -95,6 +111,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
    for four molecules, a Src-less TopN and Count(Intersect) of two
    molecules on both paths against a numpy oracle; the TopN p50 and the
    ``count_and_rows`` launches per TopN.
+
+The result memos and the response cache are off
+(``PILOSA_TPU_RESULT_MEMO=0``) but in phase 8c's warm repeats, so the
+phases time execution; the coalescer is on (the card's default) and a
+lone query passes its tick alone.
 
 Every open is lazy (no fragment file is read until a query touches
 it); each phase prints its open and first-query seconds. The serial
@@ -126,7 +147,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MAIN_SLICES = 9537          # 10.0B columns at 2^20 columns per slice
 WORDS32 = 32768             # int32 words per slice row
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-ALU_OPS_PER_S = 67e12       # H100 SXM 32-bit (fp32) non-tensor rate
+# Integer rates of one H100 SXM: 132 SMs at 1.98 GHz (the clock behind
+# its 67 TFLOP/s fp32 figure), each SM issuing per clock 64 32-bit logic
+# ops or adds and 16 population counts (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0).
+INT_OPS_PER_S = 132 * 64 * 1.98e9    # and/or/xor/andnot/add
+POPC_PER_S = 132 * 16 * 1.98e9       # popcount
 OPS = ("and", "or", "xor", "andnot")
 DEVICE = "cuda"
 TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
@@ -144,6 +170,10 @@ EVENT_SLICES = 4096
 CHEM_ROWS = 500_000         # phase 9's molecules
 CHEM_FAMILY = 100           # molecules per scaffold
 FRAG_FORM_ROWS = 524_288    # count_and_rows's fragment form in phase 3
+GROUP_PAIRS = 8             # members of a fused group (phases 3 and 8c)
+# The kernels a single query launches; the coalescer's groups (8c) add
+# count_op_pairs and count_and_rows_multi.
+QUERY_KERNELS = ("count_op_rows", "count_rows", "count_and_rows")
 
 
 class SmokeFailure(Exception):
@@ -192,15 +222,19 @@ def timed_ms(fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
+def ops_ms(popcounts, alu_ops):
+    """Least time for ``popcounts`` population counts and ``alu_ops``
+    32-bit logic ops and adds, each at its own peak rate."""
+    return max(popcounts / POPC_PER_S, alu_ops / INT_OPS_PER_S) * 1e3
+
+
 def bound_ms(rows, width, operands):
     """Least time for a count over [rows, width] words: each input word
     read once and one int32 per row written, against one logic op (none
-    for a single operand), one popcount and one add per word at the
-    card's 32-bit ALU rate."""
+    for a single operand), one popcount and one add per word."""
     nbytes = operands * rows * width * 4 + rows * 4
-    ops = (operands + 1) * rows * width
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = ops_ms(rows * width, operands * rows * width)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes
 
@@ -211,9 +245,21 @@ def and_rows_bound_ms(rows, slices, width):
     filter word read once, one int32 per (row, slice) written, against
     an and, a popcount and an add per candidate word."""
     nbytes = (rows + 1) * slices * width * 4 + rows * slices * 4
-    ops = 3 * rows * slices * width
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = ops_ms(rows * slices * width, 2 * rows * slices * width)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def multi_bound_ms(rows, filts, slices, width):
+    """Least time for count_and_rows_multi over ``rows`` row stacks and
+    ``filts`` filter stacks of [slices, width] words: each stack read
+    once, one int32 per (filter, row, slice) written, against an and, a
+    popcount and an add per (filter, row) word pair."""
+    nbytes = (rows + filts) * slices * width * 4 + filts * rows * slices * 4
+    words = filts * rows * slices * width
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ms(words, 2 * words)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes
 
@@ -245,7 +291,8 @@ def kernel_checks(slices, card):
         return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
                              device=DEVICE, generator=gen)
 
-    max_err = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0}
+    max_err = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0,
+               "count_op_pairs": 0, "count_and_rows_multi": 0}
 
     def note(name, got, want, what):
         check(torch.equal(got, want), f"{name} != plain at {what}")
@@ -311,17 +358,59 @@ def kernel_checks(slices, card):
     cases += 4
     del m, f, base, stk
 
+    # The group kernels at the edges: K = 1 and 257 (two launches),
+    # every op and none, rows and filters off 16-byte alignment.
+    for k in (1, 257):
+        pa = [rand(3, 77) for _ in range(k)]
+        pb = [rand(3, 77) for _ in range(k)]
+        for op in (None,) + OPS:
+            note("count_op_pairs", kernels.count_op_pairs(pa, pb, op),
+                 kernels.count_op_pairs_plain(pa, pb, op),
+                 f"K = {k} x [3, 77] op {op}")
+        note("count_and_rows_multi", kernels.count_and_rows_multi(pa[:11],
+                                                                  pb),
+             kernels.count_and_rows_multi_plain(pa[:11], pb),
+             f"R = {min(k, 11)}, K = {k} x [3, 77]")
+        cases += 2
+    base = rand(6 * 2 * 999 + 8)
+    stk = [base[i * 1998 + i:(i + 1) * 1998 + i].view(2, 999)
+           for i in range(6)]
+    note("count_op_pairs", kernels.count_op_pairs(stk[:3], stk[3:], "xor"),
+         kernels.count_op_pairs_plain(stk[:3], stk[3:], "xor"),
+         "misaligned pairs")
+    note("count_and_rows_multi", kernels.count_and_rows_multi(stk[:4],
+                                                              stk[4:]),
+         kernels.count_and_rows_multi_plain(stk[:4], stk[4:]),
+         "misaligned rows and filters")
+    for fill in (0, -1, -2**31):
+        m = torch.full((5, 4097), fill, dtype=torch.int32, device=DEVICE)
+        r = rand(5, 4097)
+        note("count_op_pairs", kernels.count_op_pairs([m, r], [r, m], "or"),
+             kernels.count_op_pairs_plain([m, r], [r, m], "or"),
+             f"fill {fill}")
+        note("count_and_rows_multi",
+             kernels.count_and_rows_multi([m, r], [r, m]),
+             kernels.count_and_rows_multi_plain([m, r], [r, m]),
+             f"fill {fill}")
+    cases += 8
+    del pa, pb, base, stk, m, r
+
     # The column-window buckets of the batched plans: every kernel at
-    # [slices, W] for each width W, timed against its bound.
+    # [slices, W] for each width W, timed against its bound;
+    # count_op_pairs over GROUP_PAIRS distinct pairs.
     buckets = []
     for w in WINDOW_BUCKETS:
         a, b = rand(slices, w), rand(slices, w)
         compare(a, b)
         cands = [rand(slices, w) for _ in range(TOPN_CANDIDATES)]
+        others = [rand(slices, w) for _ in range(GROUP_PAIRS)]
         note("count_and_rows", kernels.count_and_rows_stacks(cands, a),
              kernels.count_and_rows_stacks_plain(cands, a),
              f"{TOPN_CANDIDATES} x [{slices}, {w}]")
-        cases += 2
+        note("count_op_pairs", kernels.count_op_pairs(cands, others, "and"),
+             kernels.count_op_pairs_plain(cands, others, "and"),
+             f"{GROUP_PAIRS} pairs x [{slices}, {w}]")
+        cases += 3
         row = {"width": w}
         for name, fn, bound in (
                 ("count_op_rows", lambda: kernels.count_op_rows(a, b, "and"),
@@ -330,16 +419,21 @@ def kernel_checks(slices, card):
                  bound_ms(slices, w, 1)),
                 ("count_and_rows",
                  lambda: kernels.count_and_rows_stacks(cands, a),
-                 and_rows_bound_ms(TOPN_CANDIDATES, slices, w))):
+                 and_rows_bound_ms(TOPN_CANDIDATES, slices, w)),
+                ("count_op_pairs",
+                 lambda: kernels.count_op_pairs(cands, others, "and"),
+                 bound_ms(GROUP_PAIRS * slices, w, 2))):
             row[name] = (timed_ms(fn, reps=20), bound[0])
         buckets.append(row)
-        del a, b, cands
+        del a, b, cands, others
     for row in buckets:
         print(f"window bucket [{slices}, {row['width']}]: " + "; ".join(
             f"{n} {row[n][0]:.4f} ms (bound {row[n][1]:.4f}, "
             f"{row[n][1] / row[n][0]:.1%})"
-            for n in ("count_op_rows", "count_rows", "count_and_rows"))
-            + f" (count_and_rows: {TOPN_CANDIDATES} stacks) {card}")
+            for n in ("count_op_rows", "count_rows", "count_and_rows",
+                      "count_op_pairs"))
+            + f" (count_and_rows: {TOPN_CANDIDATES} stacks; count_op_pairs:"
+              f" {GROUP_PAIRS} pairs) {card}")
 
     # count_and_rows's fragment form: one strided launch for every row
     # of a narrow fragment matrix (the chemical-similarity TopN's shape).
@@ -357,7 +451,7 @@ def kernel_checks(slices, card):
                           reps=5, warm=1)
     nbytes = (FRAG_FORM_ROWS + 1) * 128 * 4 + FRAG_FORM_ROWS * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * FRAG_FORM_ROWS * 128 / ALU_OPS_PER_S * 1e3
+    t_ops = ops_ms(FRAG_FORM_ROWS * 128, 2 * FRAG_FORM_ROWS * 128)
     print(f"count_and_rows fragment form [{FRAG_FORM_ROWS}, 128] & [128]: "
           f"1 launch, {frag_ms:.4f} ms, plain version {frag_plain:.4f} ms, "
           f"bytes {nbytes}, bound {max(t_bytes, t_ops):.4f} ms "
@@ -439,9 +533,71 @@ def kernel_checks(slices, card):
           f"stacks x [{slices}, {WORDS32}] & [{slices}, {WORDS32}]: "
           f"{sum_ms:.4f} ms, bytes {nbytes}, bound {sum_bound:.4f} ms "
           f"({by}), {sum_bound / sum_ms:.1%} of bound {card}")
+    del a, b, cands, bsi_rows, sum_rows
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # The coalescer's group kernels at the main shape: count_op_pairs over
+    # GROUP_PAIRS distinct pairs (a fused Count group), then
+    # count_and_rows_multi with the BSI field's STARS_DEPTH + 1 stacks
+    # (its planes and its not-null row) as rows against GROUP_PAIRS
+    # filters (a fused Sum group).
+    left = [rand(slices, WORDS32) for _ in range(GROUP_PAIRS)]
+    right = [rand(slices, WORDS32) for _ in range(GROUP_PAIRS)]
+    note("count_op_pairs", kernels.count_op_pairs(left, right, "and"),
+         kernels.count_op_pairs_plain(left, right, "and"),
+         f"{GROUP_PAIRS} pairs x [{slices}, {WORDS32}]")
+    st = stats["count_op_pairs"] = {
+        "ms": timed_ms(lambda: kernels.count_op_pairs(left, right, "and"),
+                       reps=10),
+        "plain_ms": timed_ms(lambda: kernels.count_op_pairs_plain(
+            left, right, "and"), reps=1, warm=1)}
+    st["bound_ms"], st["bound_by"], st["bytes"] = bound_ms(
+        GROUP_PAIRS * slices, WORDS32, 2)
+    st["popc_ms"] = GROUP_PAIRS * slices * WORDS32 / POPC_PER_S * 1e3
+    singles_ms = timed_ms(lambda: [kernels.count_op_rows(x, y, "and")
+                                   for x, y in zip(left, right)], reps=5)
+    extra = STARS_DEPTH + 1 - GROUP_PAIRS
+    rows = left + right[:extra]
+    filts = right[extra:] + [rand(slices, WORDS32) for _ in range(extra)]
+    note("count_and_rows_multi", kernels.count_and_rows_multi(rows, filts),
+         kernels.count_and_rows_multi_plain(rows, filts),
+         f"R = {len(rows)}, K = {len(filts)} x [{slices}, {WORDS32}]")
+    st = stats["count_and_rows_multi"] = {
+        "ms": timed_ms(lambda: kernels.count_and_rows_multi(rows, filts),
+                       reps=10),
+        "plain_ms": timed_ms(lambda: kernels.count_and_rows_multi_plain(
+            rows, filts), reps=1, warm=0)}
+    st["bound_ms"], st["bound_by"], st["bytes"] = multi_bound_ms(
+        len(rows), len(filts), slices, WORDS32)
+    st["popc_ms"] = (len(rows) * len(filts) * slices * WORDS32
+                     / POPC_PER_S * 1e3)
+    per_filter_ms = timed_ms(lambda: [kernels.count_and_rows_stacks(rows, f)
+                                      for f in filts], reps=3)
+    cases += 2
+    for name, shape in (
+            ("count_op_pairs", f"{GROUP_PAIRS} pairs of [{slices}, "
+                               f"{WORDS32}]"),
+            ("count_and_rows_multi", f"R = {len(rows)} stacks, K = "
+                                     f"{len(filts)} filters of [{slices}, "
+                                     f"{WORDS32}]")):
+        st = stats[name]
+        st["max_abs_err"] = max_err[name]
+        print(f"{name} {shape}: kernel {st['ms']:.4f} ms, plain version "
+              f"{st['plain_ms']:.4f} ms, bytes {st['bytes']}, bound "
+              f"{st['bound_ms']:.4f} ms ({st['bound_by']}), "
+              f"{st['bound_ms'] / st['ms']:.1%} of bound (popcounts alone "
+              f"{st['popc_ms']:.4f} ms); library call: none {card}")
+    print(f"count_op_pairs vs {GROUP_PAIRS} count_op_rows[and] launches on "
+          f"the same pairs: {stats['count_op_pairs']['ms']:.4f} ms vs "
+          f"{singles_ms:.4f} ms; count_and_rows_multi vs {len(filts)} "
+          f"count_and_rows launches (one per filter): "
+          f"{stats['count_and_rows_multi']['ms']:.4f} ms vs "
+          f"{per_filter_ms:.4f} ms {card}")
+    print(f"kernels: {cases} shapes exact in all; max_abs_err {max_err}")
     print("kernels: " + json.dumps(
         [{"name": n, "launches": c} for n, c in kernels.launches.items()]))
-    del a, b, cands, bsi_rows, sum_rows
+    del left, right, rows, filts
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return stats
@@ -515,8 +671,10 @@ def _write_f_slices(frag_dir, seed, lo, hi):
     """Worker: frame f's fragments of slices [lo, hi), each restored by
     ``Fragment.read_from`` from a backup archive of the port's codec;
     returns their per-query oracle counts, per bitmap query the
-    ascending column ids of its result, and |row r & row 0| per row and
-    slice (phase 8's TopN over frame f). The workers write disjoint
+    ascending column ids of its result, |row r & row 0| per row and
+    slice (phase 8's TopN over frame f), and |row a & row b| for every
+    pair of rows 0-3 summed over its slices (phase 8c's Counts). The
+    workers write disjoint
     fragments of a closed holder's tree: ``holder_locked`` spares them
     the transient probe of ``.holder.lock``, which they would contend
     for."""
@@ -525,17 +683,20 @@ def _write_f_slices(frag_dir, seed, lo, hi):
     counts = np.zeros((len(QUERIES), hi - lo), dtype=np.int64)
     ids = [[] for _ in BITMAP_QUERIES]
     and_f0 = np.zeros((4, hi - lo), dtype=np.int64)
+    pairs = np.zeros((4, 4), dtype=np.int64)
     for i, s in enumerate(range(lo, hi)):
         words = slice_words(seed, s)
         counts[:, i] = slice_counts(words)
         and_f0[:, i] = np.bitwise_count(words & words[0]).sum(axis=1)
+        pairs += np.bitwise_count(words[:, None] & words[None]).sum(
+            axis=-1, dtype=np.int64)
         for k, (_, fn) in enumerate(BITMAP_QUERIES):
             ids[k].append(positions(fn(words)) + np.uint64(s * SLICE_COLS))
         frag = Fragment(os.path.join(frag_dir, str(s)), "i", "f",
                         "standard", s, holder_locked=True).open()
         frag.read_from(backup_tar(words))
         frag.close()
-    return lo, counts, [np.concatenate(x) for x in ids], and_f0
+    return lo, counts, [np.concatenate(x) for x in ids], and_f0, pairs
 
 
 def p50_ms(fn, reps):
@@ -634,12 +795,13 @@ def main_path(slices, seed, datadir, card, oracle):
     frag_dir = os.path.join(view.path, "fragments")
     holder.close()
     procs, parts = in_processes(_write_f_slices, frag_dir, seed, slices)
-    for lo, c, _, _ in parts:
+    for lo, c, *_ in parts:
         per_slice[:, lo:lo + c.shape[1]] = c
-    oracle_ids = [np.concatenate([ids[k] for _, _, ids, _ in parts])
+    oracle_ids = [np.concatenate([p[2][k] for p in parts])
                   for k in range(len(BITMAP_QUERIES))]
     and_f0_slices = np.concatenate([p[3] for p in parts], axis=1)
     and_f0 = and_f0_slices.sum(axis=1)
+    pair_counts = sum(p[4] for p in parts)
     del parts
     write_s = time.perf_counter() - t0
     print(f"main path: wrote {slices} slices ({slices * SLICE_WIDTH / 1e9:.2f}"
@@ -723,6 +885,7 @@ def main_path(slices, seed, datadir, card, oracle):
     oracle.update(count_and=want[2], and_ids=oracle_ids[1],
                   and_slices=per_slice[2].copy(),
                   r3_ids=oracle_ids[0], and_f0_slices=and_f0_slices,
+                  pair_counts=pair_counts,
                   count_p50_ms=float(np.percentile(lat_ms, 50)),
                   topn_f0=topn_pairs(and_f0))
     return launches
@@ -1045,6 +1208,10 @@ STARS_TABLE = np.minimum(np.floor(10 * (np.power(
     1 - (np.arange(1 << 16) + 0.5) / (1 << 16), -1 / 1.2) - 1)),
     STARS_MAX).astype(np.int16)
 _STARS = 'frame="t", field="stars"'
+# Phase 8c's BSI groups: Sum and Max filtered by Union(row a, row b) of
+# frame f, eight filters of one structure.
+GROUP_FILTERS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3), (0, 0),
+                 (1, 1))
 _RANGE = 'Count(Range(frame="t", stars {}))'
 BSI_QUERIES = [  # (label, PQL)
     ("a_sum", f"Sum({_STARS})"),
@@ -1089,13 +1256,30 @@ def stars_rows(v, nn):
 
 
 def bsi_slice_hist(v, nn, f):
-    """int32[3, 1001]: one slice's histograms of the values of every
-    column with a value, of those in frame f's row 0, and of those in
-    row 1 — every BSI answer of the oracle derives from them."""
+    """(int32[3, 1001], int64[len(GROUP_FILTERS), 4]): one slice's
+    histograms of the values of every column with a value, of those in
+    frame f's row 0, and of those in row 1 — every BSI answer of the
+    oracle derives from them — and per filter of GROUP_FILTERS (Union of
+    rows a and b) the sum, the count, the largest value and its count of
+    the values in it (phase 8c's groups). One bincount over each
+    column's membership pattern in rows 0-3 serves them all."""
     has = _bits(nn)
-    return np.stack([np.bincount(v[m], minlength=STARS_MAX + 1)
-                     for m in (has, has & _bits(f[0]), has & _bits(f[1]))]
-                    ).astype(np.int32)
+    code = np.zeros(SLICE_COLS, np.uint8)
+    for r in range(4):
+        code |= _bits(f[r]).view(np.uint8) << r
+    h16 = np.bincount((code[has].astype(np.int32) << 10) | v[has],
+                      minlength=16 << 10).reshape(16, 1024)[:, :STARS_MAX + 1]
+    pat = np.arange(16)
+    hist = np.stack([h16.sum(axis=0), h16[(pat & 1) > 0].sum(axis=0),
+                     h16[(pat & 2) > 0].sum(axis=0)]).astype(np.int32)
+    k = np.arange(STARS_MAX + 1)
+    stats = np.zeros((len(GROUP_FILTERS), 4), np.int64)
+    for j, (a, b) in enumerate(GROUP_FILTERS):
+        h = h16[((pat >> a) & 1) | ((pat >> b) & 1) > 0].sum(axis=0)
+        have = np.flatnonzero(h)
+        top = int(have[-1]) if len(have) else 0
+        stats[j] = ((k * h).sum(), h.sum(), top, h[top] if len(have) else 0)
+    return hist, stats
 
 
 def _write_stars_slices(frag_dir, seed, lo, hi):
@@ -1106,13 +1290,34 @@ def _write_stars_slices(frag_dir, seed, lo, hi):
 
     keys = np.arange((STARS_DEPTH + 1) * 16, dtype=np.uint64)
     hist = np.zeros((hi - lo, 3, STARS_MAX + 1), np.int32)
+    gstats = np.zeros((hi - lo, len(GROUP_FILTERS), 4), np.int64)
     for i, s in enumerate(range(lo, hi)):
         v, nn = stars_values(seed, s)
         with open(os.path.join(frag_dir, str(s)), "wb") as fh:
             fh.write(codec.serialize_arrays(
                 keys, stars_rows(v, nn).reshape(-1, 1024)))
-        hist[i] = bsi_slice_hist(v, nn, slice_words(seed, s))
-    return lo, hist
+        hist[i], gstats[i] = bsi_slice_hist(v, nn, slice_words(seed, s))
+    return lo, hist, gstats
+
+
+def group_answers(gstats):
+    """{PQL: answer} of the Sum and Max over every GROUP_FILTERS filter
+    from the stacked per-slice stats of ``bsi_slice_hist``."""
+    from pilosa_tpu_torch.executor import SumCount
+
+    out = {}
+    for j, (a, b) in enumerate(GROUP_FILTERS):
+        g = gstats[:, j]
+        flt = f"Union({SRC.format(a)}, {SRC.format(b)})"
+        count = int(g[:, 1].sum())
+        out[f"Sum({flt}, {_STARS})"] = SumCount(
+            int(g[:, 0].sum()) + count * STARS_MIN, count)
+        have = g[g[:, 1] > 0]
+        top = int(have[:, 2].max()) if len(have) else 0
+        out[f"Max({flt}, {_STARS})"] = (
+            SumCount(top + STARS_MIN, int(have[have[:, 2] == top, 3].sum()))
+            if len(have) else SumCount(0, 0))
+    return out
 
 
 def bsi_answers(hist):
@@ -1173,9 +1378,11 @@ def bsi_path(slices, seed, datadir, card, oracle):
     os.makedirs(frag_dir)
     t0 = time.perf_counter()
     hist = np.zeros((slices, 3, STARS_MAX + 1), np.int32)
+    gstats = np.zeros((slices, len(GROUP_FILTERS), 4), np.int64)
     procs, parts = in_processes(_write_stars_slices, frag_dir, seed, slices)
-    for lo, h in parts:
+    for lo, h, g in parts:
         hist[lo:lo + len(h)] = h
+        gstats[lo:lo + len(g)] = g
     write_s = time.perf_counter() - t0
     print(f"bsi: wrote field stars (min {STARS_MIN}, max {STARS_MAX}, "
           f"depth {STARS_DEPTH}) on frame t, {STARS_DEPTH + 1} rows x "
@@ -1262,13 +1469,13 @@ def bsi_path(slices, seed, datadir, card, oracle):
         check(res == [None], f"SetFieldValue returned {res}")
         v[col] = value
         nn[col // 64] |= np.uint64(1 << (col % 64))
-    hist[s] = bsi_slice_hist(v, nn, slice_words(seed, s))
+    hist[s], gstats[s] = bsi_slice_hist(v, nn, slice_words(seed, s))
     want, want_ser = bsi_answers(hist), bsi_answers(hist[:n_ser])
     run("setfieldvalue", ["a_sum", "c", "f_max"])
     launches = dict(kernels.launches)
     peak = peak_bytes()
     holder.close()
-    check(all(launches.values()),
+    check(all(launches[k] for k in QUERY_KERNELS),
           f"a kernel never launched on the BSI path: {launches}")
 
     def pct(label):
@@ -1277,7 +1484,7 @@ def bsi_path(slices, seed, datadir, card, oracle):
                 f"{np.percentile(a, 90):.3f} ms, max {a.max():.3f} ms")
 
     oracle.update(stars_sum=want["a_sum"], stars_gt30=want["c"],
-                  stars_written=s)
+                  stars_written=s, group_bsi=group_answers(gstats))
     print(f"bsi {card}: open {open_s:.2f} s, first Sum {first_s:.2f} s "
           f"(stacks built from the files); warm batched over {slices} slices "
           f"(n=50 each, host clock to torch.cuda.synchronize()): "
@@ -1467,6 +1674,10 @@ def server_path(slices, seed, datadir, card, oracle):
               f"({json_ms / h50:.1%} of the HTTP p50)")
         del body, cols, bm
 
+        launches_a = dict(kernels.launches)
+        launches_c = concurrency_path(server, slices, seed, oracle, card)
+        kernels.reset_launches()
+
         # SetBit over HTTP where row 0 has the bit and row 1 does not.
         s = min(SERIAL_SLICES, slices) // 2 + 1
         words = slice_words(seed, s)
@@ -1538,15 +1749,284 @@ def server_path(slices, seed, datadir, card, oracle):
               f"{import_s:.2f} s, its Count and /slices/max; POST "
               f"/import-value of 1000 stars and Sum; GET /export of slice "
               f"{slices} ({len(data)} bytes) equal to numpy {card}")
-        launches = dict(kernels.launches)
+        launches = {k: launches_a[k] + v
+                    for k, v in kernels.launches.items()}
         peak = peak_bytes()
     finally:
         conn.close()
         server.close()
-    check(all(launches.values()),
+    check(all(launches[k] for k in QUERY_KERNELS),
           f"a kernel never launched on the server path: {launches}")
     print(f"server {card}: max_memory_allocated {peak / 2**30:.2f} GiB; "
-          f"launches {launches}")
+          f"launches {launches} (8c's apart)")
+    return [launches, launches_c]
+
+
+# ----------------------------------------------------------- phase 8c
+
+CONC_CLIENTS = (1, 8, 32)     # concurrent clients per point
+CONC_WARM_S = 2.0             # warm-up before each point's window
+# Each point's measured window. reduced: 3 s, not 5, to keep the script
+# under 1,000 s of its 1,200 s limit (PERF.md §4).
+CONC_MEASURE_S = 3.0
+CONC_GROUP_REPS = 3           # timed rounds of each BSI group
+CONC_PROCS = 8                # client processes (threads share them)
+CONC_ROW = 9                  # the row the mixed mix writes; none reads it
+CONC_TOPN = f'TopN({SRC.format(0)}, frame="t", n=5)'
+
+
+def _conc_client(host, port, mode, tids, seed, pair_counts, slices,
+                 start_ts, warm_s, measure_s):
+    """Client process (it imports no torch): one thread per client id
+    in ``tids``, each on one keep-alive ``http.client`` connection,
+    from ``start_ts`` (a cross-process start barrier on the wall clock)
+    for ``warm_s`` + ``measure_s``. The count mix asks
+    Count(Intersect(row a, row b)) of frame f, (a, b) drawn from rows
+    0-3 per request by the client's seed; the mixed mix replaces ~15% by
+    CONC_TOPN and ~5% by a SetBit of row CONC_ROW at a column spread
+    per request. Every answer is checked: a Count against
+    ``pair_counts``, the TopN against [] (phase 6 dropped frame t's
+    rows), a SetBit's against a bool. Returns (requests in the window,
+    their latencies in ms by kind, the first mismatch or error)."""
+    import http.client
+    import socket
+    import threading
+
+    out = {"n": 0, "lat": {"count": [], "topn": [], "setbit": []},
+           "bad": None}
+    mu = threading.Lock()
+    t_meas, t_end = start_ts + warm_s, start_ts + warm_s + measure_s
+
+    def client(tid):
+        rng = np.random.default_rng([seed, 8, tid])
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        conn.connect()
+        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        lat = {"count": [], "topn": [], "setbit": []}
+        n = k = 0
+        while time.time() < start_ts:
+            time.sleep(0.002)
+        try:
+            while True:
+                now = time.time()
+                if now >= t_end:
+                    break
+                k += 1
+                r = rng.random() if mode == "mixed" else 1.0
+                if r < 0.05:
+                    kind = "setbit"
+                    col = ((tid * 104729 + k) * 7919) % (slices << 20)
+                    q = (f'SetBit(frame="f", rowID={CONC_ROW}, '
+                         f'columnID={col})')
+                elif r < 0.20:
+                    kind, q = "topn", CONC_TOPN
+                else:
+                    kind = "count"
+                    a, b = (int(x) for x in rng.integers(0, 4, 2))
+                    q = f"Count(Intersect({SRC.format(a)}, {SRC.format(b)}))"
+                t = time.perf_counter()
+                conn.request("POST", "/index/i/query", body=q.encode())
+                resp = conn.getresponse()
+                body = resp.read()
+                dt = (time.perf_counter() - t) * 1e3
+                got = (json.loads(body)["results"][0]
+                       if resp.status == 200 else None)
+                ok = (got == [] if kind == "topn"
+                      else isinstance(got, bool) if kind == "setbit"
+                      else got == int(pair_counts[a][b]))
+                if not ok:
+                    raise ValueError(f"{q}: {resp.status} {body[:200]!r}")
+                if now >= t_meas:
+                    n += 1
+                    lat[kind].append(dt)
+        except Exception as exc:  # noqa: BLE001 — reported to the phase
+            with mu:
+                out["bad"] = out["bad"] or f"client {tid}: {exc}"
+        finally:
+            conn.close()
+        with mu:
+            out["n"] += n
+            for kd, v in lat.items():
+                out["lat"][kd].extend(v)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in tids]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def concurrency_path(server, slices, seed, oracle, card):
+    """Phase 8c, inside 8a's server over phase 6's directory: clients in
+    processes of their own at 1, 8 and 32 for the count and the mixed
+    mix, then 32 with the coalescer off; the BSI groups in process; the
+    result memos' warm repeats. Result memos and the response cache are
+    off for the points (PILOSA_TPU_RESULT_MEMO=0), as pilosa_tpu's
+    benchmarks/concurrency.py measures. Returns the launches of the
+    phase; fails on any mismatch against phases 4-6's oracles."""
+    import threading
+
+    from pilosa_tpu_torch.ops import kernels
+
+    ex = server.executor
+    host, port = server.host.rsplit(":", 1)
+    pair_counts = oracle["pair_counts"].tolist()
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    points = [(m, c, True) for m in ("count", "mixed") for c in CONC_CLIENTS]
+    points += [("count", 32, False), ("mixed", 32, False)]
+    rows = []
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(CONC_PROCS) as pool:
+        pool.map(time.sleep, [0] * CONC_PROCS)   # workers up and imported
+        for mode, n_clients, coalesce in points:
+            ex._co_enabled_memo = coalesce
+            procs = min(n_clients, CONC_PROCS)
+            jobs = [list(range(p, n_clients, procs)) for p in range(procs)]
+            start_ts = time.time() + 0.5
+            res = pool.starmap_async(_conc_client, [
+                (host, int(port), mode, tids, seed, pair_counts, slices,
+                 start_ts, CONC_WARM_S, CONC_MEASURE_S) for tids in jobs])
+            time.sleep(max(0.0, start_ts + CONC_WARM_S - time.time()))
+            l0 = dict(kernels.launches)
+            st0 = dict(ex._co_stats)
+            ex._co_stats["max_group"] = 0
+            time.sleep(max(0.0, start_ts + CONC_WARM_S + CONC_MEASURE_S
+                           - time.time()))
+            l1 = dict(kernels.launches)
+            st1 = dict(ex._co_stats)
+            outs = res.get(timeout=600)
+            bad = [o["bad"] for o in outs if o["bad"]]
+            check(not bad, f"8c {mode} x {n_clients}: {bad[:3]}")
+            n = sum(o["n"] for o in outs)
+            lat = np.asarray([x for o in outs for v in o["lat"].values()
+                              for x in v])
+            cnt = np.asarray([x for o in outs for x in o["lat"]["count"]])
+            check(n > 0, f"8c {mode} x {n_clients}: no request in the window")
+            launched = sum(l1[k] - l0[k] for k in l1)
+            row = {"mode": mode, "clients": n_clients, "coalesce": coalesce,
+                   "qps": n / CONC_MEASURE_S,
+                   "p50": float(np.percentile(lat, 50)),
+                   "p99": float(np.percentile(lat, 99)),
+                   "count_p50": float(np.percentile(cnt, 50)),
+                   "rounds": st1["rounds"] - st0["rounds"],
+                   "fused": st1["fused_queries"] - st0["fused_queries"],
+                   "max_group": st1["max_group"],
+                   "launches_per_query": launched / n,
+                   "pairs": l1["count_op_pairs"] - l0["count_op_pairs"]}
+            rows.append(row)
+            print(f"8c {mode:5s} x {n_clients:2d} clients, coalescer "
+                  f"{'on ' if coalesce else 'off'}: {row['qps']:.1f} q/s, "
+                  f"p50 {row['p50']:.3f} ms, p99 {row['p99']:.3f} ms "
+                  f"(Count p50 {row['count_p50']:.3f}), rounds "
+                  f"{row['rounds']}, fused_queries {row['fused']}, max_group "
+                  f"{row['max_group']}, launches/query "
+                  f"{row['launches_per_query']:.3f} (count_op_pairs "
+                  f"{row['pairs']}) over {CONC_MEASURE_S:.0f} s after "
+                  f"{CONC_WARM_S:.0f} s of warm-up {card}")
+    ex._co_enabled_memo = True
+    top = [r for r in rows if r["mode"] == "count" and r["clients"] == 32
+           and r["coalesce"]][0]
+    check(top["fused"] > 0 and top["max_group"] > 1,
+          f"8c: 32 clients on the count mix formed no group: {top}")
+
+    # BSI groups in process: GROUP_FILTERS-filtered Sums, then Maxes,
+    # released together by a Barrier, against the same queries served
+    # one after another with the coalescer off; after a sequential pass
+    # that revalidates the stacks 8c's writes left behind, alternating,
+    # CONC_GROUP_REPS of each.
+    bsi = oracle["group_bsi"]
+
+    def group_round(queries):
+        ex._co_enabled_memo = True
+        ex.set_coalesce_config(max_wait_us=5_000_000,
+                               max_group=len(queries))
+        out = [None] * len(queries)
+        barrier = threading.Barrier(len(queries) + 1)
+
+        def run(i, q):
+            barrier.wait(timeout=60)
+            out[i] = ex.execute("i", q)[0]
+
+        threads = [threading.Thread(target=run, args=(i, q))
+                   for i, q in enumerate(queries)]
+        for th in threads:
+            th.start()
+        sync()
+        fused0 = ex._co_stats["fused_queries"]
+        barrier.wait(timeout=60)
+        t = time.perf_counter()
+        for th in threads:
+            th.join()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        ex.set_coalesce_config(max_wait_us=0, max_group=64)
+        check(ex._co_stats["fused_queries"] - fused0 == len(queries),
+              f"8c: {queries[0]}... formed no one group")
+        return ms, out
+
+    def sequential(queries):
+        ex._co_enabled_memo = False
+        t = time.perf_counter()
+        out = [ex.execute("i", q)[0] for q in queries]
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        ex._co_enabled_memo = True
+        return ms, out
+
+    for verb in ("Sum", "Max"):
+        queries = [q for q in bsi if q.startswith(verb)]
+        want = [bsi[q] for q in queries]
+        check(sequential(queries)[1] == want, f"8c {verb}: != oracle {want}")
+        k0 = dict(kernels.launches)
+        g_ms, s_ms = [], []
+        for _ in range(CONC_GROUP_REPS):
+            ms, out = group_round(queries)
+            check(out == want, f"8c {verb} group: {out} != oracle {want}")
+            g_ms.append(ms)
+            ms, out = sequential(queries)
+            check(out == want, f"8c {verb} sequential: {out}")
+            s_ms.append(ms)
+        k1 = dict(kernels.launches)
+        print(f"8c {verb} group of {len(queries)} (Union filters), median of "
+              f"{CONC_GROUP_REPS}: {np.median(g_ms):.3f} ms in one group "
+              f"({', '.join(f'{x:.3f}' for x in g_ms)}) vs "
+              f"{np.median(s_ms):.3f} ms served one after another "
+              f"({', '.join(f'{x:.3f}' for x in s_ms)}; host clock to "
+              f"torch.cuda.synchronize()); per group count_op_pairs "
+              f"{(k1['count_op_pairs'] - k0['count_op_pairs']) / CONC_GROUP_REPS:g}"
+              f" launches, count_and_rows_multi "
+              f"{(k1['count_and_rows_multi'] - k0['count_and_rows_multi']) / CONC_GROUP_REPS:g}"
+              f" {card}")
+
+    # Warm repeats with the result memos (and the response cache) on.
+    q = f"Count(Intersect({SRC.format(0)}, {SRC.format(1)}))"
+    want = int(pair_counts[0][1])
+    ex._result_memo_off = False
+    try:
+        check(ex.execute("i", q)[0] == want, "8c memo: first answer")
+        memo_ms, got = p50_ms(lambda: ex.execute("i", q)[0], 100)
+        check(got == want, "8c memo: in-process repeat changed")
+        import http.client
+
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        http_query(conn, q)
+        http_ms, got = p50_ms(lambda: http_query(conn, q), 100)
+        conn.close()
+        check(got == [want], "8c memo: HTTP repeat changed")
+        stats = server.handler._resp_cache.stats()
+        check(stats["hits"] >= 100, f"8c memo: response cache {stats}")
+    finally:
+        ex._result_memo_off = True
+    launches = dict(kernels.launches)
+    check(launches["count_op_pairs"] and launches["count_and_rows_multi"],
+          f"8c: a group kernel never launched: {launches}")
+    print(f"8c memos on: warm repeat of {q} p50 {memo_ms:.4f} ms in process, "
+          f"{http_ms:.3f} ms over HTTP (response cache {stats}; n=100 each, "
+          f"host clock) {card}")
+    print(f"phase 8c: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}; coalescer {ex.coalesce_snapshot()} {card}")
     return launches
 
 
@@ -2000,7 +2480,7 @@ def chem_path(seed, datadir, card):
     launches = dict(kernels.launches)
     peak = peak_bytes()
     holder.close()
-    check(all(launches.values()),
+    check(all(launches[k] for k in QUERY_KERNELS),
           f"a kernel never launched on the chem path: {launches}")
     print(f"chem {card}: open {open_s:.2f} s, first Count(Intersect) "
           f"{first_s:.2f} s (no fault-in), first TopN {first_topn_s:.2f} s "
@@ -2029,6 +2509,10 @@ def main():
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     t_start = time.perf_counter()
+    # The phases time execution, not memo lookups: the result memos (and
+    # with them the response cache) are off until phase 8c turns them on
+    # for its warm repeats.
+    os.environ["PILOSA_TPU_RESULT_MEMO"] = "0"
     # Each line reaches a redirected log as it is printed.
     sys.stdout.reconfigure(line_buffering=True)
 
@@ -2078,7 +2562,8 @@ def main():
         if only and key not in only:
             return
         t = time.perf_counter()
-        phase_launches.append(fn(*a))
+        out = fn(*a)
+        phase_launches.extend(out if isinstance(out, list) else [out])
         print(f"phase {name}: {time.perf_counter() - t:.1f} s {card}")
 
     try:
@@ -2113,10 +2598,16 @@ def main():
 
     sources = {"count_op_rows": "pilosa_tpu_torch/csrc/popcount.cu",
                "count_rows": "pilosa_tpu_torch/csrc/popcount.cu",
-               "count_and_rows": "pilosa_tpu_torch/csrc/count_and_rows.cu"}
+               "count_and_rows": "pilosa_tpu_torch/csrc/count_and_rows.cu",
+               "count_op_pairs": "pilosa_tpu_torch/csrc/popcount.cu",
+               "count_and_rows_multi":
+                   "pilosa_tpu_torch/csrc/count_and_rows.cu"}
     replaces = {"count_op_rows": "pilosa_tpu/ops/pallas_kernels.py:126",
                 "count_rows": "pilosa_tpu/ops/pallas_kernels.py:195",
-                "count_and_rows": "pilosa_tpu/ops/pallas_kernels.py:173"}
+                "count_and_rows": "pilosa_tpu/ops/pallas_kernels.py:173",
+                # XLA fusions of the coalescer's fused groups
+                "count_op_pairs": "pilosa_tpu/executor.py:3552",
+                "count_and_rows_multi": "pilosa_tpu/executor.py:3520"}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all {card}")
     print(f"gpu: {smi}")
     print(json.dumps({"kernels": [

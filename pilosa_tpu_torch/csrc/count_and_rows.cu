@@ -144,6 +144,153 @@ count_and_rows_kernel(const __grid_constant__ RowTable rows,
   }
 }
 
+// ---------------------------------------------------------------------
+// count_and_rows_multi, the filter-table form: out[k, r, s] =
+// popcount(rows_r[s, :] & filt_k[s, :]) for R shared row stacks and K
+// filter stacks of [S, W] words each.
+//
+// Replaces, in pilosa_tpu, _co_sum_fn (executor.py:3520): the fused
+// Sum group's XLA fusion that ANDs the field's plane stack with each of K
+// members' filters (exists & filter tree) and popcounts per (member,
+// plane, slice).
+//
+// Bound: device memory. Every row word and every filter word is read
+// once, one int32 per (k, r, s) written: (R + K) * S * W * 4 bytes. At the
+// BSI phase's field (R = depth 10 + the not-null row) with K = 8 members
+// over [9537, 32768] that is 19 * 1.25 GB = 23.7 GB, 7.1 ms at 3.35 TB/s;
+// K launches of the one-filter form would read K * (R + 1) stacks. The
+// R * K popcounts per word are close behind: at 16 per SM and clock they
+// alone take 6.6 ms at that shape, so the kernel nears its bound only
+// where loads and popcounts overlap almost fully.
+//
+// Design: one block per (slice, chunk of MRB rows x chunk of MKB
+// filters); each thread loads the chunk's MRB + MKB 16-byte vectors once
+// and keeps an MRB x MKB register tile of counts, so a word loaded once
+// serves MKB (or MRB) products. A slice's chunks are adjacent in the 1-D
+// block space, so its (R + K) * W words meet in L2 and leave device
+// memory about once. Rows and filters share one kernel-parameter table
+// (rows first); the wrapper chunks past MAX_ROWS entries. Unaligned
+// operands take the scalar path, as above.
+constexpr int MRB = 4;  // row stacks per block
+constexpr int MKB = 4;  // filter stacks per block
+
+__global__ void __launch_bounds__(THREADS)
+count_and_rows_multi_kernel(const __grid_constant__ RowTable table,
+                            int nrows, int nfilt, long long slices,
+                            long long width, int32_t* __restrict__ out,
+                            long long out_k_stride,
+                            long long out_r_stride) {
+  __shared__ int warp_sums[WARPS][MRB * MKB];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rchunks = (nrows + MRB - 1) / MRB;
+  const int kchunks = (nfilt + MKB - 1) / MKB;
+  const long long chunks = (long long)rchunks * kchunks;
+
+  for (long long b = blockIdx.x; b < slices * chunks; b += gridDim.x) {
+    const long long s = b / chunks;
+    const int c = (int)(b % chunks);
+    const int r0 = (c / kchunks) * MRB;
+    const int k0 = (c % kchunks) * MKB;
+    const int nr = min(MRB, nrows - r0);
+    const int nk = min(MKB, nfilt - k0);
+    const uint32_t* fs[MKB];
+    const uint32_t* rs[MRB];
+    const uint32_t* f0 = table.ptr[nrows + k0] + s * width;
+#pragma unroll
+    for (int j = 0; j < MKB; ++j)
+      fs[j] = j < nk ? table.ptr[nrows + k0 + j] + s * width : f0;
+#pragma unroll
+    for (int i = 0; i < MRB; ++i)
+      rs[i] = i < nr ? table.ptr[r0 + i] + s * width : f0;
+    bool aligned = true;
+    const uintptr_t a0 = reinterpret_cast<uintptr_t>(f0) & 15;
+#pragma unroll
+    for (int j = 0; j < MKB; ++j)
+      aligned &= (reinterpret_cast<uintptr_t>(fs[j]) & 15) == a0;
+#pragma unroll
+    for (int i = 0; i < MRB; ++i)
+      aligned &= (reinterpret_cast<uintptr_t>(rs[i]) & 15) == a0;
+    int acc[MRB][MKB];
+#pragma unroll
+    for (int i = 0; i < MRB; ++i)
+#pragma unroll
+      for (int j = 0; j < MKB; ++j) acc[i][j] = 0;
+
+    long long head = (long long)(((16 - a0) & 15) / 4);
+    if (!aligned || head > width) head = width;
+    for (long long t = threadIdx.x; t < head; t += THREADS) {
+      uint32_t f[MKB];
+#pragma unroll
+      for (int j = 0; j < MKB; ++j) f[j] = j < nk ? fs[j][t] : 0u;
+#pragma unroll
+      for (int i = 0; i < MRB; ++i) {
+        const uint32_t r = i < nr ? rs[i][t] : 0u;
+#pragma unroll
+        for (int j = 0; j < MKB; ++j) acc[i][j] += __popc(r & f[j]);
+      }
+    }
+
+    const long long nvec = (width - head) / 4;
+    for (long long v = threadIdx.x; v < nvec; v += THREADS) {
+      uint4 f[MKB], x[MRB];
+#pragma unroll
+      for (int j = 0; j < MKB; ++j)
+        f[j] = j < nk ? reinterpret_cast<const uint4*>(fs[j] + head)[v]
+                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < MRB; ++i)
+        x[i] = i < nr ? reinterpret_cast<const uint4*>(rs[i] + head)[v]
+                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int i = 0; i < MRB; ++i)
+#pragma unroll
+        for (int j = 0; j < MKB; ++j) acc[i][j] += popc_and4(x[i], f[j]);
+    }
+
+    for (long long t = head + nvec * 4 + threadIdx.x; t < width;
+         t += THREADS) {
+      uint32_t f[MKB];
+#pragma unroll
+      for (int j = 0; j < MKB; ++j) f[j] = j < nk ? fs[j][t] : 0u;
+#pragma unroll
+      for (int i = 0; i < MRB; ++i) {
+        const uint32_t r = i < nr ? rs[i][t] : 0u;
+#pragma unroll
+        for (int j = 0; j < MKB; ++j) acc[i][j] += __popc(r & f[j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < MRB; ++i)
+#pragma unroll
+      for (int j = 0; j < MKB; ++j) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[i][j] += __shfl_down_sync(0xffffffffu, acc[i][j], off);
+      }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < MRB; ++i)
+#pragma unroll
+        for (int j = 0; j < MKB; ++j) warp_sums[warp][i * MKB + j] = acc[i][j];
+    }
+    __syncthreads();
+    if (threadIdx.x < MRB * MKB) {
+      const int i = threadIdx.x / MKB;
+      const int j = threadIdx.x % MKB;
+      if (i < nr && j < nk) {
+        int total = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) total += warp_sums[w][threadIdx.x];
+        out[(long long)(k0 + j) * out_k_stride +
+            (long long)(r0 + i) * out_r_stride + s] = total;
+      }
+    }
+    __syncthreads();  // warp_sums is reused by the next block index
+  }
+}
+
 // Message for a CUDA error code, for the wrapper's exception text.
 extern "C" const char* pilosa_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -200,4 +347,33 @@ extern "C" int pilosa_count_and_rows_strided(const void* base,
   table.ptr[0] = static_cast<const uint32_t*>(base);
   return launch(table, row_stride, nrows, filt, slices, width, out,
                 out_stride, stream);
+}
+
+// The filter-table form. `ptrs` is a HOST array of nrows + nfilt device
+// addresses (nrows row stacks, then nfilt filter stacks; 1..MAX_ROWS in
+// all), each [slices, width] words; out holds (row r, filter k, slice s)
+// at out[k * out_k_stride + r * out_r_stride + s].
+extern "C" int pilosa_count_and_rows_multi(const unsigned long long* ptrs,
+                                           int nrows, int nfilt,
+                                           long long slices,
+                                           long long width, void* out,
+                                           long long out_k_stride,
+                                           long long out_r_stride,
+                                           void* stream) {
+  if (nrows <= 0 || nfilt <= 0 || slices <= 0) return (int)cudaSuccess;
+  if (nrows + nfilt > MAX_ROWS || width < 0)
+    return (int)cudaErrorInvalidValue;
+  RowTable table;
+  for (int r = 0; r < MAX_ROWS; ++r)
+    table.ptr[r] = r < nrows + nfilt
+                       ? reinterpret_cast<const uint32_t*>(ptrs[r])
+                       : nullptr;
+  const long long blocks = slices * ((nrows + MRB - 1) / MRB) *
+                           ((nfilt + MKB - 1) / MKB);
+  count_and_rows_multi_kernel<<<
+      (unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID), THREADS, 0,
+      reinterpret_cast<cudaStream_t>(stream)>>>(
+      table, nrows, nfilt, slices, width, static_cast<int32_t*>(out),
+      out_k_stride, out_r_stride);
+  return (int)cudaGetLastError();
 }

@@ -118,6 +118,125 @@ count_op_rows_kernel(const uint32_t* __restrict__ a,
   }
 }
 
+// ---------------------------------------------------------------------
+// count_op_pairs: out[k, s] = popcount(a_k[s, :] OP b_k[s, :]) for K pairs
+// of [S, W] stacks, each its own allocation.
+//
+// Replaces, in pilosa_tpu, the XLA fusions of the coalescer's fused
+// groups: _co_fused_fn (executor.py:3552), a vmapped tree plus
+// population_count over a [K, S, W] query-axis stack, and the occupancy
+// sums of the fused Min/Max descent _co_minmax_fn (:3467). The port
+// builds no [K, S, W] stack (at K = 8 over two leaves of 9,537 slices
+// that copy alone is 20 GB): each member folds its non-root nodes with
+// torch ops, and the group's root counts go out in one launch.
+//
+// Bound: device memory, as count_op_rows: every word of the 2K operands
+// is read once, one int32 per (k, s) written. At K = 8 distinct pairs of
+// [9537, 32768] that is 20.0 GB, 5.97 ms at 3.35 TB/s.
+//
+// Design: count_op_rows's row body over a 1-D space of K * S rows (pair
+// k's slice s is row k * S + s), one block per row and a grid stride.
+// The K pairs of device addresses travel by value in a kernel-parameter
+// table (as count_and_rows.cu's RowTable), so neither a stacking copy nor
+// a device pointer array is needed; the wrapper launches again past
+// MAX_PAIRS pairs. 256 pairs take 4 KiB of parameters, which CUDA 12.1
+// and later allow on sm_70 and newer; an older toolkit builds a table of
+// 128.
+#if defined(CUDART_VERSION) && CUDART_VERSION >= 12010
+constexpr int MAX_PAIRS = 256;
+#else
+constexpr int MAX_PAIRS = 128;
+#endif
+
+struct PairTable {
+  const uint32_t* a[MAX_PAIRS];
+  const uint32_t* b[MAX_PAIRS];
+};
+
+template <int OP>
+__global__ void __launch_bounds__(THREADS)
+count_op_pairs_kernel(const __grid_constant__ PairTable table, int npairs,
+                      long long slices, long long width,
+                      int32_t* __restrict__ out) {
+  __shared__ int warp_sums[WARPS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long rows = (long long)npairs * slices;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int k = (int)(row / slices);
+    const long long s = row - (long long)k * slices;
+    const uint32_t* ra = table.a[k] + s * width;
+    const uint32_t* rb = (OP == OP_NONE) ? ra : table.b[k] + s * width;
+    int sum = row_partial<OP>(ra, rb, width);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (lane == 0) warp_sums[warp] = sum;
+    __syncthreads();
+    if (warp == 0) {
+      sum = lane < WARPS ? warp_sums[lane] : 0;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_down_sync(0xffffffffu, sum, off);
+      if (lane == 0) out[row] = sum;
+    }
+    __syncthreads();  // warp_sums is reused by the next row
+  }
+}
+
+// The table's capacity, for the wrapper's chunking.
+extern "C" int pilosa_count_op_pairs_max() { return MAX_PAIRS; }
+
+// C interface, bound with ctypes. `a_ptrs` and `b_ptrs` are HOST arrays of
+// `npairs` (1..MAX_PAIRS) device addresses of [slices, width] stacks
+// (b_ptrs is ignored for OP_NONE); `out` is a device int32[npairs, slices];
+// `stream` is a cudaStream_t. Returns the launch's cudaGetLastError().
+extern "C" int pilosa_count_op_pairs(const unsigned long long* a_ptrs,
+                                     const unsigned long long* b_ptrs,
+                                     int npairs, long long slices,
+                                     long long width, int op, void* out,
+                                     void* stream) {
+  if (npairs <= 0 || slices <= 0) return (int)cudaSuccess;
+  if (npairs > MAX_PAIRS || width < 0) return (int)cudaErrorInvalidValue;
+  PairTable table;
+  for (int k = 0; k < MAX_PAIRS; ++k) {
+    table.a[k] = k < npairs ? reinterpret_cast<const uint32_t*>(a_ptrs[k])
+                            : nullptr;
+    table.b[k] = (k < npairs && op != OP_NONE)
+                     ? reinterpret_cast<const uint32_t*>(b_ptrs[k])
+                     : nullptr;
+  }
+  const long long rows = (long long)npairs * slices;
+  const unsigned grid = (unsigned)(rows < MAX_GRID ? rows : MAX_GRID);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int32_t* po = static_cast<int32_t*>(out);
+  switch (op) {
+    case OP_NONE:
+      count_op_pairs_kernel<OP_NONE><<<grid, THREADS, 0, s>>>(
+          table, npairs, slices, width, po);
+      break;
+    case OP_AND:
+      count_op_pairs_kernel<OP_AND><<<grid, THREADS, 0, s>>>(
+          table, npairs, slices, width, po);
+      break;
+    case OP_OR:
+      count_op_pairs_kernel<OP_OR><<<grid, THREADS, 0, s>>>(
+          table, npairs, slices, width, po);
+      break;
+    case OP_XOR:
+      count_op_pairs_kernel<OP_XOR><<<grid, THREADS, 0, s>>>(
+          table, npairs, slices, width, po);
+      break;
+    case OP_ANDNOT:
+      count_op_pairs_kernel<OP_ANDNOT><<<grid, THREADS, 0, s>>>(
+          table, npairs, slices, width, po);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // Message for a CUDA error code, for the wrapper's exception text.
 extern "C" const char* pilosa_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

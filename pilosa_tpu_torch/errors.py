@@ -85,3 +85,11 @@ def validate_label(label):
     if not _LABEL_RE.match(label or ""):
         raise ErrLabel()
     return label
+
+
+class DeadlineExceeded(Exception):
+    """A request's deadline passed while it waited in the coalescer
+    (ref: pilosa_tpu qos.DeadlineExceeded; a handler answers 504)."""
+
+    def __init__(self, msg="deadline exceeded"):
+        super().__init__(msg)

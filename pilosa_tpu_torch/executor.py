@@ -69,9 +69,37 @@ window.
 ``_force_path`` ("serial"/"batched") pins one path; otherwise a tree the
 batched planner does not cover (errors, unsupported leaves) goes serial,
 where the reference's error messages are raised.
+
+Memos and the coalescer (ref: pilosa_tpu executor.py, in its order):
+``execute`` → result memo → coalescer tick → fused group or single
+batched serve.
+
+- **Result memos**: Count, Sum/Average, Min/Max and full TopN answers,
+  and TopN's per-(candidate, slice) count matrices, replay from a
+  byte-budgeted host memo while the index's mutation epoch stands
+  (every write, import, attribute write and schema change under the
+  index moves it; a governor eviction does not). Off under
+  ``PILOSA_TPU_RESULT_MEMO=0`` and under a pinned ``_force_path``.
+- **Plan cache** (``plancache.py``): the slice universe, plan windows
+  and prelude memos — the stack-cache keys of a plan's leaf stacks, not
+  the stacks, so the stack budget still binds — validated by the epoch.
+  The src-less TopN discovery walk is memoized alike.
+- **Coalescer**: concurrent Count, Sum and Min/Max queries of one
+  structure over one slice list form a group per tick (group commit: a
+  leader serves the batch while the others park). A dense Count group
+  folds each member's non-root nodes with torch ops and counts every
+  member's root in ONE ``count_op_pairs`` launch (or one
+  ``count_and_rows`` launch when every member shares a leaf of an
+  Intersect); a Sum group reads the field's planes once for all
+  members' filters through ``count_and_rows_multi``; a Min/Max group
+  runs its K descents with one ``count_op_pairs`` launch and one host
+  sync per plane. Declines (budget, structure) serve singly; a kernel
+  failure raises in every member of its group. On for a ``cuda``
+  holder, off for ``cpu``; ``PILOSA_TPU_COALESCE`` overrides.
 """
 import os
 import threading
+import time
 from collections import namedtuple
 from datetime import datetime
 
@@ -85,6 +113,7 @@ from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import topn as topn_ops
+from pilosa_tpu_torch.plancache import RANGE_MARK, PlanCache, slice_key
 from pilosa_tpu_torch.pql import Condition, parse
 from pilosa_tpu_torch.storage.fragment import TopOptions
 from pilosa_tpu_torch.storage.view import (
@@ -114,6 +143,11 @@ _COUNT_OPS = {"Intersect": "and", "Union": "or", "Difference": "andnot",
 # A batch function's answer when its stacks would exceed the stack
 # budget: the windowed wrapper then halves the slice list.
 BATCH_OVER_BUDGET = object()
+
+# The coalescer admits by QoS priority class, lower first (pilosa_tpu
+# qos.PRIO_*); every request is interactive until the QoS port fills the
+# class (and a deadline) in per request.
+PRIO_INTERACTIVE = 1
 
 
 class ExecOptions:
@@ -179,10 +213,14 @@ def _leaf_pos(leaves, spec):
     return leaves.index(spec)
 
 
-def _slice_key(slices):
-    """A hashable key of a slice list."""
-    return (("range", slices.start, slices.stop, slices.step)
-            if isinstance(slices, range) else tuple(slices))
+def _plan_sig(plan):
+    """A plan's structure — its ops and arity — without leaf positions
+    or BSI conditions: the coalescer's grouping key, so Counts over
+    different rows (or Ranges over different conditions) of one shape
+    share a group. Each member still evaluates its own plan."""
+    if plan is None or plan[0] in ("leaf", "empty", "bsi"):
+        return None if plan is None else plan[0]
+    return (plan[0], tuple(_plan_sig(k) for k in plan[1]))
 
 
 def pairs_add(a, b):
@@ -208,6 +246,15 @@ class Executor:
     # executor.py's r_pad limit); more go serial, one fragment-form
     # count_and_rows launch per slice.
     MAX_TOPN_CANDIDATES = 1024
+    # Host bytes of the result memo and of its largest entry (ref:
+    # pilosa_tpu executor.py:4137-4138).
+    RESULT_MEMO_BYTES = 64 << 20
+    RESULT_MEMO_ENTRY_MAX = 4 << 20
+    # Src-less TopN discovery memo entries (ref: executor.py
+    # TOPN_DISCOVERY_MEMO_MAX).
+    TOPN_DISCOVERY_MEMO_MAX = 4
+
+    _CO_PENDING = object()   # a coalescer request not served yet
 
     def __init__(self, holder):
         self.holder = holder
@@ -217,9 +264,32 @@ class Executor:
             "PILOSA_TPU_FULL_WIN", "").lower() in ("1", "true", "yes")
         self._force_path = None  # "serial" | "batched" | None
         self._stack_cache = {}   # key -> (epoch, tokens, stack)
-        self._win_memo = {}      # (index, views, slices) -> (epoch, window)
         self._stack_bytes = 0
         self._cache_mu = threading.Lock()
+        # The slice universes, plan windows and prelude memos, validated
+        # by each index's mutation epoch.
+        self.plans = PlanCache(epoch_of=self._epoch)
+        holder.on_index_drop = self._drop_index_state
+        # Whole results and TopN count matrices (host values), kill
+        # switch PILOSA_TPU_RESULT_MEMO=0.
+        self._result_memo_off = os.environ.get(
+            "PILOSA_TPU_RESULT_MEMO", "").lower() in ("0", "false", "no")
+        self._result_memo = {}   # key -> (epoch, value, charged bytes)
+        self._result_memo_bytes = 0
+        self._topn_disc_memo = {}
+        # The coalescer: requests parked for the next tick, the leader
+        # flag, and counters for coalesce_snapshot.
+        self._co_mu = threading.Lock()
+        self._co_cv = threading.Condition(self._co_mu)
+        self._co_pending = []
+        self._co_leader = False
+        self._co_tick_waiting = False
+        self._co_stats = {"rounds": 0, "fused_queries": 0, "max_group": 0,
+                          "table_entries": 0,
+                          "declined": {}}
+        # Deadline expiries while parked: written by parked threads, so
+        # guarded by _co_mu (the leader alone writes _co_stats).
+        self._co_expired = 0
 
     def execute(self, index, query, slices=None, opt=None):
         """(ref: Executor.Execute executor.go:62-151) → one result per
@@ -242,21 +312,34 @@ class Executor:
         for c in query.calls:
             call_slices = slices
             if call_slices is None and c.name not in WRITE_CALLS:
-                call_slices = self._slices_for_call(idx, c)
+                call_slices = self._slices_for_call(index, idx, c)
             results.append(self._execute_call(index, c, call_slices, opt))
         return results
 
-    @staticmethod
-    def _slices_for_call(idx, call):
+    def _slices_for_call(self, index, idx, call):
         """Inverse-view calls — TopN(inverse=true), a top-level
         Bitmap(columnID=…) — span the inverse view's slices, the rest
-        the standard ones (ref: Executor.Execute executor.go:86-98)."""
+        the standard ones (ref: Executor.Execute executor.go:86-98): the
+        index's slice universes, memoized on its epoch."""
         frame = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
         row_label = frame.row_label if frame else "rowID"
-        top = (idx.max_inverse_slice()
-               if call.is_inverse(row_label, idx.column_label)
-               else idx.max_slice())
-        return range(top + 1)
+        std, inv = self.plans.slice_universe(index, idx)
+        return inv if call.is_inverse(row_label, idx.column_label) else std
+
+    def _epoch(self, index):
+        """The index's mutation epoch, or None when it does not exist."""
+        idx = self.holder.index(index)
+        return None if idx is None else idx.epoch.value
+
+    def _drop_index_state(self, index):
+        """Forget a deleted index's plan, memo and discovery entries."""
+        self.plans.drop_index(index)
+        with self._cache_mu:
+            for memo in (self._result_memo, self._topn_disc_memo):
+                for key in [k for k in memo if k[1] == index]:
+                    ent = memo.pop(key)
+                    if memo is self._result_memo:
+                        self._result_memo_bytes -= ent[2]
 
     def _execute_call(self, index, call, slices, opt):
         name = call.name
@@ -323,7 +406,8 @@ class Executor:
     # ------------------------------------------------------------ Count
 
     def _execute_count(self, index, call, slices):
-        """(ref: executeCount executor.go:859-889)."""
+        """(ref: executeCount executor.go:859-889): the result memo, then
+        the coalescer's tick, then the batched or serial path."""
         if len(call.children) != 1:
             raise ValueError("Count() only accepts a single bitmap input")
         child = call.children[0]
@@ -331,13 +415,20 @@ class Executor:
         def reduce_fn(prev, v):
             return (prev or 0) + v
 
-        return self._map_reduce(
-            slices,
-            lambda s: self._count_call_slice(index, child, s),
-            reduce_fn,
-            self._windowed_batch(
-                lambda ns: self._batched_count(index, child, ns), reduce_fn),
-        ) or 0
+        def compute():
+            return self._map_reduce(
+                slices,
+                lambda s: self._count_call_slice(index, child, s),
+                reduce_fn,
+                self._windowed_batch(
+                    lambda ns: self._coalesced_count(index, child, ns),
+                    reduce_fn),
+            ) or 0
+
+        return self._scalar_result_memo(
+            "count_res", index, call, slices, compute,
+            enc=lambda v: np.asarray([v], dtype=np.int64),
+            dec=lambda a: int(a[0]))
 
     def _count_call_slice(self, index, call, slice_num):
         """Count-only per-slice evaluation: a two-operand boolean node
@@ -691,28 +782,99 @@ class Executor:
             return 0, WORDS_PER_SLICE
         return b, w
 
-    def _plan_stacks(self, index, leaves, slices, extra=0):
+    def _plan_window(self, index, leaves, slices):
+        """(window, fragment map or None) of the fragments a plan's
+        leaves read, the window memoized in the plan cache on the
+        index's epoch: a warm plan walks no fragment."""
+        epoch = self._epoch(index)
+        wkey = ("win", index, frozenset(spec[:2] for spec in leaves),
+                slice_key(slices))
+        win = self.plans.get(wkey, epoch)
+        if win is not None:
+            return win, None
+        frag_map = self._leaf_frags(index, leaves, slices)
+        win = self._union_window(frag_map)
+        self.plans.put(wkey, epoch, win)
+        return win, frag_map
+
+    def _plan_stacks(self, index, leaves, slices, extra=0, kind="plan",
+                     win=None):
         """(window, leaf stacks) of a batched plan at the window of every
-        fragment its leaves read, or BATCH_OVER_BUDGET when the leaf
-        stacks and ``extra`` stacks of the same shape would not fit the
-        stack budget together. The window is memoized on the index's
-        mutation epoch: a warm query walks no fragment."""
-        epoch = self.holder.index(index).epoch.value
-        mkey = (index, frozenset(spec[:2] for spec in leaves),
-                _slice_key(slices))
-        memo = self._win_memo.get(mkey)
+        fragment its leaves read (or at ``win``), or BATCH_OVER_BUDGET
+        when the leaf stacks and ``extra`` stacks of the same shape would
+        not fit the stack budget together. Prelude-memoized (ref:
+        pilosa_tpu executor.py:3842-3960): a warm plan resolves its
+        stacks from the stack cache by key, without a fragment walk or a
+        token check; ``kind`` names the entry ("plan", "bsi", "topnp")."""
+        epoch = self._epoch(index)  # before building: a racing write
+        # makes the memo stale on arrival, never wrong
+        pkey = (kind, index, slice_key(slices), tuple(leaves), win)
+        memo = self._prelude_memo_get(pkey)
+        if memo is not None:
+            (mwin,), stacks, _ = memo
+            if self._over_budget(len(leaves) + extra, slices, mwin[1]):
+                return BATCH_OVER_BUDGET
+            return mwin, stacks
         frag_map = None
-        if memo is not None and memo[0] == epoch:
-            win = memo[1]
-        else:
-            frag_map = self._leaf_frags(index, leaves, slices)
-            win = self._union_window(frag_map)
-            if len(self._win_memo) >= 4096:
-                self._win_memo.clear()
-            self._win_memo[mkey] = (epoch, win)
+        if win is None:
+            win, frag_map = self._plan_window(index, leaves, slices)
         if self._over_budget(len(leaves) + extra, slices, win[1]):
             return BATCH_OVER_BUDGET
-        return win, self._leaf_stacks(index, leaves, slices, win, frag_map)
+        stacks = self._leaf_stacks(index, leaves, slices, win, frag_map)
+        self._prelude_memo_put(
+            pkey, (win,), self._prelude_specs(index, leaves, slices, win),
+            None, epoch)
+        return win, stacks
+
+    def _prelude_memo_get(self, pkey):
+        """A prelude memo hit -> (head, stacks, tail), its stacks
+        resolved FROM the stack cache (the memo holds keys, not tensors,
+        so the stack budget still binds), each refreshed in the cache's
+        eviction order; None on a miss, a stale epoch, or a stack that
+        was evicted or rebuilt at another epoch since (the full path then
+        puts the memo anew)."""
+        token = self._epoch(pkey[1])
+        hit = self.plans.get(pkey, token, record=False)
+        if hit is None:
+            self.plans.record(pkey[1], False)
+            return None
+        head, specs, tail = hit
+        stacks = []
+        with self._cache_mu:
+            for key in specs:
+                ent = self._stack_cache.get(key)
+                if ent is None or ent[0] != token:
+                    stacks = None
+                    break
+                self._stack_cache[key] = self._stack_cache.pop(key)
+                stacks.append(ent[2])
+        self.plans.record(pkey[1], stacks is not None)
+        return None if stacks is None else (head, stacks, tail)
+
+    def _prelude_memo_put(self, pkey, head, specs, tail, epoch):
+        self.plans.put(pkey, epoch, (head, specs, tail))
+
+    @staticmethod
+    def _prelude_specs(index, leaves, slices, win):
+        """The stack-cache key of each leaf's stack: the one layout
+        ``_leaf_stacks`` stores under."""
+        skey = slice_key(slices)
+        return [(index, *spec, skey, win[0], win[1]) for spec in leaves]
+
+    @staticmethod
+    def _merge_windows(wins):
+        """The power-of-four bucket covering every window of ``wins``
+        (each already a bucket with its base aligned to its width): a
+        coalesced group's one window."""
+        lo = min(b for b, _ in wins)
+        hi = max(b + w for b, w in wins)
+        w = min(w for _, w in wins)
+        while True:
+            b = lo // w * w
+            if hi <= b + w or w >= WORDS_PER_SLICE:
+                break
+            w *= 4
+        return (0, WORDS_PER_SLICE) if w >= WORDS_PER_SLICE else (b, w)
 
     def _batched_count(self, index, child, slices):
         """Count over the slice list with one device stack per leaf: the
@@ -791,8 +953,8 @@ class Executor:
         slice first, so the readers the window walk just opened are
         reused before the reader cap closes them."""
         base32, width32 = win
-        skey = _slice_key(slices)
-        epoch = self.holder.index(index).epoch.value
+        skey = slice_key(slices)
+        epoch = self._epoch(index)
         frag_map = dict(frag_map or {})
         out, build = {}, {}
         for spec in dict.fromkeys(specs):
@@ -807,11 +969,13 @@ class Executor:
                 frag_map[view] = self.holder.fragments(index, *view, slices)
             tokens = tuple((f._uid, f._version) if f is not None else None
                            for f in frag_map[view])
-            if hit is None and skey[0] == "range" and skey[1:] == (
-                    0, len(tokens), 1) and len(tokens) > 1:
+            if hit is None and skey == (RANGE_MARK, 0, len(tokens) - 1) \
+                    and len(tokens) > 1:
+                # The universe grew by a slice: start from the stack of
+                # the universe before it.
                 with self._cache_mu:
                     hit = self._stack_cache.get(
-                        (index, *spec, ("range", 0, len(tokens) - 1, 1),
+                        (index, *spec, (RANGE_MARK, 0, len(tokens) - 2),
                          base32, width32))
             base = [] if hit is None else hit[1]
             changed = [i for i, t in enumerate(tokens)
@@ -863,6 +1027,89 @@ class Executor:
             self._stack_cache[key] = entry
             self._stack_bytes += nbytes
 
+    # ----------------------------------------------------- result memos
+
+    def _scalar_result_memo(self, kind, index, call, slices, compute,
+                            enc, dec):
+        """Whole-result memo of Count, Sum/Average, Min/Max and full TopN
+        (ref: pilosa_tpu executor.py:1655-1708, its single-node branch):
+        a repeated query replays a host value while its index's epoch
+        stands. ``enc`` turns a result into a host array, ``dec`` back.
+        The epoch is read before computing, so a write landing mid-query
+        makes the entry stale on arrival, never wrong. Bypassed (read and
+        write) under PILOSA_TPU_RESULT_MEMO=0 and a pinned _force_path,
+        so that measurements time execution, not dict lookups."""
+        if self._result_memo_off or self._force_path is not None:
+            return compute()
+        pkey = (kind, index, str(call), slice_key(slices))
+        hit = self._result_memo_get(pkey)
+        if hit is not None:
+            return dec(hit)
+        epoch = self._epoch(index)
+        out = compute()
+        if epoch is not None:
+            self._topn_counts_memoize(pkey, enc(out), epoch)
+        return out
+
+    def _result_memo_get(self, key):
+        """The memoized array of ``key`` (key[1] is its index) while the
+        index's epoch equals the stored one, else None; a stale entry is
+        dropped when found (epochs never return). The one kill switch of
+        the whole-result and TopN count memos."""
+        if self._result_memo_off or self._force_path is not None:
+            return None
+        with self._cache_mu:
+            hit = self._result_memo.get(key)
+        if hit is None:
+            return None
+        if hit[0] != self._epoch(key[1]):
+            with self._cache_mu:
+                if self._result_memo.get(key) is hit:
+                    self._result_memo.pop(key)
+                    self._result_memo_bytes -= hit[2]
+            return None
+        with self._cache_mu:
+            if key in self._result_memo:
+                self._result_memo[key] = self._result_memo.pop(key)
+        return hit[1]
+
+    @staticmethod
+    def _memo_key_cost(key):
+        """Rough host bytes a memo key pins beside its value (a slice
+        tuple of a ragged list can outweigh a scalar result)."""
+        cost = 64
+        for part in key:
+            if isinstance(part, tuple):
+                cost += 16 + 32 * len(part)
+            elif isinstance(part, str):
+                cost += 49 + len(part)
+            else:
+                cost += 28
+        return cost
+
+    def _topn_counts_memoize(self, key, counts, epoch):
+        """Keep a host result array under ``key`` at ``epoch`` (ref:
+        pilosa_tpu executor.py:4213), least recently used first out of
+        RESULT_MEMO_BYTES; an entry over RESULT_MEMO_ENTRY_MAX is not
+        kept. Callers treat the kept array as immutable. Returns it."""
+        if self._result_memo_off or self._force_path is not None:
+            return counts
+        cost = counts.nbytes + self._memo_key_cost(key)
+        if cost > self.RESULT_MEMO_ENTRY_MAX:
+            return counts
+        with self._cache_mu:
+            old = self._result_memo.pop(key, None)
+            if old is not None:
+                self._result_memo_bytes -= old[2]
+            while (self._result_memo
+                   and self._result_memo_bytes + cost
+                   > self.RESULT_MEMO_BYTES):
+                k = next(iter(self._result_memo))
+                self._result_memo_bytes -= self._result_memo.pop(k)[2]
+            self._result_memo[key] = (epoch, counts, cost)
+            self._result_memo_bytes += cost
+        return counts
+
     # ------------------------------------------------- Sum / Min / Max
 
     def _bsi_field(self, index, call):
@@ -896,12 +1143,20 @@ class Executor:
                 return v
             return SumCount(prev.sum + v.sum, prev.count + v.count)
 
-        return self._map_reduce(
-            slices, lambda s: self._execute_sum_count_slice(index, call, s),
-            reduce_fn,
-            self._windowed_batch(
-                lambda ns: self._batched_sum(index, call, ns), reduce_fn),
-        ) or SumCount(0, 0)
+        def compute():
+            return self._map_reduce(
+                slices,
+                lambda s: self._execute_sum_count_slice(index, call, s),
+                reduce_fn,
+                self._windowed_batch(
+                    lambda ns: self._coalesced_sum(index, call, ns),
+                    reduce_fn),
+            ) or SumCount(0, 0)
+
+        return self._scalar_result_memo(
+            "sum_res", index, call, slices, compute,
+            enc=lambda v: np.asarray([v.sum, v.count], dtype=np.int64),
+            dec=lambda a: SumCount(int(a[0]), int(a[1])))
 
     def _execute_sum_count_slice(self, index, call, slice_num):
         filt = self._filter_words(index, call, slice_num)
@@ -950,12 +1205,20 @@ class Executor:
             better = v.sum > prev.sum if find_max else v.sum < prev.sum
             return v if better else prev
 
-        return self._map_reduce(
-            slices, map_fn, reduce_fn,
-            self._windowed_batch(
-                lambda ns: self._batched_min_max(index, call, ns, find_max),
-                reduce_fn),
-        ) or SumCount(0, 0)
+        def compute():
+            return self._map_reduce(
+                slices, map_fn, reduce_fn,
+                self._windowed_batch(
+                    lambda ns: self._coalesced_min_max(index, call, ns,
+                                                       find_max),
+                    reduce_fn),
+            ) or SumCount(0, 0)
+
+        return self._scalar_result_memo(
+            "max_res" if find_max else "min_res", index, call, slices,
+            compute,
+            enc=lambda v: np.asarray([v.sum, v.count], dtype=np.int64),
+            dec=lambda a: SumCount(int(a[0]), int(a[1])))
 
     def _bsi_batch_prelude(self, index, call, slices):
         """(field, the depth+1 BSI stacks, filter stack) of a batched
@@ -984,7 +1247,7 @@ class Executor:
         depth = field.bit_depth()
         view = view_field_name(field.name)
         planes = [(frame_name, view, i) for i in range(depth + 1)]
-        pre = self._plan_stacks(index, planes + leaves, slices)
+        pre = self._plan_stacks(index, planes + leaves, slices, kind="bsi")
         if pre is BATCH_OVER_BUDGET:
             return pre
         stacks = pre[1]
@@ -1030,6 +1293,439 @@ class Executor:
         value = sum((1 << i) * b for i, b in enumerate(ind.tolist()))
         return SumCount(value + field.min, count)
 
+    # --------------------------------------------- cross-query coalescer
+
+    def _co_enabled(self):
+        """Coalescing pays where device launches and host syncs dominate
+        and the device is a resource of its own: on for a ``cuda``
+        holder, off for ``cpu``, where a fused group would compete with
+        the serving threads for the same cores. PILOSA_TPU_COALESCE=1/0
+        overrides either way (ref: pilosa_tpu executor.py:2182)."""
+        cached = getattr(self, "_co_enabled_memo", None)
+        if cached is None:
+            env = os.environ.get("PILOSA_TPU_COALESCE")
+            if env is not None:
+                cached = env.lower() not in ("0", "false", "no")
+            else:
+                cached = self.device.type == "cuda"
+            self._co_enabled_memo = cached
+        return cached
+
+    def _co_config(self):
+        """(max_wait_s, max_group) of the tick: PILOSA_COALESCE_MAX_WAIT_US
+        (default 0: a lone query never waits) and PILOSA_COALESCE_MAX_GROUP
+        (default 64), or set_coalesce_config's values; a malformed value
+        keeps the default (ref: executor.py:2566)."""
+        cached = getattr(self, "_co_config_memo", None)
+        if cached is None:
+            def num(name, default):
+                try:
+                    return int(os.environ.get(name) or default)
+                except ValueError:
+                    return default
+
+            cached = (max(0, num("PILOSA_COALESCE_MAX_WAIT_US", 0)) / 1e6,
+                      max(1, num("PILOSA_COALESCE_MAX_GROUP", 64)))
+            self._co_config_memo = cached
+        return cached
+
+    def set_coalesce_config(self, max_wait_us=None, max_group=None):
+        """Set the tick's knobs; None keeps a knob's current value."""
+        wait_s, group = self._co_config()
+        if max_wait_us is not None:
+            wait_s = max(0, int(max_wait_us)) / 1e6
+        if max_group is not None:
+            group = max(1, int(max_group))
+        self._co_config_memo = (wait_s, group)
+
+    def coalesce_snapshot(self):
+        """The coalescer's knobs and counters (ref: executor.py:1224,
+        without its compressed-lane fields): ticks, queries served by a
+        fused group, the largest group, kernel table entries launched
+        (members with equal plans share one), declines by reason,
+        deadline expiries."""
+        wait_s, group = self._co_config()
+        st = self._co_stats
+        return {
+            "enabled": self._co_enabled(),
+            "maxWaitUs": int(wait_s * 1e6),
+            "maxGroup": group,
+            "rounds": st["rounds"],
+            "fused_queries": st["fused_queries"],
+            "max_group": st["max_group"],
+            "tableEntries": st["table_entries"],
+            "expiredWaits": self._co_expired,
+            "declined": dict(st["declined"]),
+        }
+
+    def _co_note_decline(self, reason):
+        """One group declined fusion for ``reason``; it serves singly."""
+        d = self._co_stats["declined"]
+        d[reason] = d.get(reason, 0) + 1
+
+    def _co_note_fused(self, k):
+        self._co_stats["fused_queries"] += k
+        self._co_stats["max_group"] = max(self._co_stats["max_group"], k)
+
+    def _co_submit(self, req):
+        """Queue one request through the tick: lead (admit and serve a
+        priority-ordered batch) or park until a leader served it (ref:
+        executor.py:2665). Requests carry their own ``single`` serve and
+        group ``fuse`` function and group by ``key``. A parked wait ends
+        at the request's deadline: an unclaimed expired request leaves
+        the queue and raises DeadlineExceeded without touching the rest
+        of its group; a claimed one is its leader's to deliver."""
+        req.setdefault("prio", PRIO_INTERACTIVE)
+        req.setdefault("deadline", None)
+        expired = False
+        with self._co_mu:
+            self._co_pending.append(req)
+            if self._co_tick_waiting:
+                self._co_cv.notify_all()
+            while req["out"] is self._CO_PENDING and self._co_leader:
+                dl = req["deadline"]
+                remaining = None if dl is None else dl - time.monotonic()
+                if remaining is None or remaining > 0:
+                    self._co_cv.wait(remaining)
+                    continue
+                for i, r in enumerate(self._co_pending):
+                    if r is req:
+                        del self._co_pending[i]
+                        expired = True
+                        break
+                if expired:
+                    self._co_expired += 1
+                    break
+                self._co_cv.wait()
+            if not expired:
+                if req["out"] is not self._CO_PENDING:
+                    out = req["out"]
+                    if isinstance(out, BaseException):
+                        raise out
+                    return out
+                self._co_leader = True
+                batch = self._co_admit_locked(req)
+        if expired:
+            raise perr.DeadlineExceeded()
+        try:
+            self._co_run(batch)
+        finally:
+            with self._co_mu:
+                self._co_leader = False
+                self._co_cv.notify_all()
+        out = req["out"]
+        if isinstance(out, BaseException):
+            raise out
+        return out
+
+    def _co_admit_locked(self, req):
+        """Tick admission (the caller holds _co_mu and leads): hold the
+        window open up to max_wait (cut to the smallest deadline among
+        the waiters) or until max_group requests wait, then admit up to
+        max_group in priority order, FIFO within a class; the leader's
+        own request always admits, leftovers lead the next tick (ref:
+        executor.py:2736)."""
+        max_wait, max_group = self._co_config()
+        if max_wait > 0 and len(self._co_pending) < max_group:
+            limit = time.monotonic() + max_wait
+            self._co_tick_waiting = True
+            try:
+                while len(self._co_pending) < max_group:
+                    bound = limit
+                    for r in self._co_pending:
+                        if r["deadline"] is not None:
+                            bound = min(bound, r["deadline"])
+                    remaining = bound - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    self._co_cv.wait(remaining)
+            finally:
+                self._co_tick_waiting = False
+        pending = self._co_pending
+        order = sorted((i for i, r in enumerate(pending) if r is not req),
+                       key=lambda i: (pending[i]["prio"], i))
+        take = order[:max_group - 1]
+        batch = [req] + [pending[i] for i in take]
+        batch.sort(key=lambda r: r["prio"])  # stable: FIFO per class
+        taken = set(take)
+        self._co_pending = [r for i, r in enumerate(pending)
+                            if i not in taken and r is not req]
+        return batch
+
+    def _co_run(self, batch):
+        """Serve one tick's batch (ref: executor.py:2779): a member whose
+        deadline passed gets DeadlineExceeded before its group runs; each
+        group of one key fuses, and a group of one, or one its fuse
+        declined, serves singly. An exception — a kernel that failed to
+        build or launch among them — lands in every member still
+        unserved; it never turns into a single serve."""
+        now = time.monotonic()
+        groups = {}
+        expired = 0
+        for req in batch:
+            if req.get("deadline") is not None and now > req["deadline"]:
+                req["out"] = perr.DeadlineExceeded()
+                expired += 1
+                continue
+            groups.setdefault(req["key"], []).append(req)
+        if expired:
+            with self._co_mu:
+                self._co_expired += expired
+        self._co_stats["rounds"] += 1
+        for reqs in groups.values():
+            try:
+                if len(reqs) == 1 or not reqs[0]["fuse"](reqs):
+                    for req in reqs:
+                        if req["out"] is self._CO_PENDING:
+                            req["out"] = req["single"]()
+            except BaseException as exc:  # noqa: BLE001 — delivered
+                for req in reqs:
+                    if req["out"] is self._CO_PENDING:
+                        req["out"] = exc
+
+    def _co_dedupe(self, reqs):
+        """Members grouped by (plan, leaf specs): equal members share one
+        kernel table entry and one answer."""
+        entries = {}
+        for req in reqs:
+            entries.setdefault((str(req["plan"]), tuple(req["leaves"])),
+                               []).append(req)
+        return list(entries.values())
+
+    def _co_window(self, index, leaf_lists, slices):
+        """The group's one window: every member's memoized plan window
+        merged into one bucket, so one launch covers the group."""
+        return self._merge_windows([
+            self._plan_window(index, leaves, slices)[0]
+            for leaves in leaf_lists])
+
+    # ------------------------------------------------ coalesced Count
+
+    def _coalesced_count(self, index, child, slices):
+        """Count through the tick (ref: executor.py:2523): a request
+        becomes the leader and serves every pending one, or parks until
+        a leader serves it; while a group runs, new arrivals accumulate
+        for the next tick, so groups grow with load and a lone query
+        waits for nothing. Same contract as _batched_count."""
+        if not self._co_enabled():
+            return self._batched_count(index, child, slices)
+        leaves = []
+        plan = self._batched_plan(index, child, leaves)
+        if plan is None:
+            return None
+        return self._co_submit({
+            "key": ("count", index, slice_key(slices), _plan_sig(plan)),
+            "index": index, "slices": slices, "plan": plan,
+            "leaves": leaves, "out": self._CO_PENDING,
+            "single": lambda: self._batched_count(index, child, slices),
+            "fuse": self._co_run_fused,
+        })
+
+    def _co_run_fused(self, reqs):
+        """K same-structure Counts in one launch (ref: the dense branch
+        of executor.py:2818-2980). Each distinct member folds its
+        non-root nodes with torch ops at the group's window; the roots
+        go out in ONE ``count_op_pairs`` launch. No [K, S, W] query-axis
+        stack is built.
+        False (the members then serve singly) for a leafless plan or a
+        group whose stacks would not fit the stack budget together. The
+        operands' references live until the counts reach the host."""
+        index, slices = reqs[0]["index"], reqs[0]["slices"]
+        if (not slices or not reqs[0]["leaves"]
+                or reqs[0]["plan"][0] == "empty"):
+            self._co_note_decline("structural")
+            return False
+        entries = self._co_dedupe(reqs)
+        win = self._co_window(
+            index, [e[0]["leaves"] for e in entries], slices)
+        distinct = {sp for e in entries for sp in e[0]["leaves"]}
+        if self._over_budget(len(distinct) + len(entries), slices, win[1]):
+            self._co_note_decline("budget")
+            return False
+        stacks = []
+        for e in entries:
+            pre = self._plan_stacks(index, e[0]["leaves"], slices, win=win)
+            if pre is BATCH_OVER_BUDGET:
+                self._co_note_decline("budget")
+                return False
+            stacks.append(pre[1])
+        left, right, op = [], [], None
+        for e, st in zip(entries, stacks):
+            a, b, op = self._root_operands(e[0]["plan"], st)
+            left.append(a)
+            right.append(b)
+        counts = bitops.count_op_pairs(left, right, op)
+        totals = counts.sum(dim=1, dtype=torch.int64).tolist()
+        for e, total in zip(entries, totals):
+            for req in e:
+                req["out"] = int(total)
+        self._co_stats["table_entries"] += len(entries)
+        self._co_note_fused(len(reqs))
+        return True
+
+    @staticmethod
+    def _root_operands(node, stacks):
+        """(a, b, op) of a plan's root count, as _count_node splits it:
+        a leaf, a BSI descent or a one-operand node counts alone (b and
+        op None); otherwise the first n-1 operands fold and the last
+        meets them in the count."""
+        if node[0] in ("leaf", "bsi") or len(node[1]) == 1:
+            return Executor._eval_node(node, stacks), None, None
+        acc = Executor._eval_node((node[0], node[1][:-1]), stacks)
+        last = Executor._eval_node(node[1][-1], stacks)
+        return acc, last, _COUNT_OPS[node[0]]
+
+    # ------------------------------------------ coalesced Sum, Min/Max
+
+    def _co_bsi_resolve(self, index, call):
+        """(frame name, field, plan, leaves) of a coalescable BSI
+        aggregate, or None when the batched path would decline it (ref:
+        executor.py:3285)."""
+        resolved = self._bsi_field(index, call)
+        if resolved is None or len(call.children) > 1:
+            return None
+        frame_name, field = resolved
+        leaves = []
+        plan = None
+        if call.children:
+            plan = self._batched_plan(index, call.children[0], leaves)
+            if plan is None:
+                return None
+        return frame_name, field, plan, leaves
+
+    def _co_bsi_submit(self, kind, index, call, slices, single, fuse,
+                       **extra):
+        resolved = self._co_bsi_resolve(index, call)
+        if resolved is None:
+            return None
+        frame_name, field, plan, leaves = resolved
+        return self._co_submit({
+            "key": (kind, index, slice_key(slices), frame_name, field.name,
+                    field.bit_depth(), field.min, _plan_sig(plan)),
+            "index": index, "slices": slices, "plan": plan,
+            "leaves": leaves, "field": field, "frame_name": frame_name,
+            "out": self._CO_PENDING, "single": single, "fuse": fuse,
+            **extra})
+
+    def _coalesced_sum(self, index, call, slices):
+        """Sum through the tick (ref: executor.py:3263); the contract of
+        _batched_sum."""
+        single = lambda: self._batched_sum(index, call, slices)  # noqa
+        if not self._co_enabled():
+            return single()
+        return self._co_bsi_submit("sum", index, call, slices, single,
+                                   self._co_run_fused_sum)
+
+    def _coalesced_min_max(self, index, call, slices, find_max):
+        """Min/Max through the tick (ref: executor.py:3341); the contract
+        of _batched_min_max."""
+        single = lambda: self._batched_min_max(  # noqa: E731
+            index, call, slices, find_max)
+        if not self._co_enabled():
+            return single()
+        return self._co_bsi_submit(
+            "max" if find_max else "min", index, call, slices, single,
+            self._co_run_fused_minmax, find_max=find_max)
+
+    def _co_bsi_group_prelude(self, reqs):
+        """Shared setup of a BSI group (ref: executor.py:3394): True when
+        the group was served (filterless members are all one query:
+        computed once, shared), False when it declines, else (field,
+        the depth+1 plane stacks at the group's window, entries, one
+        filter stack exists ∩ tree per entry)."""
+        index, slices = reqs[0]["index"], reqs[0]["slices"]
+        plan = reqs[0]["plan"]
+        if not slices or (plan is not None and plan[0] == "empty"):
+            self._co_note_decline("structural")
+            return False
+        if plan is None:
+            out = reqs[0]["single"]()
+            for req in reqs:
+                req["out"] = out
+            self._co_note_fused(len(reqs))
+            return True
+        field = reqs[0]["field"]
+        depth = field.bit_depth()
+        view = view_field_name(field.name)
+        planes = [(reqs[0]["frame_name"], view, i) for i in range(depth + 1)]
+        entries = self._co_dedupe(reqs)
+        win = self._co_window(
+            index, [planes + e[0]["leaves"] for e in entries], slices)
+        distinct = set(planes) | {sp for e in entries
+                                  for sp in e[0]["leaves"]}
+        if self._over_budget(len(distinct) + len(entries), slices, win[1]):
+            self._co_note_decline("budget")
+            return False
+        pre = self._plan_stacks(index, planes, slices, kind="bsi", win=win)
+        if pre is BATCH_OVER_BUDGET:
+            self._co_note_decline("budget")
+            return False
+        plane_stacks = pre[1]
+        filts = []
+        for e in entries:
+            pre = self._plan_stacks(index, e[0]["leaves"], slices, win=win)
+            if pre is BATCH_OVER_BUDGET:
+                self._co_note_decline("budget")
+                return False
+            filts.append(plane_stacks[depth]
+                         & self._eval_node(e[0]["plan"], pre[1]))
+        return field, plane_stacks, entries, filts
+
+    def _co_run_fused_sum(self, reqs):
+        """K filtered Sums in one ``count_and_rows_multi`` launch: the
+        field's depth planes and not-null row read once for every
+        member's filter (ref: executor.py:3310). The not-null row's count
+        is the filter's; Σ 2^i·c_i in Python ints."""
+        pre = self._co_bsi_group_prelude(reqs)
+        if pre is True or pre is False:
+            return pre
+        field, planes, entries, filts = pre
+        depth = field.bit_depth()
+        counts = bitops.count_and_rows_multi(planes, filts).sum(
+            dim=2, dtype=torch.int64).tolist()
+        for e, c in zip(entries, counts):
+            total = sum((1 << i) * v for i, v in enumerate(c[:depth]))
+            out = SumCount(total + c[depth] * field.min, c[depth])
+            for req in e:
+                req["out"] = out
+        self._co_stats["table_entries"] += len(entries)
+        self._co_note_fused(len(reqs))
+        return True
+
+    def _co_run_fused_minmax(self, reqs):
+        """K filtered Min/Max descents together (ref: executor.py:3364):
+        each plane's occupancy test for every member is ONE
+        ``count_op_pairs`` launch and ONE host sync for the group, where
+        K single descents pay one of each per member; the members' keep/
+        exclude steps are torch ops, as in ``bsi_extrema_indicators``."""
+        pre = self._co_bsi_group_prelude(reqs)
+        if pre is True or pre is False:
+            return pre
+        field, planes, entries, ms = pre
+        find_max = reqs[0]["find_max"]
+        op = "and" if find_max else "andnot"
+        depth = field.bit_depth()
+        k = len(ms)
+        values = [0] * k
+        for i in range(depth - 1, -1, -1):
+            occ = bitops.count_op_pairs(ms, [planes[i]] * k, op).sum(
+                dim=1, dtype=torch.int64)
+            for j, has_pref in enumerate((occ > 0).tolist()):
+                took_one = has_pref == find_max
+                ms[j] = (ms[j] & planes[i] if took_one
+                         else bsi_ops.andnot(ms[j], planes[i]))
+                values[j] |= int(took_one) << i
+        counts = bitops.count_op_pairs(ms, None, None).sum(
+            dim=1, dtype=torch.int64).tolist()
+        for e, value, count in zip(entries, values, counts):
+            out = (SumCount(value + field.min, count) if count
+                   else SumCount(0, 0))
+            for req in e:
+                req["out"] = out
+        self._co_stats["table_entries"] += len(entries)
+        self._co_note_fused(len(reqs))
+        return True
+
     # ------------------------------------------------------------- TopN
 
     def _execute_topn(self, index, call, slices):
@@ -1039,15 +1735,57 @@ class Executor:
         and is never trimmed."""
         _, has_ids = call.uint_slice_arg("ids")
         n, _ = call.uint_arg("n")
-        pairs = self._topn_map_reduce(index, call, slices, has_ids)
-        if not pairs or has_ids:
-            return pairs
-        other = call.clone()
-        other.args["ids"] = sorted(rid for rid, _ in pairs)
-        trimmed = self._topn_map_reduce(index, other, slices, True)
-        return trimmed[:n] if n else trimmed
+
+        def compute():
+            pairs = self._topn_map_reduce(index, call, slices, has_ids)
+            if not pairs or has_ids:
+                return pairs
+            other = call.clone()
+            other.args["ids"] = sorted(rid for rid, _ in pairs)
+            trimmed = self._topn_map_reduce(index, other, slices, True)
+            return trimmed[:n] if n else trimmed
+
+        if has_ids:
+            return compute()
+        # Pairs round-trip through a uint64 array: row ids span uint64.
+        return self._scalar_result_memo(
+            "topn_res", index, call, slices, compute,
+            enc=lambda pairs: np.asarray(pairs, dtype=np.uint64).reshape(
+                -1, 2),
+            dec=lambda a: [(int(r), int(c)) for r, c in a])
 
     def _topn_map_reduce(self, index, call, slices, has_ids):
+        if (not has_ids and not call.children
+                and self._force_path is None):
+            return self._topn_discovery_memoized(index, call, slices)
+        return self._topn_map_reduce_exec(index, call, slices, has_ids)
+
+    def _topn_discovery_memoized(self, index, call, slices):
+        """Src-less discovery (phase 1 without a Src reads host cache
+        metadata fragment by fragment, ~25 µs a fragment) memoized on
+        the index's epoch (ref: pilosa_tpu executor.py:5153). Not a
+        result memo: phase 2's exact re-count still runs per query. The
+        epoch is read before the walk, so a racing write makes the entry
+        stale on arrival, never wrong; more than 100,000 pairs are not
+        kept."""
+        key = ("topn1", index, str(call), slice_key(slices))
+        epoch = self._epoch(index)
+        with self._cache_mu:
+            hit = self._topn_disc_memo.get(key)
+        if hit is not None and hit[0] == epoch:
+            return list(hit[1])
+        out = self._topn_map_reduce_exec(index, call, slices, False)
+        if len(out) <= 100_000:
+            with self._cache_mu:
+                while (key not in self._topn_disc_memo
+                       and len(self._topn_disc_memo)
+                       >= self.TOPN_DISCOVERY_MEMO_MAX):
+                    self._topn_disc_memo.pop(next(iter(
+                        self._topn_disc_memo)))
+                self._topn_disc_memo[key] = (epoch, tuple(out))
+        return out
+
+    def _topn_map_reduce_exec(self, index, call, slices, has_ids):
         frame_name = call.args.get("frame") or DEFAULT_FRAME
         allowed = self._topn_attr_allowed(index, call, frame_name)
 
@@ -1221,26 +1959,39 @@ class Executor:
         everywhere."""
         if plan is not None and plan[0] == "empty":
             return np.zeros((len(row_ids), len(slices)), np.int64)
+        # The count matrix is a function of fragment state alone: a hot
+        # TopN re-counts the same candidates (ref: pilosa_tpu
+        # executor.py:4036-4046, the "topnc" memo).
+        mkey = ("topnc", index, frame_name, view, tuple(row_ids),
+                slice_key(slices), tanimoto, str(plan), tuple(leaves))
+        memo = self._result_memo_get(mkey)
+        if memo is not None:
+            return memo
+        epoch = self._epoch(index)
         cands = [(frame_name, view, rid) for rid in row_ids]
-        pre = self._plan_stacks(index, cands + leaves, slices)
+        pre = self._plan_stacks(index, cands + leaves, slices, kind="topnp")
         if pre is BATCH_OVER_BUDGET:
             return pre
         stacks, leaf_stacks = pre[1][:len(cands)], pre[1][len(cands):]
         if plan is None:
             counts = torch.stack([bitops.count_rows(st) for st in stacks])
-            return counts.cpu().numpy().astype(np.int64)
-        src = self._eval_node(plan, leaf_stacks)
-        inter = bitops.count_and_rows_stacks(stacks, src)
-        if not tanimoto:
-            return inter.cpu().numpy().astype(np.int64)
-        # Score on the device with the serial path's formula; the ceil
-        # gate on the host (ref: executor.py:4113-4126).
-        row_n = torch.stack([bitops.count_rows(st) for st in stacks])
-        src_n = bitops.count_rows(src)
-        scores = topn_ops.tanimoto_score_counts(inter, row_n, src_n[None, :])
-        inter = inter.cpu().numpy().astype(np.int64)
-        return np.where(topn_ops.tanimoto_keep(scores.cpu().numpy(),
-                                               tanimoto), inter, 0)
+            out = counts.cpu().numpy().astype(np.int64)
+        else:
+            src = self._eval_node(plan, leaf_stacks)
+            inter = bitops.count_and_rows_stacks(stacks, src)
+            if not tanimoto:
+                out = inter.cpu().numpy().astype(np.int64)
+            else:
+                # Score on the device with the serial path's formula; the
+                # ceil gate on the host (ref: executor.py:4113-4126).
+                row_n = torch.stack([bitops.count_rows(st) for st in stacks])
+                src_n = bitops.count_rows(src)
+                scores = topn_ops.tanimoto_score_counts(inter, row_n,
+                                                        src_n[None, :])
+                inter = inter.cpu().numpy().astype(np.int64)
+                out = np.where(topn_ops.tanimoto_keep(
+                    scores.cpu().numpy(), tanimoto), inter, 0)
+        return self._topn_counts_memoize(mkey, out, epoch)
 
     # ---------------------------------------------------- SetBit/ClearBit
 

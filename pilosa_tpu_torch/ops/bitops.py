@@ -70,6 +70,20 @@ def count_and_rows_stacks(rows, filt):
     return kernels.count_and_rows_stacks(rows, filt)
 
 
+def count_op_pairs(a, b, op):
+    """Per-(pair, slice) |a[k][s] OP b[k][s]| for K pairs of int32[S, W]
+    stacks in one launch -> int32[K, S]; ``op`` None counts a[k] alone
+    (the coalescer's fused Count groups and Min/Max occupancy tests)."""
+    return kernels.count_op_pairs(a, b, op)
+
+
+def count_and_rows_multi(rows, filts):
+    """Per-(filter, row, slice) |rows[r][s] ∩ filts[k][s]| for R and K
+    int32[S, W] stacks -> int32[K, R, S], each stack read once (the
+    coalescer's fused Sum groups)."""
+    return kernels.count_and_rows_multi(rows, filts)
+
+
 def count(a):
     """Total set bits, as a 0-d int64 tensor (ref: Bitmap.Count
     roaring.go:185)."""

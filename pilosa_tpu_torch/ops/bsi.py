@@ -45,7 +45,7 @@ def plane_counts(planes, filt):
     return kernels.count_and_rows(planes, filt)
 
 
-def _andnot(m, p):
+def andnot(m, p):
     """m & ~p, as m ^ (m & p)."""
     return m ^ (m & p)
 
@@ -61,7 +61,7 @@ def _zeros_or(acc, like):
 def bsi_eq(planes, exists, pred_bits):
     m = exists
     for i in range(len(pred_bits) - 1, -1, -1):
-        m = m & planes[i] if pred_bits[i] else _andnot(m, planes[i])
+        m = m & planes[i] if pred_bits[i] else andnot(m, planes[i])
     return m
 
 
@@ -82,7 +82,7 @@ def _lt_descent(planes, exists, pred_bits):
             m = ones
         else:
             # Rows with 1 here are strictly greater: drop them.
-            m = _andnot(m, planes[i])
+            m = andnot(m, planes[i])
     return matched, m
 
 
@@ -150,6 +150,6 @@ def bsi_extrema_indicators(planes, filt, find_max):
         has_pref = bool(kernels.count_op_rows(m, planes[i], op).sum(
             dtype=torch.int64) > 0)
         took_one = has_pref == find_max
-        m = m & planes[i] if took_one else _andnot(m, planes[i])
+        m = m & planes[i] if took_one else andnot(m, planes[i])
         indicators[i] = int(took_one)
     return torch.tensor(indicators, dtype=torch.int32), m

@@ -13,6 +13,13 @@ and its design:
   ports the Pallas ``count_and_rows`` and serves TopN with a Src
   (``csrc/count_and_rows.cu``): the fragment form is one strided launch
   for any row count, the stacked form a table of row pointers.
+- :func:`count_op_pairs` — popcount(a_k OP b_k) per slice for K pairs
+  of stacks in one launch; replaces the XLA fusion of the coalescer's
+  fused Count groups and the fused Min/Max occupancy tests
+  (``csrc/popcount.cu``).
+- :func:`count_and_rows_multi` — popcount(row_r & filt_k) per slice for
+  R shared row stacks and K filter stacks; replaces the fused Sum
+  group's XLA fusion (``csrc/count_and_rows.cu``).
 
 Words are ``int32`` views of the 32-bit device words, shape
 ``[..., W]``; results are ``int32[...]``. A wrapper takes the plain
@@ -36,7 +43,8 @@ OPS = {"and": 1, "or": 2, "xor": 3, "andnot": 4}
 # Per-row counts are int32: a row of W words holds 32·W bits.
 MAX_WIDTH = (1 << 26) - 1
 
-launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0}
+launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0,
+            "count_op_pairs": 0, "count_and_rows_multi": 0}
 # Server threads launch concurrently; a count is a read-modify-write.
 _launches_mu = threading.Lock()
 
@@ -47,6 +55,8 @@ CAR_MAX_ROWS = 256
 _fn = None
 _car_fn = None
 _car_strided_fn = None
+_pairs_fn = None
+_multi_fn = None
 
 
 def reset_launches():
@@ -114,6 +124,23 @@ def count_and_rows_stacks_plain(rows, filt):
         return torch.empty((0, filt.shape[0]), dtype=torch.int32,
                            device=filt.device)
     return torch.stack([count_and_rows_plain(r, filt) for r in rows])
+
+
+def count_op_pairs_plain(a, b, op):
+    """Plain version of :func:`count_op_pairs`: one pair at a time."""
+    if not a:
+        return torch.empty((0, 0), dtype=torch.int32)
+    if op is None:
+        return torch.stack([count_rows_plain(x) for x in a])
+    return torch.stack([count_op_rows_plain(x, y, op)
+                        for x, y in zip(a, b)])
+
+
+def count_and_rows_multi_plain(rows, filts):
+    """Plain version of :func:`count_and_rows_multi`: one filter at a
+    time -> int32[K, R, S]."""
+    return torch.stack([count_and_rows_stacks_plain(rows, f)
+                        for f in filts])
 
 
 # ----------------------------------------------------------------- wrappers
@@ -288,3 +315,132 @@ def count_rows(m):
     if m.device.type == "cpu":
         return count_rows_plain(m)
     return _launch("count_rows", m, m, OP_NONE)
+
+
+def _pairs_kernel():
+    global _pairs_fn
+    if _pairs_fn is None:
+        lib = loader.library("popcount")
+        fn = lib.pilosa_count_op_pairs
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.pilosa_count_op_pairs_max.restype = ctypes.c_int
+        _pairs_fn = (fn, _kernel()[1], lib.pilosa_count_op_pairs_max())
+    return _pairs_fn
+
+
+def _stack_list(name, stacks):
+    """The stacks as a list, each an int32 [S, W] tensor of one shape
+    and device."""
+    stacks = list(stacks)
+    if stacks:
+        if stacks[0].dim() != 2:
+            raise ValueError(f"{name}: stacks must be [S, W], got "
+                             f"{tuple(stacks[0].shape)}")
+        _check(name, *stacks)
+    return stacks
+
+
+def count_op_pairs(a, b, op):
+    """Per-(pair, slice) popcount(a[k][s] OP b[k][s]): K pairs of int32
+    [S, W] stacks -> int32[K, S], OP in and / or / xor / andnot, or None
+    for popcount(a[k][s]) alone (``b`` ignored). One launch for up to the
+    kernel's table of pairs (256 with CUDA 12.1+), pointers by value."""
+    if op is not None and op not in OPS:
+        raise ValueError(f"unknown count op: {op!r}")
+    a = _stack_list("count_op_pairs", a)
+    b = a if op is None else _stack_list("count_op_pairs", b)
+    if len(a) != len(b):
+        raise ValueError(f"count_op_pairs: {len(a)} left operands, "
+                         f"{len(b)} right")
+    if a and op is not None:
+        _check("count_op_pairs", a[0], *b)
+    if not a:
+        return torch.empty((0, 0), dtype=torch.int32)
+    dev = a[0].device
+    if dev.type == "cpu":
+        return count_op_pairs_plain(a, b, op)
+    if dev.type != "cuda":
+        raise ValueError(f"count_op_pairs: no kernel for device {dev}")
+    slices, width = a[0].shape
+    out = torch.empty((len(a), slices), dtype=torch.int32, device=dev)
+    if slices == 0:
+        return out
+    fn, err_str, max_pairs = _pairs_kernel()
+    code = OP_NONE if op is None else OPS[op]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k0 in range(0, len(a), max_pairs):
+            ta = np.asarray([t.data_ptr() for t in a[k0:k0 + max_pairs]],
+                            dtype=np.uint64)
+            tb = np.asarray([t.data_ptr() for t in b[k0:k0 + max_pairs]],
+                            dtype=np.uint64)
+            rc = fn(ta.ctypes.data, tb.ctypes.data, len(ta), slices, width,
+                    code, out.data_ptr() + k0 * slices * 4, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"count_op_pairs: kernel launch failed: CUDA error {rc} "
+                    f"({err_str(rc).decode()})")
+            _count_launch("count_op_pairs")
+    return out
+
+
+def _multi_kernel():
+    global _multi_fn
+    if _multi_fn is None:
+        lib = loader.library("count_and_rows")
+        fn = lib.pilosa_count_and_rows_multi
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _multi_fn = (fn, _car_kernel()[1])
+    return _multi_fn
+
+
+def count_and_rows_multi(rows, filts):
+    """Per-(filter, row, slice) popcount(rows[r][s] & filts[k][s]): R
+    and K int32 [S, W] stacks -> int32[K, R, S]. Each launch reads its
+    rows and filters once for all their products; rows and filters share
+    one table of CAR_MAX_ROWS pointers, chunked past it."""
+    rows = _stack_list("count_and_rows_multi", rows)
+    filts = _stack_list("count_and_rows_multi", filts)
+    if rows and filts:
+        _check("count_and_rows_multi", rows[0], *filts)
+    if not filts:
+        return torch.empty((0, len(rows), 0), dtype=torch.int32)
+    dev = filts[0].device
+    if not rows:
+        return torch.empty((len(filts), 0, filts[0].shape[0]),
+                           dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        return count_and_rows_multi_plain(rows, filts)
+    if dev.type != "cuda":
+        raise ValueError(f"count_and_rows_multi: no kernel for device {dev}")
+    slices, width = filts[0].shape
+    n_r, n_k = len(rows), len(filts)
+    out = torch.empty((n_k, n_r, slices), dtype=torch.int32, device=dev)
+    if slices == 0:
+        return out
+    fn, err_str = _multi_kernel()
+    rc_max = min(n_r, CAR_MAX_ROWS // 2)
+    kc_max = CAR_MAX_ROWS - rc_max
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for r0 in range(0, n_r, rc_max):
+            rp = [t.data_ptr() for t in rows[r0:r0 + rc_max]]
+            for k0 in range(0, n_k, kc_max):
+                fp = [t.data_ptr() for t in filts[k0:k0 + kc_max]]
+                table = np.asarray(rp + fp, dtype=np.uint64)
+                rc = fn(table.ctypes.data, len(rp), len(fp), slices, width,
+                        out.data_ptr() + (k0 * n_r + r0) * slices * 4,
+                        n_r * slices, slices, stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"count_and_rows_multi: kernel launch failed: CUDA "
+                        f"error {rc} ({err_str(rc).decode()})")
+                _count_launch("count_and_rows_multi")
+    return out

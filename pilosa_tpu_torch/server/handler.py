@@ -10,9 +10,17 @@ pilosa_tpu's handler answers; only ``/version`` and ``/id`` differ.
 
 Every request is wrapped in panic recovery (ref: handler.go:157-194):
 errors become JSON ``{"error": ...}`` bodies with their status.
+
+``enable_response_cache()`` (the server calls it) replays the exact
+bytes of an identical read query while its index's epoch stands
+(``respcache.py``); it stays off when the executor's result memos are
+off, and ``PILOSA_TPU_RESPONSE_CACHE=0`` turns it off alone.
+``GET /debug/vars`` serves the coalescer's, the plan cache's and the
+response cache's counters.
 """
 import io
 import json
+import os
 import re
 import socket
 import threading
@@ -29,6 +37,7 @@ from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.executor import ExecOptions, SumCount
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.server import wireproto
+from pilosa_tpu_torch.server.respcache import ResponseCache
 from pilosa_tpu_torch.storage.frame import Field, FrameOptions
 
 # Request bodies above this many bytes are refused with 413 before any
@@ -75,6 +84,7 @@ class Handler:
         self.executor = executor
         self.local_host = local_host
         self.version = version
+        self._resp_cache = None  # enable_response_cache
         idx, fr = r"^/index/(?P<index>[^/]+)", "/frame/(?P<frame>[^/]+)"
         self.routes = [(m, re.compile(p), fn) for m, p, fn in [
             ("POST", idx + r"/query$", self.post_query),
@@ -82,6 +92,7 @@ class Handler:
             ("GET", r"^/index$", self.get_schema),
             ("GET", r"^/schema$", self.get_schema),
             ("GET", r"^/status$", self.get_status),
+            ("GET", r"^/debug/vars$", self.get_debug_vars),
             ("GET", r"^/version$", self.get_version),
             ("GET", r"^/hosts$", self.get_hosts),
             ("GET", r"^/id$", self.get_id),
@@ -113,8 +124,38 @@ class Handler:
              self.post_recalculate_caches),
         ]]
 
+    def enable_response_cache(self):
+        """Replay identical read queries' response bytes while the
+        index's mutation epoch stands (ref: pilosa_tpu handler.py:175-205,
+        its single-node branch): parse, execution and encoding are
+        skipped. Off when the executor's result memos are off, and under
+        PILOSA_TPU_RESPONSE_CACHE=0."""
+        if os.environ.get("PILOSA_TPU_RESPONSE_CACHE", "1").lower() in (
+                "0", "false", "no"):
+            return
+        self._resp_cache = ResponseCache(
+            lambda path: self.executor._epoch(path.split("/", 3)[2]))
+
     def dispatch(self, method, path, query_params, body, headers):
         """-> (status, content_type, payload bytes)."""
+        cache = self._resp_cache
+        key = epoch = None
+        if (cache is not None
+                and not self.executor._result_memo_off
+                and self.executor._force_path is None
+                and cache.cacheable(method, path, body)):
+            key = cache.make_key(path, query_params, body, headers)
+            hit = cache.get(key)
+            if hit is not None:
+                return hit
+            epoch = cache.pre_epoch(path)
+        out = self._dispatch_route(method, path, query_params, body,
+                                   headers)
+        if key is not None:
+            cache.put(key, epoch, out)
+        return out
+
+    def _dispatch_route(self, method, path, query_params, body, headers):
         for m, pattern, fn in self.routes:
             if m != method:
                 continue
@@ -186,6 +227,16 @@ class Handler:
         """The single-node JSON status (ref: handler.go handleGetStatus)."""
         return _json(200, {"status": {"state": "NORMAL", "nodes": [],
                                       "indexes": self.holder.schema()}})
+
+    def get_debug_vars(self, params, qp, body, headers):
+        """The serving tiers' counters (ref: pilosa_tpu handler
+        get_debug_vars: countCoalescer, responseCache), with the plan
+        cache's snapshot."""
+        doc = {"countCoalescer": self.executor.coalesce_snapshot(),
+               "planCache": self.executor.plans.snapshot()}
+        if self._resp_cache is not None:
+            doc["responseCache"] = self._resp_cache.stats()
+        return _json(200, doc)
 
     def get_version(self, params, qp, body, headers):
         return _json(200, {"version": self.version})

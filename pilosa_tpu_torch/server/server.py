@@ -42,6 +42,7 @@ class Server:
         try:
             self.executor = Executor(self.holder)
             self.handler = Handler(self.holder, self.executor)
+            self.handler.enable_response_cache()
             self._httpd = make_http_server(self.handler, self.bind,
                                            self.max_body_size)
         except BaseException:

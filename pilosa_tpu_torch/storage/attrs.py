@@ -14,8 +14,11 @@ import threading
 
 
 class AttrStore:
-    def __init__(self, path):
+    def __init__(self, path, epoch=None):
         self.path = path
+        # The owning index's mutation epoch: an attribute write moves it,
+        # so result memos over bitmap attrs and TopN filters go stale.
+        self.epoch = epoch
         self.mu = threading.RLock()
         self._db = None
         self._cache = {}
@@ -66,6 +69,7 @@ class AttrStore:
         with self.mu:
             self._merge_locked(id_, m)
             self._db.commit()
+        self._bump_epoch()
 
     def set_bulk_attrs(self, attr_map):
         """{id: attrs} in one transaction (ref: SetBulkAttrs
@@ -74,6 +78,11 @@ class AttrStore:
             for id_, m in sorted(attr_map.items()):
                 self._merge_locked(id_, m)
             self._db.commit()
+        self._bump_epoch()
+
+    def _bump_epoch(self):
+        if self.epoch is not None:
+            self.epoch.bump()
 
     def ids(self):
         """Every id with a stored row, ascending."""

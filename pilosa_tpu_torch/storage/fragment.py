@@ -367,7 +367,10 @@ class Fragment:
                 raw = codec.serialize({})
                 with open(self.path, "wb") as f:
                     f.write(raw)
-            self.op_n, torn = self._load_file_locked(raw)
+            # The file's bytes are what the stacks were built from: a
+            # fault-in moves neither the version nor the epoch, so
+            # stacks and result memos survive an eviction.
+            self.op_n, torn = self._load_file_locked(raw, bump=False)
             if self._snap_card is None:
                 self._snap_card = int(self._row_counts.sum())
             self._resident = True
@@ -514,9 +517,10 @@ class Fragment:
                 if self._cache_loaded:
                     self._flush_cache_locked()
                 self._resident = False
-                # _version keeps counting across the unload, so the
-                # executor's stack tokens never alias across the gap.
-                self._reset_storage_locked()
+                # The file is unchanged: the version and the index's
+                # epoch stay, so stacks and result memos built from it
+                # stay valid across the eviction and the next fault-in.
+                self._reset_storage_locked(bump=False)
         finally:
             self.mu.release_raw()
         if self.governor is not None:
@@ -886,9 +890,11 @@ class Fragment:
 
     # ------------------------------------------------------- row plumbing
 
-    def _load_file_locked(self, data):
+    def _load_file_locked(self, data, bump=True):
         """Replace the matrices with roaring ``data`` (a snapshot and its
         op log) at the data's own window; returns (op count, torn).
+        ``bump=False`` (a fault-in of the fragment's own file) keeps the
+        version and the index's epoch.
         Containers decode straight into the window (``codec.
         fill_window``), the op log's net effect applies on top, and the
         window is then narrowed to the words that hold bits — what the
@@ -897,7 +903,7 @@ class Fragment:
         keys, _, _, _, data_end = header
         typs, values, torn = codec.parse_ops(bytes(data[data_end:]))
         adds, removes = codec.final_ops(typs, values)
-        self._reset_storage_locked()
+        self._reset_storage_locked(bump)
         rows = np.unique(np.concatenate([
             keys // np.uint64(_CONTAINERS_PER_ROW),
             values // np.uint64(SLICE_WIDTH)]))
@@ -932,7 +938,10 @@ class Fragment:
                 self._w64_base + int(used[0]),
                 self._w64_base + int(used[-1])))
         self._recount_rows_locked(range(len(rows)))
-        self._touch_locked(range(len(rows)))
+        if bump:
+            self._touch_locked(range(len(rows)))
+        else:
+            self._dirty.update(range(len(rows)))
         return len(typs), torn
 
     def _scatter_positions_locked(self, positions, set_value):
@@ -1028,7 +1037,7 @@ class Fragment:
         self._version += 1
         self.epoch.bump()
 
-    def _reset_storage_locked(self):
+    def _reset_storage_locked(self, bump=True):
         self._cap = 0
         self._w64 = _MIN_W64
         self._w64_base = 0
@@ -1042,8 +1051,9 @@ class Fragment:
         self._rc_dev = None
         self._row_dev = {}
         self._planes_cache = {}
-        self._version += 1
-        self.epoch.bump()
+        if bump:
+            self._version += 1
+            self.epoch.bump()
 
     def rows(self, nonempty=False):
         """Row ids present in storage, ascending; from container keys on

@@ -130,7 +130,8 @@ class Frame:
         self.time_quantum = ""
         self.fields = []  # [Field]
         self.views = {}
-        self.row_attr_store = AttrStore(os.path.join(path, ".data"))
+        self.row_attr_store = AttrStore(os.path.join(path, ".data"),
+                                        epoch=epoch)
 
     @property
     def meta_path(self):
@@ -237,6 +238,8 @@ class Frame:
         with self.mu:
             self.time_quantum = q
             self.save_meta()
+            # A time Range's view cover follows the quantum.
+            self._bump_epoch()
 
     def set_bit(self, view_name, row_id, column_id, t=None):
         """Write one bit and, with a timestamp ``t``, its time-quantum

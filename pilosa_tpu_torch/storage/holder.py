@@ -69,6 +69,9 @@ class Holder:
         self.indexes = {}
         self.local_id = None
         self._dir_lock = None
+        # Called with an index's name after its deletion: the executor
+        # drops the plan and memo entries a deleted index never reads.
+        self.on_index_drop = None
 
     def open(self):
         """Lock the directory and open every index (ref: holder.go:87-150)."""
@@ -169,6 +172,8 @@ class Holder:
         idx.close()
         idx.epoch.bump()
         shutil.rmtree(idx.path, ignore_errors=True)
+        if self.on_index_drop is not None:
+            self.on_index_drop(name)
 
     def schema(self):
         """[{name, frames: [{name, views: [{name}]}]}], every list

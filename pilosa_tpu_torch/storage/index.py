@@ -38,7 +38,8 @@ class Index:
         self.column_label = DEFAULT_COLUMN_LABEL
         self.time_quantum = ""
         self.frames = {}
-        self.column_attr_store = AttrStore(os.path.join(path, ".data"))
+        self.column_attr_store = AttrStore(os.path.join(path, ".data"),
+                                           epoch=self.epoch)
 
     @property
     def meta_path(self):
@@ -150,6 +151,7 @@ class Index:
             frame.open()
             frame.save_meta()
             self.frames[name] = frame
+            self.epoch.bump()
             return frame
 
     def delete_frame(self, name):

@@ -125,8 +125,13 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
                        kernels.count_and_rows_plain(a, a[0]))
     assert torch.equal(kernels.count_and_rows_stacks([a, a], a),
                        torch.stack([kernels.count_rows_plain(a)] * 2))
+    assert torch.equal(kernels.count_op_pairs([a, a], [a, a], "xor"),
+                       torch.zeros((2, 3), dtype=torch.int32))
+    assert torch.equal(kernels.count_and_rows_multi([a], [a, a]),
+                       torch.stack([kernels.count_rows_plain(a)[None]] * 2))
     assert kernels.launches == {"count_op_rows": 0, "count_rows": 0,
-                                "count_and_rows": 0}
+                                "count_and_rows": 0, "count_op_pairs": 0,
+                                "count_and_rows_multi": 0}
 
 
 @pytest.mark.parametrize("bad", [

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card: each held exactly against its plain
-version on the same device tensors; the executor's Count, TopN, BSI,
-time Range and bitmap-result paths on a GPU holder, and the HTTP
+version on the same device tensors (the coalescer's ``count_op_pairs``
+and ``count_and_rows_multi`` too); the executor's Count, TopN, BSI,
+time Range and bitmap-result paths and the coalescer's fused Count,
+Sum and Max groups on a GPU holder, and the HTTP
 ``Server`` on the card, against the same directory served on the CPU;
 and ``Bitmap.columns()`` on the card
 against a host unpacking of the same words. Marked
@@ -25,6 +27,8 @@ from pilosa_tpu_torch.storage.index import FrameOptions
 pytestmark = pytest.mark.cuda
 
 OPS = ("and", "or", "xor", "andnot")
+# The kernels a single query launches; coalesced groups add the others.
+QUERY_KERNELS = ("count_op_rows", "count_rows", "count_and_rows")
 
 
 @pytest.fixture
@@ -140,8 +144,11 @@ def test_launch_counters_count_launches_only(gen):
     kernels.count_and_rows(a[:0], a[0])
     kernels.count_and_rows_stacks([], a)
     kernels.count_and_rows_stacks([a[:0]], a[:0])
+    kernels.count_op_pairs([a[:0]], [a[:0]], "and")
+    kernels.count_and_rows_multi([a], [])
     assert kernels.launches == {"count_op_rows": 1, "count_rows": 1,
-                                "count_and_rows": 1}
+                                "count_and_rows": 1, "count_op_pairs": 0,
+                                "count_and_rows_multi": 0}
 
 
 def test_executor_on_gpu_matches_cpu(gen, tmp_path):
@@ -241,9 +248,118 @@ def test_bsi_on_gpu_matches_cpu(gen, tmp_path):
             ex._force_path = p
             results[(device, p)] = [ex.execute("i", q)[0] for q in queries]
         if device == "cuda":
-            assert all(kernels.launches.values()), kernels.launches
+            assert all(kernels.launches[k] for k in QUERY_KERNELS), \
+                kernels.launches
         h.close()
     assert len({repr(v) for v in results.values()}) == 1
+
+
+@pytest.mark.parametrize("k", [1, 9, 257])
+@pytest.mark.parametrize("shape", [(1, 1), (7, 127), (5, 4097), (3, 32768)])
+@pytest.mark.parametrize("op", (None,) + OPS)
+def test_count_op_pairs_equals_plain(gen, k, shape, op):
+    a = [_rand(gen, *shape) for _ in range(k)]
+    b = [_rand(gen, *shape) for _ in range(k)]
+    before = kernels.launches["count_op_pairs"]
+    got = kernels.count_op_pairs(a, b, op)
+    assert kernels.launches["count_op_pairs"] - before == (2 if k > 256
+                                                           else 1)
+    assert torch.equal(got, kernels.count_op_pairs_plain(a, b, op))
+
+
+def test_count_op_pairs_misaligned_and_edge_words(gen):
+    base = _rand(gen, 4 * 3 * 1001 + 8)
+    a = [base[i * 3003 + 1 + i:(i + 1) * 3003 + 1 + i].view(3, 1001)
+         for i in range(4)]
+    b = [torch.full((3, 1001), f, dtype=torch.int32, device="cuda")
+         for f in (0, -1, -2**31, 5)]
+    for op in OPS:
+        assert torch.equal(kernels.count_op_pairs(a, b, op),
+                           kernels.count_op_pairs_plain(a, b, op))
+
+
+@pytest.mark.parametrize("n_rows,n_filt", [(1, 1), (11, 8), (5, 300),
+                                           (200, 3)])
+@pytest.mark.parametrize("shape", [(1, 32768), (4, 4097), (9, 128)])
+def test_count_and_rows_multi_equals_plain(gen, n_rows, n_filt, shape):
+    rows = [_rand(gen, *shape) for _ in range(n_rows)]
+    filts = [_rand(gen, *shape) for _ in range(n_filt)]
+    got = kernels.count_and_rows_multi(rows, filts)
+    assert got.shape == (n_filt, n_rows, shape[0])
+    assert torch.equal(got, kernels.count_and_rows_multi_plain(rows, filts))
+
+
+def test_count_and_rows_multi_misaligned(gen):
+    base = _rand(gen, 6 * 2 * 999 + 8)
+    stk = [base[i * 1998 + i:(i + 1) * 1998 + i].view(2, 999)
+           for i in range(6)]
+    assert torch.equal(kernels.count_and_rows_multi(stk[:4], stk[4:]),
+                       kernels.count_and_rows_multi_plain(stk[:4], stk[4:]))
+
+
+def test_fused_groups_on_gpu_match_cpu(gen, tmp_path):
+    """Concurrent Counts, Sums and Max under a Barrier form one group
+    each on a GPU holder (the coalescer is on by default there) and
+    launch the group kernels; answers equal the CPU holder's."""
+    import threading
+
+    rng = np.random.default_rng(11)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    idx = h.create_index("i")
+    f = idx.create_frame("f")
+    g = idx.create_frame("g", FrameOptions(range_enabled=True, fields=[
+        Field("v", min=0, max=1000)]))
+    for s in range(4):
+        for r in range(4):
+            cols = rng.choice(SLICE_WIDTH, 50000, replace=False)
+            f.import_bits([r] * len(cols), (cols + s * SLICE_WIDTH).tolist())
+        cols = rng.choice(SLICE_WIDTH, 80000, replace=False)
+        g.import_value("v", (cols + s * SLICE_WIDTH).tolist(),
+                       rng.integers(0, 1001, len(cols)).tolist())
+    h.close()
+    row = 'Bitmap(frame="f", rowID={})'.format
+    pairs = [(0, 1), (0, 2), (1, 2), (0, 3), (1, 3), (2, 3)]
+    groups = [
+        [f"Count(Intersect({row(a)}, {row(b)}))" for a, b in pairs],
+        [f"Count(Xor({row(a)}, {row(b)}))" for a, b in pairs],
+        [f'Sum(Union({row(a)}, {row(b)}), frame="g", field="v")'
+         for a, b in pairs],
+        [f'Max(Union({row(a)}, {row(b)}), frame="g", field="v")'
+         for a, b in pairs],
+    ]
+    answers = {}
+    for device in ("cpu", "cuda"):
+        h = Holder(path, device=device).open()
+        ex = Executor(h)
+        ex._result_memo_off = True
+        kernels.reset_launches()
+        got = []
+        for queries in groups:
+            ex.set_coalesce_config(max_wait_us=10_000_000,
+                                   max_group=len(queries))
+            out = [None] * len(queries)
+            barrier = threading.Barrier(len(queries))
+
+            def run(i, q):
+                barrier.wait(timeout=30)
+                out[i] = ex.execute("i", q)[0]
+
+            threads = [threading.Thread(target=run, args=(i, q))
+                       for i, q in enumerate(queries)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            got.append(out)
+        answers[device] = got
+        if device == "cuda":
+            st = ex.coalesce_snapshot()
+            assert st["enabled"] and st["max_group"] == 6, st
+            assert kernels.launches["count_op_pairs"] > 0, kernels.launches
+            assert kernels.launches["count_and_rows_multi"] == 1
+        h.close()
+    assert answers["cuda"] == answers["cpu"]
 
 
 def _host_columns(words, slice_ids):
@@ -361,7 +477,8 @@ def test_server_on_gpu_matches_cpu(gen, tmp_path):
                         got.append((resp.status, resp.read()))
             answers[device] = got
             if device == "cuda":
-                assert all(kernels.launches.values()), kernels.launches
+                assert all(kernels.launches[k] for k in QUERY_KERNELS), \
+                    kernels.launches
         finally:
             s.close()
     assert answers["cuda"] == answers["cpu"]
@@ -410,7 +527,7 @@ def test_windows_and_cold_reads_on_gpu_match_cpu(gen, tmp_path):
 
     kernels.reset_launches()
     got = run("cuda", host_bytes=1 << 20)
-    assert all(kernels.launches.values())
+    assert all(kernels.launches[k] for k in QUERY_KERNELS)
     want = run("cpu")
     assert got.pop("faults") > 0 and {k: v for k, v in got.items()} == {
         k: v for k, v in want.items() if k != "faults"}
