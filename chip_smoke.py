@@ -12,11 +12,23 @@ Phases, each of which fails the run (exit code != 0, no result line):
    every column-window width bucket the batched plans use ([slices, W]
    for W = 128, 512, 2048, 8192, 32768, each kernel timed against its
    bound), at ``count_and_rows``'s strided fragment form [524,288 × 128]
-   (one launch), and at ragged/edge shapes; time, bytes, bound and
-   plain-version time at the main-path shape; the coalescer's group
-   kernels ``count_op_pairs`` at 8 distinct pairs of the main shape
-   (and every bucket) and ``count_and_rows_multi`` at 10 rows × 8
-   filters of it;
+   (one launch), and at ragged/edge shapes; ``count_op_rows``,
+   ``count_rows`` and ``count_and_rows`` in each regime of their launch
+   shapes (narrow, split, full) at its edges — widths 1 … 2,049 and
+   32,768, 1 … 262,144 rows, both sides of every threshold, one operand
+   off 16-byte alignment, bit-31 and all-ones words, the stacked form
+   past 256 rows — each case in the regime the source names for its
+   shape (the thresholds and the choice are read from the built
+   libraries); an empty kernel's launch as the floor; the buckets timed
+   a call from the host and a launch from a CUDA graph on cold inputs,
+   and the serial path's shapes ([1, 32768] and [1, 128] rows, the
+   fragment form at 8 and 11 rows of 32,768) also as one launch alone on
+   cold inputs and as a call and synchronize (pilosa_tpu_torch/tools/
+   kernel_ab.py times another build beside these, and two regimes at one
+   shape); time, bytes, bound and plain-version time at the main-path
+   shape; the coalescer's group kernels ``count_op_pairs`` at 8
+   distinct pairs of the main shape (and every bucket) and
+   ``count_and_rows_multi`` at 11 rows × 8 filters of it;
 4. main path, Count and bitmap results — a data directory of N slices
    (default 9,537 = 10.0B columns; one index, one frame, three dense
    rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
@@ -60,7 +72,7 @@ Phases, each of which fails the run (exit code != 0, no result line):
 7. main path, time windows — Pilosa's event-analytics example
    (``docs/examples.md:61-70``): a data directory of its own with index
    ``events`` and frame ``clicks`` (``timeQuantum="YMD"``), four rows
-   over 4,096 slices (reduced from 9,537: EVENT_SLICES), each (row,
+   over 1,024 slices (reduced from 9,537: EVENT_SLICES), each (row,
    column) clicked with probability 1/64
    on one day of 2017-06-01 … 14, so 17 views (``standard``,
    ``standard_2017``, ``standard_201706``, one per day) written in
@@ -119,15 +131,18 @@ lone query passes its tick alone.
 
 Every open is lazy (no fragment file is read until a query touches
 it); each phase prints its open and first-query seconds. The serial
-path of phases 4-7 runs over the first 1,024 slices (the batched path
+path of phases 4-7 runs over the first 512 slices (the batched path
 and the top-level bare ``Bitmap`` over all of them), so that the script
 stays inside its 1,200 s limit (PERF.md §5 has the measured total).
 ``--event-slices`` sets phase 7's slice count and ``--only`` runs a
 subset of phases 4-9 (no phase 3 and no result lines): both are for
 measurements, and the contract run takes neither.
 
-The second-to-last line is a JSON object describing every kernel; the
-last is ``{"ok": true, "device": {...}}``. The script exits non-zero
+Each of phases 4-9 prints its launches per kernel and, for
+``count_op_rows``, ``count_rows`` and ``count_and_rows``, per regime; a
+line after them sums the regimes over the phases. The second-to-last
+line is a JSON object describing every kernel; the last is ``{"ok":
+true, "device": {...}}``. The script exits non-zero
 without a GPU, and where the pilosa_tpu_torch package is not beside it.
 """
 import argparse
@@ -156,17 +171,21 @@ POPC_PER_S = 132 * 16 * 1.98e9       # popcount
 OPS = ("and", "or", "xor", "andnot")
 DEVICE = "cuda"
 TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
-SERIAL_SLICES = 1024        # slices of the serial loops of phases 4-7
+# Slices of the serial loops of phases 4-7. reduced: 512, not 1,024 (nor
+# every slice), to keep the script inside its limit on the slower H100
+# hosts (PERF.md §4).
+SERIAL_SLICES = 512
 WINDOW_BUCKETS = (128, 512, 2048, 8192, 32768)  # batched stack widths
 GOVERNOR_BYTES = 256 << 20  # phase 4's host budget on its reopen
 GOVERNED_SLICES = 512       # slices of its serial TopN and bitmap read
 GOVERNED_BATCH = 2048       # slices of its batched Count and TopN
 # Slices of phase 7. reduced: at 9,537 slices (17 views, 162,129
 # fragment files) the phase alone took 600.4 s on an H100 machine
-# (writes 191.2 s, the first 14-view Count 240.4 s), which would carry
-# the script past its 1,200 s limit, so the event-analytics example
-# runs at 4,096 slices (4.3B columns; PERF.md §4).
-EVENT_SLICES = 4096
+# (writes 191.2 s, the first 14-view Count 240.4 s), and at 4,096 slices
+# it carried the whole script past its 1,200 s limit on a slower host,
+# so the event-analytics example runs at 1,024 slices (1.1B columns;
+# PERF.md §4).
+EVENT_SLICES = 1024
 CHEM_ROWS = 500_000         # phase 9's molecules
 CHEM_FAMILY = 100           # molecules per scaffold
 FRAG_FORM_ROWS = 524_288    # count_and_rows's fragment form in phase 3
@@ -174,6 +193,18 @@ GROUP_PAIRS = 8             # members of a fused group (phases 3 and 8c)
 # The kernels a single query launches; the coalescer's groups (8c) add
 # count_op_pairs and count_and_rows_multi.
 QUERY_KERNELS = ("count_op_rows", "count_rows", "count_and_rows")
+# Boundary widths and row counts of phase 3's regime checks; the widths
+# and row counts on both sides of each regime threshold of the CUDA
+# sources (kernels.thresholds()) join them at run time.
+EDGE_WIDTHS = (1, 3, 4, 5, 127, 128, 129, 2047, 2048, 2049, WORDS32)
+EDGE_ROWS = (1, 2, 7, 8, 9, 11, 262_144)
+# Device time is taken over inputs that exceed the L2 cache this many
+# times over (copies cycled through by a CUDA graph), so that each launch
+# reads device memory, as a query after other work does; at most
+# COLD_MAX_COPIES copies, so a graph of one-row launches stays small.
+L2_BYTES = 50 << 20
+COLD_FACTOR = 4
+COLD_MAX_COPIES = 256
 
 
 class SmokeFailure(Exception):
@@ -206,7 +237,8 @@ def peak_bytes():
 
 
 def timed_ms(fn, reps, warm=2):
-    """Mean ms per call by CUDA events over ``reps`` warm calls."""
+    """Mean ms per call by CUDA events over ``reps`` warm calls from the
+    host: where a call's host work outlasts its kernel, the host's."""
     import torch
 
     for _ in range(warm):
@@ -220,6 +252,104 @@ def timed_ms(fn, reps, warm=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _captured(fn):
+    """A CUDA graph of one call of ``fn()``, after a first call on a side
+    stream (as capture needs)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """Mean device ms per call by CUDA events over ``replays`` replays of
+    a CUDA graph of ``reps`` calls: the launches back to back, with no
+    host work between them."""
+    import torch
+
+    graph = _captured(lambda: [fn() for _ in range(reps)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def cold_ms(fn, *args, reps=20):
+    """Device ms per launch of ``fn(*args)`` (args: tensors or lists of
+    them) by graph_ms over ``args`` and clones of it, cycled, enough
+    that their bytes exceed COLD_FACTOR times the L2 cache, up to
+    COLD_MAX_COPIES copies: below ~800 KB a call the copies fit in L2,
+    and the time is that of launches back to back on warm inputs
+    (one_ms times a lone launch on cold ones)."""
+    import itertools
+    import math
+
+    flat = [t for a in args for t in (a if isinstance(a, list) else [a])]
+    nbytes = sum(t.numel() * t.element_size() for t in flat)
+    copies = min(COLD_MAX_COPIES,
+                 max(1, math.ceil(COLD_FACTOR * L2_BYTES / nbytes)))
+    sets = [args] + [tuple([t.clone() for t in a] if isinstance(a, list)
+                           else a.clone() for a in args)
+                     for _ in range(copies - 1)]
+    cycle = itertools.cycle(sets)
+    return graph_ms(lambda: fn(*next(cycle)),
+                    reps=copies * math.ceil(reps / copies), replays=3)
+
+
+def one_ms(fn, *args, reps=50):
+    """Device ms of one launch of ``fn(*args)`` alone on an idle stream,
+    its inputs first evicted from L2 by a write of twice the cache's
+    bytes: CUDA events around the replay of a one-call CUDA graph, the
+    median over ``reps``. A serial caller's wait on the device a launch,
+    its host work aside."""
+    import torch
+
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device=DEVICE)
+    graph = _captured(lambda: fn(*args))
+    pairs = []
+    for i in range(reps):
+        flush.fill_(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del graph, flush
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def sync_ms(fn, reps=200, warm=5):
+    """Host ms per call of ``fn()`` followed by torch.cuda.synchronize(),
+    warm inputs: what a serial caller pays a launch, the wrapper's host
+    work, the launch and the wait included."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def ops_ms(popcounts, alu_ops):
@@ -264,6 +394,27 @@ def multi_bound_ms(rows, filts, slices, width):
                                  else "operations"), nbytes
 
 
+def launch_counts():
+    """The launches since the last reset: per kernel, and under
+    ``"regimes"`` those of count_op_rows, count_rows and count_and_rows
+    per regime."""
+    from pilosa_tpu_torch.ops import kernels
+
+    counts = dict(kernels.launches)
+    counts["regimes"] = {name: dict(split) for name, split
+                         in kernels.regime_launches.items()}
+    return counts
+
+
+def add_counts(x, y):
+    """Two launch_counts() added."""
+    total = {k: x[k] + y[k] for k in x if k != "regimes"}
+    total["regimes"] = {name: {r: n + y["regimes"][name][r]
+                               for r, n in split.items()}
+                        for name, split in x["regimes"].items()}
+    return total
+
+
 def in_processes(worker, frag_dir, seed, slices):
     """``worker(frag_dir, seed, lo, hi)`` over 64 runs of slices in up
     to 8 spawned processes; returns (processes, results in slice
@@ -277,6 +428,146 @@ def in_processes(worker, frag_dir, seed, slices):
 
 
 # ------------------------------------------------------------ phase 3
+
+def regime_checks(rand, note):
+    """count_op_rows/count_rows and count_and_rows against their plain
+    versions in every regime of their CUDA sources, each case in the
+    regime the source names for its shape (kernels.regime): every width
+    of EDGE_WIDTHS and both sides of each width threshold at every row
+    count of EDGE_ROWS and both sides of the row threshold (the serial
+    path's 1-D rows too), both sides of count_and_rows's own thresholds,
+    one operand off 16-byte alignment, bit-31 and all-ones words (counts
+    of 32·W), and the stacked form past one parameter table of 256 rows.
+    Returns the number of cases."""
+    import math
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    th = kernels.thresholds()
+    op_t, car_t = th["count_op_rows"], th["count_and_rows"]
+    nm, sm = op_t["narrow_max_words"], op_t["split_min_words"]
+    cn, ci = car_t["narrow_max_words"], car_t["split_items"]
+    cm, csm = car_t["narrow_min_rows"], car_t["split_min_words"]
+    rb = car_t["rows_per_item"]
+    widths = sorted(set(EDGE_WIDTHS) | {nm - 1, nm, nm + 1, cn - 1, cn,
+                                        cn + 1, sm, sm + 1, csm, csm + 1})
+    row_counts = sorted(set(EDGE_ROWS) | {
+        op_t["split_rows"] - 1, op_t["split_rows"],
+        op_t["narrow_min_rows"] - 1, op_t["narrow_min_rows"], cm - 1, cm})
+    hit = {name: set() for name in kernels.regime_launches}
+
+    def took(name, want, fn, what):
+        before = dict(kernels.regime_launches[name])
+        got = fn()
+        new = {r for r, n in kernels.regime_launches[name].items()
+               if n > before[r]}
+        check(new == want, f"{name} at {what} took regimes {sorted(new)}, "
+              f"not {sorted(want)}")
+        hit[name] |= new
+        return got
+
+    def op_case(a, b, what):
+        want = {kernels.regime("count_op_rows", math.prod(a.shape[:-1]),
+                               a.shape[-1])}
+        for op in OPS:
+            note("count_op_rows", took(
+                "count_op_rows", want,
+                lambda: kernels.count_op_rows(a, b, op), what),
+                kernels.count_op_rows_plain(a, b, op), f"{what} op {op}")
+        note("count_rows", took("count_rows", want,
+                                lambda: kernels.count_rows(a), what),
+             kernels.count_rows_plain(a), what)
+
+    def frag_case(m, f, what):
+        want = {kernels.regime("count_and_rows", m.shape[0], m.shape[1])}
+        note("count_and_rows", took("count_and_rows", want,
+                                    lambda: kernels.count_and_rows(m, f),
+                                    what),
+             kernels.count_and_rows_plain(m, f), what)
+
+    def stack_case(rows, f, what):
+        want = {kernels.regime("count_and_rows",
+                               min(kernels.CAR_MAX_ROWS, len(rows) - r0),
+                               f.shape[1], f.shape[0])
+                for r0 in range(0, len(rows), kernels.CAR_MAX_ROWS)}
+        note("count_and_rows", took(
+            "count_and_rows", want,
+            lambda: kernels.count_and_rows_stacks(rows, f), what),
+            kernels.count_and_rows_stacks_plain(rows, f), what)
+
+    def off(r, w, k=1):
+        """[r, w] words starting k words past a 16-byte boundary."""
+        return rand(r * w + k)[k:].view(r, w)
+
+    cases = 0
+    for w in widths:
+        op_case(rand(w), rand(w), f"[{w}] (1-D)")
+        cases += 1
+        for r in row_counts:
+            if r * w > 600_000_000:  # [262144, 32768]: 34 GB an operand
+                continue
+            a, b = rand(r, w), rand(r, w)
+            op_case(a, b, f"[{r}, {w}]")
+            frag_case(a, b[0], f"[{r}, {w}] & [{w}]")
+            cases += 2
+    del a, b
+    # count_and_rows's own thresholds: the split width on both sides, and
+    # rows of one slice at one item under and at the split threshold,
+    # just past the split width; both sides of the narrow (row, slice)
+    # minimum; the narrow items' chunk of rows, cut to fill the card and
+    # whole.
+    for r, w in ((rb * (ci - 1), csm + 1), (rb * (ci - 1) + 1, csm + 1),
+                 (rb, csm), (rb, csm + 1), (cm - 1, 128), (cm, 128),
+                 (9537, 256), (2105, 2 * cn + 1)):
+        frag_case(rand(r, w), rand(w), f"[{r}, {w}] & [{w}]")
+        cases += 1
+    for r, sl, w in ((rb, ci - 1, 2 * csm), (rb, ci, 2 * csm),
+                     (300, 3, 128), (300, 1, WORDS32), (300, 30, 2 * csm),
+                     (9, 2000, cn), (9, 2000, cn + 1), (11, 1, WORDS32),
+                     (1, ci - 1, csm + 1), (1, ci, csm + 1),
+                     (1, cm - 1, 128), (1, cm, 128)):
+        stack_case([rand(sl, w) for _ in range(r)], rand(sl, w),
+                   f"{r} stacks x [{sl}, {w}]")
+        cases += 1
+    # One operand off 16-byte alignment, in each regime.
+    for r, w in ((9, 128), (7, 130), (9000, 130), (1, WORDS32),
+                 (300, 4096), (2105, 1025)):
+        op_case(off(r, w), rand(r, w), f"[{r}, {w}], a 1 word off")
+        op_case(rand(r, w), off(r, w, 2), f"[{r}, {w}], b 2 words off")
+        frag_case(off(r, w), rand(w), f"[{r}, {w}] 1 word off & [{w}]")
+        frag_case(rand(r, w), rand(w + 3)[3:], f"[{r}, {w}] & [{w}] 3 off")
+        cases += 4
+    for sl, w in ((37, 128), (500, 128), (7, 4096), (64, 4096)):
+        stack_case([off(sl, w, k % 4) for k in range(9)], rand(sl, w),
+                   f"9 stacks x [{sl}, {w}], k words off")
+        cases += 1
+    # Bit 31 and all-ones words, in each regime: an all-ones row against
+    # an all-ones filter counts 32·W.
+    for fill in (-2**31, -1):
+        for r, w in ((9, 128), (5000, 128), (1, WORDS32), (300, 4096),
+                     (2105, 1025), (11, WORDS32)):
+            m = torch.full((r, w), fill, dtype=torch.int32, device=DEVICE)
+            ones = torch.full((w,), -1, dtype=torch.int32, device=DEVICE)
+            op_case(m, rand(r, w), f"[{r}, {w}] fill {fill}")
+            frag_case(m, ones, f"[{r}, {w}] fill {fill} & all-ones")
+            stack_case([m, m], ones.expand(r, w).contiguous(),
+                       f"2 stacks [{r}, {w}] fill {fill} & all-ones")
+            if fill == -1:
+                check(bool((kernels.count_rows(m) == 32 * w).all()),
+                      f"count_rows [{r}, {w}] all-ones != {32 * w}")
+                check(bool((kernels.count_and_rows(m, ones)
+                            == 32 * w).all()),
+                      f"count_and_rows [{r}, {w}] all-ones != {32 * w}")
+            cases += 3
+    del m, ones
+    for name, regimes in hit.items():
+        check(regimes == set(kernels.REGIMES),
+              f"{name}: the boundary cases took regimes {sorted(regimes)} "
+              f"only")
+    return cases
+
 
 def kernel_checks(slices, card):
     """Each kernel equal to its plain version; timings at the main
@@ -394,10 +685,52 @@ def kernel_checks(slices, card):
              f"fill {fill}")
     cases += 8
     del pa, pb, base, stk, m, r
+    n = regime_checks(rand, note)
+    cases += n
+    sync()
+    print(f"regimes: {n} boundary cases exact, each in the regime its "
+          f"thresholds name, all three regimes of each kernel taken; "
+          f"max_abs_err {max_err} {card}")
+
+    # The launch floor: an empty kernel, timed as the count kernels are,
+    # from the host (each call's Python and ctypes work included) and
+    # replayed from a CUDA graph (the device's time alone).
+    import ctypes
+
+    from pilosa_tpu_torch.ops import loader
+
+    empty_fn = loader.library("popcount").pilosa_empty_launch
+    empty_fn.argtypes = [ctypes.c_void_p]
+    empty_fn.restype = ctypes.c_int
+
+    def empty():
+        check(empty_fn(torch.cuda.current_stream().cuda_stream) == 0,
+              "empty launch failed")
+
+    floor = (timed_ms(empty, reps=200), graph_ms(empty, reps=200),
+             one_ms(empty), sync_ms(empty))
+    print(f"launch floor: empty kernel {floor[0]:.4f} ms a call from the "
+          f"host, {floor[1]:.4f} ms a launch from a CUDA graph, "
+          f"{floor[2]:.4f} ms a lone launch, {floor[3]:.4f} ms a call and "
+          f"synchronize {card}")
+
+    def regime_of(name, fn):
+        before = dict(kernels.regime_launches[name])
+        fn()
+        return "+".join(r for r, c in kernels.regime_launches[name].items()
+                        if c > before[r])
+
+    def and_rows_op(x, y):
+        return kernels.count_op_rows(x, y, "and")
+
+    def and_pairs(x, y):
+        return kernels.count_op_pairs(x, y, "and")
 
     # The column-window buckets of the batched plans: every kernel at
-    # [slices, W] for each width W, timed against its bound;
-    # count_op_pairs over GROUP_PAIRS distinct pairs.
+    # [slices, W] for each width W, timed against its bound, a call from
+    # the host (warm inputs, host work included) and a launch on cold
+    # inputs from a CUDA graph (the device's time); count_op_pairs over
+    # GROUP_PAIRS distinct pairs.
     buckets = []
     for w in WINDOW_BUCKETS:
         a, b = rand(slices, w), rand(slices, w)
@@ -411,29 +744,32 @@ def kernel_checks(slices, card):
              kernels.count_op_pairs_plain(cands, others, "and"),
              f"{GROUP_PAIRS} pairs x [{slices}, {w}]")
         cases += 3
-        row = {"width": w}
-        for name, fn, bound in (
-                ("count_op_rows", lambda: kernels.count_op_rows(a, b, "and"),
+        row = {"width": w, "regime": {}}
+        for name, fn, args, bound in (
+                ("count_op_rows", and_rows_op, (a, b),
                  bound_ms(slices, w, 2)),
-                ("count_rows", lambda: kernels.count_rows(a),
+                ("count_rows", kernels.count_rows, (a,),
                  bound_ms(slices, w, 1)),
-                ("count_and_rows",
-                 lambda: kernels.count_and_rows_stacks(cands, a),
+                ("count_and_rows", kernels.count_and_rows_stacks, (cands, a),
                  and_rows_bound_ms(TOPN_CANDIDATES, slices, w)),
-                ("count_op_pairs",
-                 lambda: kernels.count_op_pairs(cands, others, "and"),
+                ("count_op_pairs", and_pairs, (cands, others),
                  bound_ms(GROUP_PAIRS * slices, w, 2))):
-            row[name] = (timed_ms(fn, reps=20), bound[0])
+            if name in kernels.regime_launches:
+                row["regime"][name] = regime_of(name, lambda: fn(*args))
+            row[name] = (timed_ms(lambda: fn(*args), reps=20),
+                         cold_ms(fn, *args), bound[0])
         buckets.append(row)
         del a, b, cands, others
     for row in buckets:
         print(f"window bucket [{slices}, {row['width']}]: " + "; ".join(
-            f"{n} {row[n][0]:.4f} ms (bound {row[n][1]:.4f}, "
-            f"{row[n][1] / row[n][0]:.1%})"
+            f"{n} ({row['regime'].get(n, 'full')}) {row[n][0]:.4f} ms a "
+            f"call, {row[n][1]:.4f} ms device (bound {row[n][2]:.4f}, "
+            f"{row[n][2] / row[n][1]:.1%} of it device)"
             for n in ("count_op_rows", "count_rows", "count_and_rows",
                       "count_op_pairs"))
             + f" (count_and_rows: {TOPN_CANDIDATES} stacks; count_op_pairs:"
-              f" {GROUP_PAIRS} pairs) {card}")
+              f" {GROUP_PAIRS} pairs; launch floor {floor[0]:.4f} ms a "
+              f"call, {floor[1]:.4f} device) {card}")
 
     # count_and_rows's fragment form: one strided launch for every row
     # of a narrow fragment matrix (the chemical-similarity TopN's shape).
@@ -447,17 +783,60 @@ def kernel_checks(slices, card):
          f"fragment form [{FRAG_FORM_ROWS}, 128]")
     cases += 1
     frag_ms = timed_ms(lambda: kernels.count_and_rows(m, f), reps=20)
+    frag_dev = cold_ms(kernels.count_and_rows, m, f)
     frag_plain = timed_ms(lambda: kernels.count_and_rows_plain(m, f),
                           reps=5, warm=1)
-    nbytes = (FRAG_FORM_ROWS + 1) * 128 * 4 + FRAG_FORM_ROWS * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ms(FRAG_FORM_ROWS * 128, 2 * FRAG_FORM_ROWS * 128)
-    print(f"count_and_rows fragment form [{FRAG_FORM_ROWS}, 128] & [128]: "
-          f"1 launch, {frag_ms:.4f} ms, plain version {frag_plain:.4f} ms, "
-          f"bytes {nbytes}, bound {max(t_bytes, t_ops):.4f} ms "
-          f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
-          f"{max(t_bytes, t_ops) / frag_ms:.1%} of bound {card}")
+    frag_bound, by, nbytes = and_rows_bound_ms(FRAG_FORM_ROWS, 1, 128)
+    print(f"count_and_rows fragment form [{FRAG_FORM_ROWS}, 128] & [128] "
+          f"({regime_of('count_and_rows', lambda: kernels.count_and_rows(m, f))}"
+          f"): 1 launch, {frag_ms:.4f} ms a call, {frag_dev:.4f} ms device, "
+          f"plain version {frag_plain:.4f} ms, bytes {nbytes}, bound "
+          f"{frag_bound:.4f} ms ({by}), {frag_bound / frag_dev:.1%} of "
+          f"bound device; launch floor {floor[1]:.4f} ms device {card}")
     del m, f, got
+
+    # The serial path's shapes: one launch a slice on a 1-D row (Count's
+    # Bitmap.op_count), and the fragment form at S = 1 with 8 rows (TopN
+    # with a Src) or 11 (Sum's planes and not-null row). Each timed as
+    # the buckets are, as a lone launch on cold inputs (one_ms, what the
+    # serial path waits for on the device) and as a call and synchronize
+    # (what it pays a slice).
+    a1, b1 = rand(WORDS32), rand(WORDS32)
+    a128, b128 = rand(128), rand(128)
+    m8, m11, f1 = rand(8, WORDS32), rand(11, WORDS32), rand(WORDS32)
+    plain = {"count_op_rows": lambda x, y: kernels.count_op_rows_plain(
+                 x, y, "and"),
+             "count_rows": kernels.count_rows_plain,
+             "count_and_rows": kernels.count_and_rows_plain}
+    for label, name, fn, args, bound in (
+            (f"count_op_rows[and] [1, {WORDS32}]", "count_op_rows",
+             and_rows_op, (a1, b1), bound_ms(1, WORDS32, 2)[0]),
+            (f"count_rows [1, {WORDS32}]", "count_rows", kernels.count_rows,
+             (a1,), bound_ms(1, WORDS32, 1)[0]),
+            ("count_op_rows[and] [1, 128]", "count_op_rows", and_rows_op,
+             (a128, b128), bound_ms(1, 128, 2)[0]),
+            ("count_rows [1, 128]", "count_rows", kernels.count_rows,
+             (a128,), bound_ms(1, 128, 1)[0]),
+            (f"count_and_rows [8, {WORDS32}] & [{WORDS32}]", "count_and_rows",
+             kernels.count_and_rows, (m8, f1),
+             and_rows_bound_ms(8, 1, WORDS32)[0]),
+            (f"count_and_rows [11, {WORDS32}] & [{WORDS32}]",
+             "count_and_rows", kernels.count_and_rows, (m11, f1),
+             and_rows_bound_ms(11, 1, WORDS32)[0])):
+        note(name, fn(*args), plain[name](*args), label)
+        cases += 1
+        call = timed_ms(lambda: fn(*args), reps=200)
+        dev = cold_ms(fn, *args, reps=100)
+        lone = one_ms(fn, *args)
+        waited = sync_ms(lambda: fn(*args))
+        print(f"serial shape {label} ({regime_of(name, lambda: fn(*args))}):"
+              f" {lone:.4f} ms a lone launch on cold inputs, {waited:.4f} "
+              f"ms a call and synchronize, {dev:.4f} ms a launch back to "
+              f"back, {call:.4f} ms a call; bound {bound:.4f} ms; launch "
+              f"floor {floor[2]:.4f} ms lone, {floor[3]:.4f} call and "
+              f"synchronize; lone / (floor + bound) "
+              f"{lone / (floor[2] + bound):.2f} {card}")
+    del a1, b1, a128, b128, m8, m11, f1
 
     a, b = rand(slices, WORDS32), rand(slices, WORDS32)
     compare(a, b)
@@ -824,6 +1203,7 @@ def main_path(slices, seed, datadir, card, oracle):
     want = [int(c) for c in per_slice.sum(axis=1)]
     check(got == want[2], f"{q_and}: {got} != oracle {want[2]}")
     n_ser = min(SERIAL_SLICES, slices)
+    serial_ms = []
 
     def run_all(tag):
         want_ser = per_slice[:, :n_ser].sum(axis=1)
@@ -836,6 +1216,8 @@ def main_path(slices, seed, datadir, card, oracle):
                 got = ex.execute("i", q, slices=span)[0]
                 dt = time.perf_counter() - t
                 check(got == w, f"{tag} {path} {q}: {got} != oracle {w}")
+                if path == "serial":
+                    serial_ms.append(dt * 1e3)
                 print(f"  {tag} {path:7s} {dt * 1e3:9.2f} ms  {got:>13d}  "
                       f"{q} over {len(span)} slices")
         ex._force_path = None
@@ -866,7 +1248,7 @@ def main_path(slices, seed, datadir, card, oracle):
         want = [int(c) for c in per_slice.sum(axis=1)]
         run_all(verb.lower())
     bitmap_reads(ex, slices, oracle_ids, card)
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     peak = peak_bytes()
     holder.close()
     check(launches["count_op_rows"] and launches["count_rows"],
@@ -879,7 +1261,9 @@ def main_path(slices, seed, datadir, card, oracle):
           f"{first_s:.2f} s (stacks built), warm Count(Intersect) over "
           f"{slices} slices: p50 {np.percentile(lat_ms, 50):.3f} ms, p90 "
           f"{np.percentile(lat_ms, 90):.3f} ms, max {lat_ms.max():.3f} ms "
-          f"(n=100, host clock to torch.cuda.synchronize()); "
+          f"(n=100, host clock to torch.cuda.synchronize()); serial path "
+          f"over {n_ser} slices {np.mean(serial_ms):.1f} ms per query (mean "
+          f"of {len(serial_ms)}, {min(serial_ms):.1f}-{max(serial_ms):.1f}); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; "
           f"launches {launches}")
     oracle.update(count_and=want[2], and_ids=oracle_ids[1],
@@ -951,7 +1335,7 @@ def governor_path(slices, datadir, card, oracle):
               f"{q} -> {got}; resident {rb} bytes, evictions "
               f"{gov.evictions}, faults {gov.faults}")
     ex._force_path = None
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     snap = gov.snapshot()
     holder.close()
     check(snap["evictions"] > 0 and snap["faults"] > 0,
@@ -1179,7 +1563,7 @@ def topn_path(slices, seed, datadir, card):
         counts[s], f1_n[s] = topn_slice_counts(words, slice_words(seed, s))
         want, want_ser = answers()
         run(verb.lower(), "abef")
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     peak = peak_bytes()
     holder.close()
     check(launches["count_and_rows"] > 0,
@@ -1472,7 +1856,7 @@ def bsi_path(slices, seed, datadir, card, oracle):
     hist[s], gstats[s] = bsi_slice_hist(v, nn, slice_words(seed, s))
     want, want_ser = bsi_answers(hist), bsi_answers(hist[:n_ser])
     run("setfieldvalue", ["a_sum", "c", "f_max"])
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     peak = peak_bytes()
     holder.close()
     check(all(launches[k] for k in QUERY_KERNELS),
@@ -1674,7 +2058,7 @@ def server_path(slices, seed, datadir, card, oracle):
               f"({json_ms / h50:.1%} of the HTTP p50)")
         del body, cols, bm
 
-        launches_a = dict(kernels.launches)
+        launches_a = launch_counts()
         launches_c = concurrency_path(server, slices, seed, oracle, card)
         kernels.reset_launches()
 
@@ -1749,8 +2133,7 @@ def server_path(slices, seed, datadir, card, oracle):
               f"{import_s:.2f} s, its Count and /slices/max; POST "
               f"/import-value of 1000 stars and Sum; GET /export of slice "
               f"{slices} ({len(data)} bytes) equal to numpy {card}")
-        launches = {k: launches_a[k] + v
-                    for k, v in kernels.launches.items()}
+        launches = add_counts(launches_a, launch_counts())
         peak = peak_bytes()
     finally:
         conn.close()
@@ -2019,7 +2402,7 @@ def concurrency_path(server, slices, seed, oracle, card):
         check(stats["hits"] >= 100, f"8c memo: response cache {stats}")
     finally:
         ex._result_memo_off = True
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     check(launches["count_op_pairs"] and launches["count_and_rows_multi"],
           f"8c: a group kernel never launched: {launches}")
     print(f"8c memos on: warm repeat of {q} p50 {memo_ms:.4f} ms in process, "
@@ -2326,7 +2709,7 @@ def events_path(slices, seed, datadir, card):
             w[2] = w[3] = n + delta   # the month and the year
             w[6] = delta              # June 15-25
         run(verb.lower(), ["month", "June 15-25", "14 days"])
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     peak = peak_bytes()
     holder.close()
     check(launches["count_op_rows"] and launches["count_rows"],
@@ -2477,7 +2860,7 @@ def chem_path(seed, datadir, card):
     per_topn = kernels.launches["count_and_rows"] - before
     lat_ms, got = p50_ms(lambda: ex.execute("chem", q0)[0], 20)
     check(got == cases[0][1], "warm chem TopN changed")
-    launches = dict(kernels.launches)
+    launches = launch_counts()
     peak = peak_bytes()
     holder.close()
     check(all(launches[k] for k in QUERY_KERNELS),
@@ -2563,7 +2946,11 @@ def main():
             return
         t = time.perf_counter()
         out = fn(*a)
-        phase_launches.extend(out if isinstance(out, list) else [out])
+        outs = out if isinstance(out, list) else [out]
+        phase_launches.extend(outs)
+        for part, counts in zip(("", "c"), outs):
+            print(f"phase {name}{part} launches by regime: "
+                  f"{json.dumps(counts['regimes'])}")
         print(f"phase {name}: {time.perf_counter() - t:.1f} s {card}")
 
     try:
@@ -2590,6 +2977,13 @@ def main():
         phase("9", "9", chem_path, args.seed, datadir, card)
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
+    if phase_launches:
+        total = phase_launches[0]
+        for counts in phase_launches[1:]:
+            total = add_counts(total, counts)
+        print(f"launches by regime, phases {sorted(only) if only else '4-9'}"
+              f" (8b's subprocess not counted): "
+              f"{json.dumps(total['regimes'])} {card}")
     if only:
         print(f"chip_smoke: phases {sorted(only)} in "
               f"{time.perf_counter() - t_start:.1f} s {card}; a partial "

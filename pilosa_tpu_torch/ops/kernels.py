@@ -25,7 +25,12 @@ Words are ``int32`` views of the 32-bit device words, shape
 ``[..., W]``; results are ``int32[...]``. A wrapper takes the plain
 version ONLY for tensors on the CPU. For a CUDA tensor it launches the
 kernel or raises — there is no fallback. ``launches`` counts kernel
-launches per wrapper.
+launches per wrapper; ``regime_launches`` splits those of
+``count_op_rows``, ``count_rows`` and ``count_and_rows`` by the
+decomposition the launch took from its shape (``csrc/popcount.cu`` and
+``csrc/count_and_rows.cu``): ``narrow`` (narrow rows, a lane group a
+row), ``split`` (few wide rows, a cluster of blocks a row) or ``full``
+(a block a row).
 """
 import ctypes
 import math
@@ -45,6 +50,11 @@ MAX_WIDTH = (1 << 26) - 1
 
 launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0,
             "count_op_pairs": 0, "count_and_rows_multi": 0}
+# The kernels' regime codes (REGIME_* in the CUDA sources), by value.
+REGIMES = ("full", "narrow", "split")
+regime_launches = {name: dict.fromkeys(REGIMES, 0)
+                   for name in ("count_op_rows", "count_rows",
+                                "count_and_rows")}
 # Server threads launch concurrently; a count is a read-modify-write.
 _launches_mu = threading.Lock()
 
@@ -63,11 +73,16 @@ def reset_launches():
     with _launches_mu:
         for name in launches:
             launches[name] = 0
+        for split in regime_launches.values():
+            for regime in split:
+                split[regime] = 0
 
 
-def _count_launch(name):
+def _count_launch(name, regime=None):
     with _launches_mu:
         launches[name] += 1
+        if regime is not None:
+            regime_launches[name][REGIMES[regime]] += 1
 
 
 # ----------------------------------------------------------- plain versions
@@ -172,7 +187,7 @@ def _kernel():
         fn = lib.pilosa_count_op_rows
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.pilosa_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pilosa_cuda_error_string.restype = ctypes.c_char_p
@@ -188,14 +203,15 @@ def _launch(name, a, b, op):
     if rows == 0:
         return out
     fn, err_str = _kernel()
+    regime = ctypes.c_int(-1)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), rows, a.shape[-1], op,
-                out.data_ptr(), stream)
+                out.data_ptr(), stream, ctypes.byref(regime))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
                            f"({err_str(rc).decode()})")
-    _count_launch(name)
+    _count_launch(name, regime.value)
     return out
 
 
@@ -206,7 +222,8 @@ def _car_kernel():
         fn = lib.pilosa_count_and_rows
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.pilosa_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pilosa_cuda_error_string.restype = ctypes.c_char_p
@@ -221,7 +238,8 @@ def _car_strided_kernel():
         fn = lib.pilosa_count_and_rows_strided
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         _car_strided_fn = (fn, _car_kernel()[1])
     return _car_strided_fn
@@ -236,17 +254,19 @@ def _launch_and_rows(ptrs, filt, slices, width, out):
     if filt.device.type != "cuda":
         raise ValueError(f"count_and_rows: no kernel for device {filt.device}")
     fn, err_str = _car_kernel()
+    regime = ctypes.c_int(-1)
     with torch.cuda.device(filt.device):
         stream = torch.cuda.current_stream(filt.device).cuda_stream
         for r0 in range(0, len(ptrs), CAR_MAX_ROWS):
             table = np.asarray(ptrs[r0:r0 + CAR_MAX_ROWS], dtype=np.uint64)
             rc = fn(table.ctypes.data, len(table), filt.data_ptr(), slices,
-                    width, out.data_ptr() + r0 * slices * 4, slices, stream)
+                    width, out.data_ptr() + r0 * slices * 4, slices, stream,
+                    ctypes.byref(regime))
             if rc != 0:
                 raise RuntimeError(
                     f"count_and_rows: kernel launch failed: CUDA error "
                     f"{rc} ({err_str(rc).decode()})")
-            _count_launch("count_and_rows")
+            _count_launch("count_and_rows", regime.value)
 
 
 def count_and_rows(m, filt):
@@ -268,14 +288,15 @@ def count_and_rows(m, filt):
     if rows:
         # Row r at m + r·width words: one launch for every row.
         fn, err_str = _car_strided_kernel()
+        regime = ctypes.c_int(-1)
         with torch.cuda.device(filt.device):
             stream = torch.cuda.current_stream(filt.device).cuda_stream
             rc = fn(m.data_ptr(), max(width, 1), rows, filt.data_ptr(), 1,
-                    width, out.data_ptr(), 1, stream)
+                    width, out.data_ptr(), 1, stream, ctypes.byref(regime))
         if rc != 0:
             raise RuntimeError(f"count_and_rows: kernel launch failed: CUDA "
                                f"error {rc} ({err_str(rc).decode()})")
-        _count_launch("count_and_rows")
+        _count_launch("count_and_rows", regime.value)
     return out
 
 
@@ -297,6 +318,51 @@ def count_and_rows_stacks(rows, filt):
         _launch_and_rows([r.data_ptr() for r in rows], filt, slices, width,
                          out)
     return out
+
+
+_thresholds = None
+
+
+def thresholds():
+    """The regime thresholds of the CUDA sources, read once from the
+    built libraries: ``count_op_rows`` (and ``count_rows``):
+    ``narrow_max_words``, ``split_min_words``, ``split_rows``,
+    ``narrow_min_rows``; ``count_and_rows``: ``narrow_max_words``,
+    ``split_items`` (items of ``rows_per_item`` rows of one slice),
+    ``narrow_chunk`` (the most rows a narrow lane group walks with one
+    load of its filter), ``narrow_min_rows`` ((row, slice) counts),
+    ``split_min_words``."""
+    global _thresholds
+    if _thresholds is None:
+        got = {}
+        for lib, name, keys in (
+                ("popcount", "pilosa_count_op_rows_thresholds",
+                 ("narrow_max_words", "split_min_words", "split_rows",
+                  "narrow_min_rows")),
+                ("count_and_rows", "pilosa_count_and_rows_thresholds",
+                 ("narrow_max_words", "split_items", "rows_per_item",
+                  "narrow_chunk", "narrow_min_rows", "split_min_words"))):
+            vals = (ctypes.c_longlong * len(keys))()
+            getattr(loader.library(lib), name)(vals)
+            got[name[len("pilosa_"):-len("_thresholds")]] = dict(
+                zip(keys, map(int, vals)))
+        got["count_rows"] = got["count_op_rows"]
+        _thresholds = got
+    return _thresholds
+
+
+def regime(name, rows, width, slices=1):
+    """The regime (one of REGIMES) that one launch of kernel ``name``
+    (``count_op_rows``, ``count_rows`` or ``count_and_rows``) takes over
+    ``rows`` rows of [slices, width] words, as the CUDA source decides
+    it (count_and_rows: at most CAR_MAX_ROWS rows a launch)."""
+    if name == "count_and_rows":
+        fn = loader.library("count_and_rows").pilosa_count_and_rows_regime
+        fn.argtypes = [ctypes.c_longlong] * 3
+        return REGIMES[fn(rows, slices, width)]
+    fn = loader.library("popcount").pilosa_count_op_rows_regime
+    fn.argtypes = [ctypes.c_longlong] * 2
+    return REGIMES[fn(rows * slices, width)]
 
 
 def count_op_rows(a, b, op):

@@ -134,6 +134,51 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
                                 "count_and_rows_multi": 0}
 
 
+def test_cpu_wrappers_count_no_regime():
+    kernels.reset_launches()
+    a = _t(_words("random", (11, 32768), 32))
+    kernels.count_rows(a)
+    kernels.count_op_rows(a[0], a[1], "and")
+    kernels.count_and_rows(a, a[0])
+    assert all(n == 0 for split in kernels.regime_launches.values()
+               for n in split.values())
+    assert set(kernels.regime_launches) == {"count_op_rows", "count_rows",
+                                            "count_and_rows"}
+    assert all(tuple(split) == kernels.REGIMES
+               for split in kernels.regime_launches.values())
+
+
+# The shapes of the CUDA kernels' narrow and split regimes: a serial
+# launch's one row and 11 rows, narrow windows, widths that are not a
+# multiple of 128 (or of 4).
+REGIME_SHAPES = ((1, 32768), (1, 2049), (11, 32768), (11, 1025),
+                 (300, 128), (33, 127), (9, 129), (2, 5))
+
+
+@pytest.mark.parametrize("shape", REGIME_SHAPES)
+@pytest.mark.parametrize("kind", ("random", "ones", "bit31"))
+def test_regime_shapes_match_pallas_interpret(kind, shape):
+    a = _words(kind, shape, 33)
+    b = _words("random", shape, 34)
+    want = int(pk.count_and(jnp.asarray(a), jnp.asarray(b)))
+    assert int(bitops.count_and(_t(a), _t(b))) == want
+    got = bitops.count_rows(_t(a))
+    assert (got.numpy() == np.asarray(pk.count_rows(jnp.asarray(a)))).all()
+    got = bitops.count_and_rows(_t(a), _t(b[0]))
+    assert (got.numpy() == np.asarray(pk.count_and_rows(
+        jnp.asarray(a), jnp.asarray(b[0])))).all()
+
+
+@pytest.mark.parametrize("width", [128, 129, 2049, 32768])
+@pytest.mark.parametrize("op", OPS)
+def test_one_dim_serial_rows_match_jax_bitops(op, width):
+    """The serial path's 1-D slice segments, one row a launch on the
+    card."""
+    a, b = _words("random", (width,), 35), _words("sparse", (width,), 36)
+    got = int(bitops.count_op(op, _t(a), _t(b)))
+    assert got == int(_J_COUNT[op](jnp.asarray(a), jnp.asarray(b)))
+
+
 @pytest.mark.parametrize("bad", [
     lambda a: (a.to(torch.int64), a.to(torch.int64)),     # dtype
     lambda a: (a, a[:, :32].contiguous()),                 # shape

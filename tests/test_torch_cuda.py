@@ -1,6 +1,8 @@
 """The CUDA kernels on the card: each held exactly against its plain
 version on the same device tensors (the coalescer's ``count_op_pairs``
-and ``count_and_rows_multi`` too); the executor's Count, TopN, BSI,
+and ``count_and_rows_multi`` too), ``count_op_rows``/``count_rows`` and
+``count_and_rows`` in each regime of their launch shapes at its edges;
+the executor's Count, TopN, BSI,
 time Range and bitmap-result paths and the coalescer's fused Count,
 Sum and Max groups on a GPU holder, and the HTTP
 ``Server`` on the card, against the same directory served on the CPU;
@@ -10,6 +12,8 @@ against a host unpacking of the same words. Marked
 fixture, never at import). Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 import json
+import re
+from collections import Counter
 from datetime import datetime
 
 import numpy as np
@@ -149,6 +153,184 @@ def test_launch_counters_count_launches_only(gen):
     assert kernels.launches == {"count_op_rows": 1, "count_rows": 1,
                                 "count_and_rows": 1, "count_op_pairs": 0,
                                 "count_and_rows_multi": 0}
+
+
+def test_regime_launches_split_the_launch_counts(gen):
+    kernels.reset_launches()
+    shapes = [(3000, 64), (1, 32768), (600, 4096), (32768,)]
+    for shape in shapes:
+        a = _rand(gen, *shape)
+        kernels.count_rows(a)
+        kernels.count_op_rows(a, a, "or")
+        if a.dim() == 2:
+            kernels.count_and_rows(a, a[0])
+    for name, split in kernels.regime_launches.items():
+        assert sum(split.values()) == kernels.launches[name]
+    op_want = Counter(kernels.regime("count_rows", 1 if len(s) == 1
+                                     else s[0], s[-1]) for s in shapes)
+    car_want = Counter(kernels.regime("count_and_rows", s[0], s[1])
+                       for s in shapes if len(s) == 2)
+    for name, want in (("count_rows", op_want), ("count_op_rows", op_want),
+                       ("count_and_rows", car_want)):
+        assert kernels.regime_launches[name] == {
+            r: want[r] for r in kernels.REGIMES}
+    assert set(op_want) == set(kernels.REGIMES)
+    kernels.reset_launches()
+    assert all(n == 0 for split in kernels.regime_launches.values()
+               for n in split.values())
+
+
+# Sizes at the regime thresholds of csrc/popcount.cu and
+# csrc/count_and_rows.cu, named here and read from the built libraries
+# (kernels.thresholds()) on the card: "op_split_rows-1" is one row below
+# count_op_rows's split threshold. Each case below must take the regime
+# the source names for its shape (kernels.regime).
+_EDGES = {
+    "op_narrow_max": lambda t: t["count_op_rows"]["narrow_max_words"],
+    "op_split_min": lambda t: t["count_op_rows"]["split_min_words"],
+    "op_split_rows": lambda t: t["count_op_rows"]["split_rows"],
+    "op_narrow_min": lambda t: t["count_op_rows"]["narrow_min_rows"],
+    "car_narrow_max": lambda t: t["count_and_rows"]["narrow_max_words"],
+    "car_narrow_min": lambda t: t["count_and_rows"]["narrow_min_rows"],
+    "car_split_min": lambda t: t["count_and_rows"]["split_min_words"],
+    "car_split_items": lambda t: t["count_and_rows"]["split_items"],
+    # The most rows of one slice that still split.
+    "car_split_rows": lambda t: (t["count_and_rows"]["split_items"] - 1)
+    * t["count_and_rows"]["rows_per_item"],
+}
+
+
+def _at(size):
+    """An int, or a threshold named in _EDGES with an offset."""
+    if isinstance(size, int):
+        return size
+    name, off = re.fullmatch(r"(\w+?)([+-]\d+)?", size).groups()
+    return _EDGES[name](kernels.thresholds()) + int(off or 0)
+
+
+def _took(name, fn):
+    """fn()'s result and the regimes its launches of ``name`` took."""
+    before = dict(kernels.regime_launches[name])
+    got = fn()
+    return got, {r for r, n in kernels.regime_launches[name].items()
+                 if n > before[r]}
+
+
+def _check_op_kernels(a, b):
+    rows = 1 if a.dim() == 1 else a.shape[0]
+    want = {kernels.regime("count_op_rows", rows, a.shape[-1])}
+    for op in OPS:
+        got, took = _took("count_op_rows",
+                          lambda: kernels.count_op_rows(a, b, op))
+        assert took == want
+        assert torch.equal(got, kernels.count_op_rows_plain(a, b, op))
+    got, took = _took("count_rows", lambda: kernels.count_rows(a))
+    assert took == want
+    assert torch.equal(got, kernels.count_rows_plain(a))
+
+
+def _check_fragment_form(m, f):
+    got, took = _took("count_and_rows", lambda: kernels.count_and_rows(m, f))
+    assert took == {kernels.regime("count_and_rows", m.shape[0], m.shape[1])}
+    assert torch.equal(got, kernels.count_and_rows_plain(m, f))
+
+
+def _check_stacked_form(rows, f):
+    got, took = _took("count_and_rows",
+                      lambda: kernels.count_and_rows_stacks(rows, f))
+    assert took == {kernels.regime("count_and_rows",
+                                   min(kernels.CAR_MAX_ROWS, len(rows) - r0),
+                                   f.shape[1], f.shape[0])
+                    for r0 in range(0, len(rows), kernels.CAR_MAX_ROWS)}
+    assert torch.equal(got, kernels.count_and_rows_stacks_plain(rows, f))
+
+
+EDGE_WIDTHS = (1, 3, 4, 5, 127, 128, 129, "op_narrow_max-1", "op_narrow_max",
+               "op_narrow_max+1", "car_narrow_max-1", "car_narrow_max",
+               "car_narrow_max+1", 2047, 2048, 2049, "car_split_min",
+               "car_split_min+1", "op_split_min", "op_split_min+1", 32768)
+EDGE_ROWS = (1, 2, 7, 8, 9, 11, "op_split_rows-1", "op_split_rows",
+             "op_narrow_min-1", "op_narrow_min")
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+def test_count_op_rows_regimes_at_edges(gen, rows, width):
+    rows, width = _at(rows), _at(width)
+    _check_op_kernels(_rand(gen, rows, width), _rand(gen, rows, width))
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+def test_count_op_rows_one_dim_rows(gen, width):
+    """The serial path's 1-D slice segments: one row a launch."""
+    width = _at(width)
+    _check_op_kernels(_rand(gen, width), _rand(gen, width))
+
+
+@pytest.mark.parametrize("width", [1, 5, 128, 129, 513, 2049])
+def test_count_kernels_at_262144_rows(gen, width):
+    a, b = _rand(gen, 262_144, width), _rand(gen, 262_144, width)
+    _check_op_kernels(a, b)
+    _check_fragment_form(a, b[0])
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+@pytest.mark.parametrize("rows", EDGE_ROWS + (
+    "car_narrow_min-1", "car_narrow_min", "car_split_rows",
+    "car_split_rows+1", 9537))
+def test_count_and_rows_fragment_regimes_at_edges(gen, rows, width):
+    rows, width = _at(rows), _at(width)
+    _check_fragment_form(_rand(gen, rows, width), _rand(gen, width))
+
+
+@pytest.mark.parametrize("n_rows,slices,width", [
+    (8, "car_split_items-1", 4096), (8, "car_split_items", 4096),
+    (9, 2000, "car_narrow_max"), (9, 2000, "car_narrow_max+1"),
+    (11, 1, 32768), (1, "car_split_items-1", "car_split_min+1"),
+    (1, "car_split_items", "car_split_min+1"), (8, 4, "car_split_min"),
+    (8, 4, "car_split_min+1"), (1, "car_narrow_min-1", 128),
+    (1, "car_narrow_min", 128), (300, 3, 128), (300, 1, 32768),
+    (300, 30, 4096)])
+def test_count_and_rows_stacked_regimes_at_edges(gen, n_rows, slices,
+                                                 width):
+    """Both sides of the split threshold, and past one parameter table
+    of 256 rows (two launches, which may take two regimes)."""
+    slices, width = _at(slices), _at(width)
+    _check_stacked_form([_rand(gen, slices, width) for _ in range(n_rows)],
+                        _rand(gen, slices, width))
+
+
+@pytest.mark.parametrize("rows,width", [(9, 128), (7, 130), (9000, 130),
+                                        (1, 32768), (300, 4096),
+                                        (2105, 1025)])
+def test_regimes_with_one_operand_off_alignment(gen, rows, width):
+    def off(k):
+        return _rand(gen, rows * width + k)[k:].view(rows, width)
+
+    _check_op_kernels(off(1), _rand(gen, rows, width))
+    _check_op_kernels(_rand(gen, rows, width), off(2))
+    _check_fragment_form(off(1), _rand(gen, width))
+    _check_fragment_form(_rand(gen, rows, width),
+                         _rand(gen, width + 3)[3:])
+    _check_stacked_form([off(k % 4) for k in range(9)],
+                        _rand(gen, rows, width))
+
+
+@pytest.mark.parametrize("rows,width", [(9, 128), (5000, 128), (1, 32768),
+                                        (300, 4096), (2105, 1025),
+                                        (11, 32768)])
+@pytest.mark.parametrize("fill", [-2**31, -1])
+def test_regimes_bit31_and_all_ones(gen, fill, rows, width):
+    """Bit 31 (the sign bit of the int32 words) and all-ones rows, whose
+    counts reach 32·W, in every regime."""
+    m = torch.full((rows, width), fill, dtype=torch.int32, device="cuda")
+    ones = torch.full((width,), -1, dtype=torch.int32, device="cuda")
+    _check_op_kernels(m, _rand(gen, rows, width))
+    _check_fragment_form(m, ones)
+    _check_stacked_form([m, m], ones.expand(rows, width).contiguous())
+    if fill == -1:
+        assert bool((kernels.count_rows(m) == 32 * width).all())
+        assert bool((kernels.count_and_rows(m, ones) == 32 * width).all())
 
 
 def test_executor_on_gpu_matches_cpu(gen, tmp_path):
