@@ -28,7 +28,15 @@ Phases, each of which fails the run (exit code != 0, no result line):
    shape); time, bytes, bound and plain-version time at the main-path
    shape; the coalescer's group kernels ``count_op_pairs`` at 8
    distinct pairs of the main shape (and every bucket) and
-   ``count_and_rows_multi`` at 11 rows × 8 filters of it;
+   ``count_and_rows_multi`` at 11 rows × 8 filters of it; the container
+   tier's lane kernel ``container_and_counts`` in each cell (array ×
+   array, array × run, array × dense, run × dense) at its boundary
+   cases — 0, 1, 4,096 and bit-31 positions, 2,048 runs, a whole-row
+   run, an empty member among full ones, 4,097-bit, all-ones and bit-31
+   dense rows — with N = 1, 7 and 76,296 members, then timed at the
+   serial shapes (one member of phase 10's rows) and at a lane of
+   GROUP_PAIRS distinct array × array row pairs over 9,537 slices
+   (76,296 members of 500 × 300 positions);
 4. main path, Count and bitmap results — a data directory of N slices
    (default 9,537 = 10.0B columns; one index, one frame, three dense
    rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
@@ -122,23 +130,52 @@ Phases, each of which fails the run (exit code != 0, no result line):
    twice its host window; TopN with a Src and ``tanimotoThreshold=70``
    for four molecules, a Src-less TopN and Count(Intersect) of two
    molecules on both paths against a numpy oracle; the TopN p50 and the
-   ``count_and_rows`` launches per TopN.
+   ``count_and_rows`` launches per TopN;
+10. the sparse index — benchmarks/count100b.py's shape in a data
+   directory of its own: index ``ns``, frame ``f``, rows 1 and 2 of 500
+   and 300 bits spread over each slice (array containers), row 3 one
+   2,000-bit run a slice (a run container), row 0 at density 0.5
+   (dense), over 4,096 slices (``--sparse-slices``), opened lazily:
+   (a) Count of Intersect(1, 2), Intersect(1, 3), Union(1, 2),
+   Difference(1, 3) and Xor(2, 3), each alone through the container
+   lanes (one launch a format cell over every slice), first-query
+   seconds and p50 (n=5), then pinned serial (a launch a slice); (b)
+   Intersect(1, 0) and Intersect(3, 0) pinned serial (the array × dense
+   and run × dense cells); (c) a group of 8 concurrent Count(Intersect(a,
+   b)) over rows 1-3, released by a Barrier, through the coalescer's
+   container lanes (3 rounds) against the 8 served one after another,
+   with the lane launches and a round's host ms (the rows' cached
+   RowLanes, the cells' packing) against its kernel ms, and a row's cold
+   RowLane build; (d) ``Holder.memory_stats()``'s container rollup, the
+   array and run payload at least 10× under its dense equivalent, and
+   ``torch.cuda.max_memory_allocated()``; (e) the first query again with
+   the container tier off (``containers.set_enabled(False)``: the dense
+   batched route). Every answer against numpy;
+   ``container_and_counts`` must have launched.
 
 The result memos and the response cache are off
 (``PILOSA_TPU_RESULT_MEMO=0``) but in phase 8c's warm repeats, so the
 phases time execution; the coalescer is on (the card's default) and a
-lone query passes its tick alone.
+lone query passes its tick alone. The container tier is on (its
+default): a Count whose every row leaf is sparse (at most 4,096 bits)
+on every slice of fragments not faulted in stages no dense stack when
+it is a bare leaf or a two-operand node: it takes the container lanes.
+A deeper tree stays batched (from the tier it would run a launch a slice
+a node). Phase 7 prints the route of its windows and times the 14-view
+Count with the tier off too, phase 8c the route of its
+Count(Intersect(row 3, row 3)).
 
 Every open is lazy (no fragment file is read until a query touches
 it); each phase prints its open and first-query seconds. The serial
 path of phases 4-7 runs over the first 512 slices (the batched path
 and the top-level bare ``Bitmap`` over all of them), so that the script
 stays inside its 1,200 s limit (PERF.md §5 has the measured total).
-``--event-slices`` sets phase 7's slice count and ``--only`` runs a
-subset of phases 4-9 (no phase 3 and no result lines): both are for
-measurements, and the contract run takes neither.
+``--event-slices`` and ``--sparse-slices`` set phase 7's and phase
+10's slice counts and ``--only`` runs a subset of phases 4-10 (no phase
+3 and no result lines): all are for measurements, and the contract run
+takes none.
 
-Each of phases 4-9 prints its launches per kernel and, for
+Each of phases 4-10 prints its launches per kernel and, for
 ``count_op_rows``, ``count_rows`` and ``count_and_rows``, per regime; a
 line after them sums the regimes over the phases. The second-to-last
 line is a JSON object describing every kernel; the last is ``{"ok":
@@ -183,9 +220,13 @@ GOVERNED_BATCH = 2048       # slices of its batched Count and TopN
 # fragment files) the phase alone took 600.4 s on an H100 machine
 # (writes 191.2 s, the first 14-view Count 240.4 s), and at 4,096 slices
 # it carried the whole script past its 1,200 s limit on a slower host,
-# so the event-analytics example runs at 1,024 slices (1.1B columns;
+# so the event-analytics example runs at 1,024 slices (1.07B columns;
 # PERF.md §4).
 EVENT_SLICES = 1024
+# Slices of phase 10. reduced: count100b's shape is 95,368 slices (100B
+# columns); at 9,537 the phase took 82.4 s and the whole script 942.7 s
+# on a slower H100 host (PERF.md §4), too near the 1,200 s limit.
+SPARSE_SLICES = 4096
 CHEM_ROWS = 500_000         # phase 9's molecules
 CHEM_FAMILY = 100           # molecules per scaffold
 FRAG_FORM_ROWS = 524_288    # count_and_rows's fragment form in phase 3
@@ -980,6 +1021,238 @@ def kernel_checks(slices, card):
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return stats
+
+
+# The container tier's lane kernel: its cells, a big lane (GROUP_PAIRS
+# distinct array x array row pairs over every slice of MAIN_SLICES) and
+# the boundary cases of each side.
+CONT_CELLS = ("array_array", "array_run", "array_dense", "run_dense")
+CONT_LANE_MEMBERS = GROUP_PAIRS * MAIN_SLICES   # 76,296
+SECTOR_BYTES = 32   # one gathered word costs the sector it lies in
+
+
+def cont_side(fmt, n, seed, big=False):
+    """n members of one side of container_and_counts at full slice width,
+    cycling through the boundary cases of ``fmt`` (a big lane among 64
+    rows of 500 spread bits, phase 10's shape): arrays of 0, 1 (bit 31;
+    the last bit), 700, 4,096 positions and 4,096 bit-31 positions; runs
+    of 2,048 runs, one over the whole row, one across words, none, 2,000
+    bits (phase 10's row 3); dense rows of 4,097 bits (a 4,097-bit row
+    builds dense), all ones, bit 31 of every word, random, zeros. Members
+    share their case's payload. Returns (containers, packed side)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import containers as C
+
+    rng = np.random.default_rng(seed)
+    limit, w32 = SLICE_COLS, WORDS32
+
+    def spread(k):
+        return np.sort(rng.choice(limit, k, replace=False)).astype(np.int32)
+
+    if fmt == "array":
+        cases = [np.zeros(0, np.int32), np.array([31], np.int32),
+                 np.array([limit - 1], np.int32), spread(700), spread(4096),
+                 np.arange(31, limit, 32, dtype=np.int32)[:4096]]
+        if big:
+            cases += [spread(500) for _ in range(64)]
+        conts = [C.Container("array", w32, len(p), positions=p,
+                             device=DEVICE)
+                 for p in (cases[i % len(cases)] for i in range(n))]
+        return conts, C.stack_positions(conts)
+    if fmt == "run":
+        start = int(rng.integers(0, limit - 3000))
+        cases = [np.stack([np.arange(2048) * 6, np.arange(2048) * 6 + 3],
+                          axis=1), np.array([[0, limit]]),
+                 np.array([[30, 70]]), np.zeros((0, 2)),
+                 np.array([[start, start + 2000]])]
+        cases = [c.astype(np.int32) for c in cases]
+        pick = [cases[i % len(cases)] if not big or i < len(cases)
+                else cases[4] for i in range(n)]
+        conts = [C.Container("run", w32, int((r[:, 1] - r[:, 0]).sum()),
+                             runs=r, device=DEVICE) for r in pick]
+        return conts, C.stack_runs(conts)
+    bits = np.zeros(limit, np.uint8)
+    bits[rng.choice(limit, 4097, replace=False)] = 1
+    rows = [np.packbits(bits, bitorder="little").view(np.uint64),
+            np.full(limit // 64, np.uint64(2**64 - 1)),
+            np.full(limit // 64, np.uint64(0x8000000080000000)),
+            rng.integers(0, 2**64, limit // 64, dtype=np.uint64),
+            np.zeros(limit // 64, np.uint64)]
+    rows = [torch.from_numpy(r.view(np.int32).copy()).to(DEVICE)
+            for r in rows]
+    conts = [C.dense_container(rows[i % len(rows)], w32, 0)
+             for i in range(n)]
+    return conts, [c.dense_words() for c in conts]
+
+
+def cont_bound_ms(cell, a_conts, b_conts):
+    """Least time for container_and_counts over these members: each
+    payload byte and offset read once and one int32 a member written;
+    a dense side costs one 32-byte sector a position (array x dense) or
+    the words its runs cover (run x dense). Bytes bind: a binary search
+    step is one compare, far under the card's integer rate."""
+    n = len(a_conts)
+    fa, fb = cell.split("_")
+    nbytes = n * 4 + (n + 1) * 4
+    if fa == "array":
+        positions = sum(c.count for c in a_conts)
+        nbytes += positions * 4
+    else:
+        nbytes += sum(len(c.runs) for c in a_conts) * 8
+    if fb == "array":
+        nbytes += sum(c.count for c in b_conts) * 4 + (n + 1) * 4
+    elif fb == "run":
+        nbytes += sum(len(c.runs) for c in b_conts) * 8 + (n + 1) * 4
+    elif fa == "array":
+        nbytes += positions * SECTOR_BYTES
+    else:
+        nbytes += sum(int(((r[:, 1] - 1) // 32 - r[:, 0] // 32 + 1).sum())
+                      for r in (c.runs.astype(np.int64) for c in a_conts)
+                      if len(r)) * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def container_checks(card):
+    """Phase 3's container_and_counts: every cell against its plain
+    version at the boundary cases, with N = 1, 7 and CONT_LANE_MEMBERS
+    members, exactly; then timed at the serial path's shapes (one member
+    of phase 10's rows) and at a big lane (CONT_LANE_MEMBERS members of
+    500 x 300 positions). Returns its stats."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels
+
+    def count(cell, a, b):
+        return kernels.container_and_counts(cell, a, b)
+
+    err, cases = 0, 0
+    for cell in CONT_CELLS:
+        fa, fb = cell.split("_")
+        for n in (1, 7, CONT_LANE_MEMBERS):
+            big = n > 1000
+            _, a = cont_side(fa, n, 1, big)
+            _, b = cont_side(fb, n, 2, big)
+            got = count(cell, a, b)
+            want = kernels.container_and_counts_plain(cell, a, b)
+            check(torch.equal(got, want),
+                  f"container_and_counts {cell} N = {n} != plain")
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            cases += 1
+            if fb == "dense":  # the same rows as one [N, W] stack
+                rows = torch.stack(list(b)) if n < 1000 else None
+                if rows is not None:
+                    check(torch.equal(count(cell, a, rows), want),
+                          f"container_and_counts {cell} stacked rows")
+                    cases += 1
+            del a, b
+    print(f"container_and_counts: {cases} cases exact (cells {CONT_CELLS}, "
+          f"N = 1, 7, {CONT_LANE_MEMBERS}; 0, 1, 4,096 and bit-31 "
+          f"positions, 2,048 runs, a whole-row run, empty members, "
+          f"4,097-bit, all-ones and bit-31 dense rows); max_abs_err {err}")
+
+    # The serial shapes: one member of phase 10's rows (500 and 300
+    # spread positions, a 2,000-bit run, a dense row), a launch a slice.
+    rng = np.random.default_rng(5)
+    from pilosa_tpu_torch.ops import containers as C
+
+    def one(fmt):
+        if fmt == "array":
+            p = np.sort(rng.choice(SLICE_COLS, 500, replace=False))
+            return [C.Container("array", WORDS32, 500,
+                                positions=p.astype(np.int32), device=DEVICE)]
+        if fmt == "array300":
+            p = np.sort(rng.choice(SLICE_COLS, 300, replace=False))
+            return [C.Container("array", WORDS32, 300,
+                                positions=p.astype(np.int32), device=DEVICE)]
+        if fmt == "run":
+            s0 = int(rng.integers(0, SLICE_COLS - 3000))
+            return [C.Container("run", WORDS32, 2000, runs=np.array(
+                [[s0, s0 + 2000]], np.int32), device=DEVICE)]
+        return [C.dense_container(torch.randint(
+            -2**31, 2**31 - 1, (WORDS32,), dtype=torch.int32,
+            device=DEVICE), WORDS32, 0)]
+
+    stats = {}
+    for cell, fa, fb in (("array_array", "array", "array300"),
+                         ("array_run", "array", "run"),
+                         ("array_dense", "array", "dense"),
+                         ("run_dense", "run", "dense")):
+        ca, cb = one(fa), one(fb)
+        pa = (C.stack_positions(ca) if fa == "array" else C.stack_runs(ca))
+        pb = (C.stack_positions(cb) if fb.startswith("array")
+              else C.stack_runs(cb) if fb == "run"
+              else [c.dense_words() for c in cb])
+        pa, pb = list(pa), list(pb)
+        bound, by, nbytes = cont_bound_ms(cell, ca, cb)
+        st = stats[cell] = {
+            "dev_ms": cold_ms(lambda x, y: count(cell, x, y), pa, pb),
+            "lone_ms": one_ms(lambda: count(cell, pa, pb)),
+            "call_ms": sync_ms(lambda: count(cell, pa, pb)),
+            "bound_ms": bound, "bytes": nbytes}
+        print(f"container_and_counts serial {cell} (1 member, {fa} x {fb}):"
+              f" dev {st['dev_ms']:.4f} ms, lone {st['lone_ms']:.4f} ms, "
+              f"call and synchronize {st['call_ms']:.4f} ms; {nbytes} bytes,"
+              f" bound {bound:.6f} ms ({by}) {card}")
+
+    # A big lane: GROUP_PAIRS distinct array x array row pairs over
+    # MAIN_SLICES slices are CONT_LANE_MEMBERS members of 500 and 300
+    # spread positions.
+    n = CONT_LANE_MEMBERS
+    pool_a = [np.sort(rng.choice(SLICE_COLS, 500, replace=False)).astype(
+        np.int32) for _ in range(256)]
+    pool_b = [np.sort(rng.choice(SLICE_COLS, 300, replace=False)).astype(
+        np.int32) for _ in range(256)]
+    ca = [C.Container("array", WORDS32, 500, positions=pool_a[i % 256],
+                      device=DEVICE) for i in range(n)]
+    cb = [C.Container("array", WORDS32, 300, positions=pool_b[i % 251],
+                      device=DEVICE) for i in range(n)]
+    t0 = time.perf_counter()
+    pa, pb = C.stack_positions(ca), C.stack_positions(cb)
+    sync()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    pa, pb = list(pa), list(pb)
+    got = count("array_array", pa, pb)
+    want = kernels.container_and_counts_plain("array_array", pa, pb)
+    check(torch.equal(got, want), "container_and_counts lane != plain")
+    bound, by, nbytes = cont_bound_ms("array_array", ca, cb)
+    lane = {
+        "ms": timed_ms(lambda: count("array_array", pa, pb), reps=10),
+        "dev_ms": cold_ms(lambda x, y: count("array_array", x, y), pa, pb),
+        "lone_ms": one_ms(lambda: count("array_array", pa, pb)),
+        "plain_ms": timed_ms(lambda: kernels.container_and_counts_plain(
+            "array_array", pa, pb), reps=1, warm=1),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+        "max_abs_err": err, "pack_ms": pack_ms, "serial": stats}
+    print(f"container_and_counts lane ({GROUP_PAIRS} row pairs: {n} "
+          f"members of 500 x 300 positions): call {lane['ms']:.4f} ms, dev "
+          f"{lane['dev_ms']:.4f} ms, lone {lane['lone_ms']:.4f} ms, plain "
+          f"version {lane['plain_ms']:.4f} ms; {nbytes} bytes, bound "
+          f"{bound:.4f} ms ({by}), {bound / lane['dev_ms']:.1%} of bound; "
+          f"packing the lane on the host {pack_ms:.2f} ms; library call: "
+          f"none (no PyTorch call counts a sorted-list intersection) {card}")
+    del ca, cb, pa, pb, got, want
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return lane
+
+
+def count_route(ex, index, pql, slices):
+    """The route of a Count: "lanes" for a bare leaf or a two-operand
+    node whose every row leaf is compressed on every slice (the batched
+    path declines it), else "batched" (a deeper tree stays batched
+    however sparse), or "serial" for a tree the batched path cannot
+    plan."""
+    from pilosa_tpu_torch.pql import parse
+
+    leaves = []
+    plan = ex._batched_plan(index, parse(pql).calls[0].children[0], leaves)
+    if plan is None:
+        return "serial"
+    if ex._lane_plan_shape(plan) is None:
+        return "batched"
+    fm = ex._leaf_frags(index, leaves, slices)
+    return "lanes" if ex._compressed_plan(leaves, fm) else "batched"
 
 
 # ------------------------------------------------------------ phase 4
@@ -2255,6 +2528,20 @@ def concurrency_path(server, slices, seed, oracle, card):
     ex = server.executor
     host, port = server.host.rsplit(":", 1)
     pair_counts = oracle["pair_counts"].tolist()
+    # The count mix's Count(Intersect(row 3, row 3)) (a pair in 16) is
+    # all-compressed and takes the container lanes: its first run builds
+    # row 3's containers on every slice and packs them, here (timed)
+    # rather than inside a measured window.
+    q33 = f"Count(Intersect({SRC.format(3)}, {SRC.format(3)}))"
+    route = count_route(ex, "i", q33, range(slices))
+    t = time.perf_counter()
+    got = ex.execute("i", q33)[0]
+    first33 = time.perf_counter() - t
+    check(got == pair_counts[3][3], f"{q33}: {got} != {pair_counts[3][3]}")
+    p50_33, got = p50_ms(lambda: ex.execute("i", q33)[0], 3)
+    check(got == pair_counts[3][3], f"warm {q33} changed")
+    print(f"  {q33}: route {route}, first {first33:.2f} s, p50 "
+          f"{p50_33:.1f} ms (n=3) {card}")
     kernels.reset_launches()
     t_phase = time.perf_counter()
     points = [(m, c, True) for m in ("count", "mixed") for c in CONC_CLIENTS]
@@ -2588,7 +2875,7 @@ def events_path(slices, seed, datadir, card):
     after timestamped writes."""
     from pilosa_tpu_torch import SLICE_WIDTH
     from pilosa_tpu_torch.executor import Executor
-    from pilosa_tpu_torch.ops import bitops, kernels
+    from pilosa_tpu_torch.ops import bitops, containers, kernels
     from pilosa_tpu_torch.storage.frame import FrameOptions
     from pilosa_tpu_torch.storage.holder import Holder
 
@@ -2632,6 +2919,14 @@ def events_path(slices, seed, datadir, card):
     sync()
     first_s = time.perf_counter() - t0
     check(got == want[0], f"{q14}: {got} != oracle {want[0]}")
+    # With the container tier on, a window of one sparse day view (and
+    # fragments not faulted in) would take the lanes; a window of several
+    # views stays batched.
+    routes = {label: count_route(ex, "events",
+                                 f"Count({time_range(3, a, b)})",
+                                 range(slices))
+              for label, a, b, _ in WINDOWS[:5]}
+    print(f"  routes: {routes}")
 
     def run(tag, labels):
         for path in ("batched", "serial"):
@@ -2672,14 +2967,24 @@ def events_path(slices, seed, datadir, card):
               f"{q}: {bm.count()} ids != oracle {len(ids)}")
         print(f"  range   {dt:9.2f} ms  {len(got):>10d} ids  ({label}) {q}")
 
+    # The warm 14-view Count: n=50 on the batched route, n=3 on any
+    # other, then n=10 with the tier off (the dense batched route) for
+    # the contrast.
     lat = []
-    for _ in range(50):
+    n_warm = 50 if routes["14 days"] == "batched" else 3
+    for _ in range(n_warm):
         t = time.perf_counter()
         got = ex.execute("events", q14)[0]
         sync()
         lat.append((time.perf_counter() - t) * 1e3)
         check(got == want[0], "warm 14-view Count changed")
     lat = np.asarray(lat)
+    containers.set_enabled(False)
+    try:
+        off_ms, got = p50_ms(lambda: ex.execute("events", q14)[0], 10)
+    finally:
+        containers.set_enabled(True)
+    check(got == want[0], "14-view Count with the tier off")
     stacks = [ex._leaf_stack("events", ("clicks", f"standard_201706{d:02d}",
                                         3), range(slices))
               for d in range(1, CLICK_DAYS + 1)]
@@ -2715,11 +3020,13 @@ def events_path(slices, seed, datadir, card):
     check(launches["count_op_rows"] and launches["count_rows"],
           f"a count kernel never launched on the time path: {launches}")
     print(f"events {card}: open {open_s:.2f} s ({n_frag} fragments), first "
-          f"14-view Count {first_s:.2f} s (stacks built from the files); warm "
+          f"14-view Count {first_s:.2f} s (route {routes['14 days']}); warm "
           f"14-view Count over {slices} slices p50 "
           f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f}"
-          f" ms, max {lat.max():.3f} ms (n=50, host clock to "
-          f"torch.cuda.synchronize()); its fold of 13 views {fold_ms:.4f} ms "
+          f" ms, max {lat.max():.3f} ms (n={n_warm}, host clock to "
+          f"torch.cuda.synchronize()); with the container tier off (dense "
+          f"batched) p50 {off_ms:.3f} ms (n=10); its fold of 13 views "
+          f"{fold_ms:.4f} ms "
           f"and count_op_rows {kernel_ms:.4f} ms (CUDA events, 10 reps); "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}")
     return launches
@@ -2878,6 +3185,268 @@ def chem_path(seed, datadir, card):
     return launches
 
 
+# ----------------------------------------------------------- phase 10
+
+# benchmarks/count100b.py:70-101's shape, at MAIN_SLICES slices: rows 1
+# and 2 of 500 and 300 bits spread over each slice (array containers),
+# row 3 one 2,000-bit run a slice (a run container); row 0 at density
+# 0.5 (dense) for the array x dense and run x dense cells.
+SPARSE_RUN = 2000
+SPARSE_ROW = 'Bitmap(frame="f", rowID={})'.format
+SPARSE_QUERIES = [  # (label, PQL, numpy over (r0, r1, r2, r3) words)
+    ("Intersect(1, 2)", 1, 2, np.bitwise_and, "Intersect"),
+    ("Intersect(1, 3)", 1, 3, np.bitwise_and, "Intersect"),
+    ("Union(1, 2)", 1, 2, np.bitwise_or, "Union"),
+    ("Difference(1, 3)", 1, 3, lambda a, b: a & ~b, "Difference"),
+    ("Xor(2, 3)", 2, 3, np.bitwise_xor, "Xor"),
+    ("Intersect(1, 0)", 1, 0, np.bitwise_and, "Intersect"),
+    ("Intersect(3, 0)", 3, 0, np.bitwise_and, "Intersect"),
+]
+SPARSE_GROUP = ((1, 2), (1, 3), (2, 3), (2, 1), (3, 1), (3, 2), (1, 2),
+                (2, 3))  # a group of GROUP_PAIRS Count(Intersect(a, b))
+
+
+def sparse_pql(a, b, op="Intersect"):
+    return f"Count({op}({SPARSE_ROW(a)}, {SPARSE_ROW(b)}))"
+
+
+def sparse_words(seed, s):
+    """uint64[4, 16384] words of slice s: row 0 at density 0.5, rows 1
+    and 2 of 500 and 300 spread bits, row 3 one 2,000-bit run."""
+    rng = np.random.default_rng([seed, s, 10])
+    w = np.zeros((4, 16384), np.uint64)
+    w[0] = rng.integers(0, 2**64, 16384, dtype=np.uint64)
+    for r, n in ((1, 500), (2, 300)):
+        c = rng.choice(SLICE_COLS, n, replace=False)
+        np.bitwise_or.at(w[r], c >> 6, np.uint64(1) << (c & 63).astype(
+            np.uint64))
+    start = int(rng.integers(0, SLICE_COLS - 3000))
+    bits = np.zeros(SLICE_COLS, np.uint8)
+    bits[start:start + SPARSE_RUN] = 1
+    w[3] = np.packbits(bits, bitorder="little").view(np.uint64)
+    return w
+
+
+def _write_sparse_slices(frag_dir, seed, lo, hi):
+    """Worker: the fragment file of each slice in [lo, hi) by the port's
+    codec; returns per query of SPARSE_QUERIES and per SPARSE_GROUP pair
+    the slice's counts."""
+    from pilosa_tpu_torch.roaring import codec
+
+    keys = (np.arange(4, dtype=np.uint64)[:, None] * np.uint64(16)
+            + np.arange(16, dtype=np.uint64)).ravel()
+    counts = np.zeros((len(SPARSE_QUERIES) + len(SPARSE_GROUP), hi - lo),
+                      np.int64)
+    for i, s in enumerate(range(lo, hi)):
+        w = sparse_words(seed, s)
+        for k, (_, a, b, fn, _) in enumerate(SPARSE_QUERIES):
+            counts[k, i] = int(np.bitwise_count(fn(w[a], w[b])).sum())
+        for k, (a, b) in enumerate(SPARSE_GROUP):
+            counts[len(SPARSE_QUERIES) + k, i] = int(
+                np.bitwise_count(w[a] & w[b]).sum())
+        with open(os.path.join(frag_dir, str(s)), "wb") as fh:
+            fh.write(codec.serialize_arrays(keys, w.reshape(-1, 1024)))
+    return lo, counts
+
+
+def sparse_path(slices, seed, datadir, card):
+    """Phase 10: the sparse index of count100b's shape served from the
+    compressed container tier — single Counts through the lanes and
+    pinned serial, the dense cells pinned serial, a coalesced group of
+    GROUP_PAIRS through the container lanes against the same served one
+    after another, the container rollup of Holder.memory_stats(), and the
+    first query again with the tier off; every answer against numpy."""
+    import threading
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import containers, kernels
+    from pilosa_tpu_torch.storage.holder import Holder
+
+    holder = Holder(datadir, device=DEVICE).open()
+    view = holder.create_index("ns").create_frame("f") \
+        .create_view_if_not_exists("standard")
+    frag_dir = os.path.join(view.path, "fragments")
+    holder.close()
+    t0 = time.perf_counter()
+    procs, parts = in_processes(_write_sparse_slices, frag_dir, seed,
+                                slices)
+    counts = np.concatenate([c for _, c in parts], axis=1)
+    want = [int(c) for c in counts.sum(axis=1)]
+    print(f"sparse: wrote index ns, frame f, 4 rows x {slices} slices "
+          f"({slices * SLICE_WIDTH / 1e9:.2f}B columns; rows 1-2 500 and "
+          f"300 spread bits, row 3 one {SPARSE_RUN}-bit run, row 0 density "
+          f"0.5 a slice) in {procs} processes in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    reset_peak()
+    kernels.reset_launches()
+    holder = Holder(datadir, device=DEVICE).open()
+    ex = Executor(holder)
+    span = range(slices)
+    # (a) single Counts over the sparse rows: the container lanes, then
+    # the same pinned serial (one launch a slice) for the contrast.
+    for k, (label, a, b, _, op) in enumerate(SPARSE_QUERIES[:5]):
+        q = sparse_pql(a, b, op)
+        before = kernels.launches["container_and_counts"]
+        t = time.perf_counter()
+        got = ex.execute("ns", q)[0]
+        sync()
+        first_s = time.perf_counter() - t
+        check(got == want[k], f"sparse {q}: {got} != oracle {want[k]}")
+        route = count_route(ex, "ns", q, span)
+        check(route == "lanes", f"sparse {q} route {route}")
+        launched = kernels.launches["container_and_counts"] - before
+        p50, got = p50_ms(lambda: ex.execute("ns", q)[0], 5)
+        check(got == want[k], f"warm sparse {q} changed")
+        ex._force_path = "serial"
+        t = time.perf_counter()
+        got = ex.execute("ns", q)[0]
+        sync()
+        serial_ms = (time.perf_counter() - t) * 1e3
+        ex._force_path = None
+        check(got == want[k], f"sparse serial {q}: {got} != {want[k]}")
+        print(f"  sparse {label:16s} route {route}: first {first_s:.2f} s "
+              f"({launched} container_and_counts launches), p50 "
+              f"{p50:.3f} ms (n=5); pinned serial {serial_ms:.1f} ms  {got}")
+    # (b) the dense cells, pinned serial.
+    ex._force_path = "serial"
+    for k, (label, a, b, _, op) in enumerate(SPARSE_QUERIES[5:], 5):
+        q = sparse_pql(a, b, op)
+        t = time.perf_counter()
+        got = ex.execute("ns", q)[0]
+        sync()
+        first_s = time.perf_counter() - t
+        cell = "run x dense" if a == 3 else "array x dense"
+        print(f"  sparse {label:16s} pinned serial ({cell}; the dense row of "
+              f"a fragment not faulted in uploads at every query): "
+              f"{first_s:.2f} s  {got}")
+    ex._force_path = None
+
+    # (c) a group of GROUP_PAIRS concurrent Counts through the lanes,
+    # against the same served one after another.
+    group = [sparse_pql(a, b) for a, b in SPARSE_GROUP]
+    gwant = want[len(SPARSE_QUERIES):]
+    ex.set_coalesce_config(max_wait_us=10_000_000, max_group=len(group))
+
+    def run_group():
+        out = [None] * len(group)
+        barrier = threading.Barrier(len(group))
+
+        def one(i):
+            barrier.wait(timeout=60)
+            out[i] = ex.execute("ns", group[i])[0]
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(group))]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        sync()
+        return (time.perf_counter() - t) * 1e3, out
+
+    lane_before = kernels.launches["container_and_counts"]
+    snap0 = ex.coalesce_snapshot()
+    group_ms = []
+    for _ in range(3):
+        ms, out = run_group()
+        check(out == gwant, f"sparse group {out} != oracle {gwant}")
+        group_ms.append(ms)
+    snap = ex.coalesce_snapshot()
+    check(snap["compressedFusedQueries"] - snap0["compressedFusedQueries"]
+          == 3 * len(group) and snap["max_group"] == len(group),
+          f"sparse group did not fuse as lanes: {snap}")
+    lanes = snap["laneLaunches"] - snap0["laneLaunches"]
+    lane_kernel = kernels.launches["container_and_counts"] - lane_before
+    ex.set_coalesce_config(max_wait_us=0, max_group=64)
+    seq_t = time.perf_counter()
+    for q, w in zip(group, gwant):
+        check(ex.execute("ns", q)[0] == w, f"sparse sequential {q}")
+    sync()
+    seq_ms = (time.perf_counter() - seq_t) * 1e3
+    # A round's lanes step by step: the rows' RowLanes (cached by the
+    # rounds above), the cells packed for the launch, the kernel calls;
+    # then one row's RowLane built cold from its fragments' containers.
+    distinct = list(dict.fromkeys(SPARSE_GROUP))
+    t0 = time.perf_counter()
+    pairs = [tuple(ex._lane_row("ns", ("f", "standard", r), span)
+                   for r in pair) for pair in distinct]
+    t1 = time.perf_counter()
+    cells, _ = containers.lane_cells(pairs)
+    sync()
+    t2 = time.perf_counter()
+    timing_before = kernels.launches["container_and_counts"]
+    kernel_ms = sum(timed_ms(lambda c=c, x=x, y=y:
+                             kernels.container_and_counts(c, x, y), reps=5)
+                    for c, x, y, _, _ in cells)
+    timing = kernels.launches["container_and_counts"] - timing_before
+    frags = holder.fragments("ns", "f", "standard", list(span))
+    t3 = time.perf_counter()
+    containers.RowLane([f.row_container(1) for f in frags])
+    sync()
+    cold_ms = (time.perf_counter() - t3) * 1e3
+    g50 = float(np.percentile(group_ms, 50))
+    rounds = ", ".join(f"{m:.1f}" for m in group_ms)
+    sizes = {c: sum(n) for c, _, _, _, n in cells}
+    print(f"sparse group {card}: {len(group)} concurrent Counts over "
+          f"{slices} slices in one group, ms per round {rounds} (p50 "
+          f"{g50:.1f}) against {seq_ms:.1f} ms served one after another "
+          f"({seq_ms / g50:.1f}x); {lanes} lane launches in 3 rounds "
+          f"({lane_kernel} container_and_counts launches); a round's "
+          f"lanes: {len(distinct)} distinct pairs, members by cell {sizes},"
+          f" host {(t1 - t0) * 1e3:.3f} ms for the cached rows + "
+          f"{(t2 - t1) * 1e3:.3f} ms packing the cells against "
+          f"{kernel_ms:.3f} ms of kernel calls (CUDA events); row 1's "
+          f"RowLane cold from its memoized containers {cold_ms:.1f} ms")
+    del pairs, cells
+
+    # (d) the container rollup.
+    mem = holder.memory_stats()["totals"]["containers"]
+    fmts = mem["formats"]
+    compressed = fmts["array"]["bytes"] + fmts["run"]["bytes"]
+    equiv = mem["denseEquivBytes"]
+    equiv_compressed = equiv - fmts["dense"]["bytes"]
+    check(compressed * 10 <= equiv_compressed,
+          f"compressed payload {compressed} not 10x under its dense "
+          f"equivalent {equiv_compressed}")
+    peak = peak_bytes()
+    blocks = {f: v["blocks"] for f, v in fmts.items()}
+    print(f"sparse rollup {card}: blocks {blocks}, "
+          f"array + run payload {compressed} bytes against their dense "
+          f"equivalent {equiv_compressed} ({equiv_compressed / compressed:.0f}"
+          f"x) and denseEquivBytes {equiv} with row 0 "
+          f"({equiv / compressed:.0f}x); conversions {mem['conversions']};"
+          f" max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # (e) the first query again with the tier off: the dense batched
+    # route, its stacks built from the files.
+    q = sparse_pql(1, 2)
+    containers.set_enabled(False)
+    try:
+        route = count_route(ex, "ns", q, span)
+        t = time.perf_counter()
+        got = ex.execute("ns", q)[0]
+        sync()
+        first_s = time.perf_counter() - t
+        check(got == want[0], f"tier off {q}: {got} != {want[0]}")
+        p50, got = p50_ms(lambda: ex.execute("ns", q)[0], 5)
+        check(got == want[0], f"tier off warm {q} changed")
+        off_peak = peak_bytes()
+    finally:
+        containers.set_enabled(True)
+    launches = launch_counts()
+    launches["container_and_counts"] -= timing  # the timed calls above
+    holder.close()
+    check(launches["container_and_counts"] > 0,
+          f"container_and_counts never launched in phase 10: {launches}")
+    print(f"sparse tier off {card}: {q} route {route}, first {first_s:.2f} s"
+          f", p50 {p50:.3f} ms (n=5), max_memory_allocated "
+          f"{off_peak / 2**30:.2f} GiB; launches {launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slices", type=int, default=MAIN_SLICES,
@@ -2885,10 +3454,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--event-slices", type=int, default=EVENT_SLICES,
                     help="phase 7's slices (a measurement option)")
+    ap.add_argument("--sparse-slices", type=int, default=SPARSE_SLICES,
+                    help="phase 10's slices (a measurement option)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases of 4, 4g, 5, 6, 8a, 8b, 7 "
-                         "and 9 to run, without phase 3 and the result "
-                         "lines (a measurement option)")
+                    help="comma-separated phases of 4, 4g, 5, 6, 8a, 8b, "
+                         "7, 9 and 10 to run, without phase 3 and the "
+                         "result lines (a measurement option)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     t_start = time.perf_counter()
@@ -2930,6 +3501,8 @@ def main():
 
     # Phase 3: kernels against their plain versions.
     stats = None if only else kernel_checks(args.slices, card)
+    if stats is not None:
+        stats["container_and_counts"] = container_checks(card)
 
     # Phases 4-9: the main path, Count and bitmap results (then under a
     # host budget), TopN, BSI, the HTTP server over their data directory
@@ -2950,7 +3523,8 @@ def main():
         phase_launches.extend(outs)
         for part, counts in zip(("", "c"), outs):
             print(f"phase {name}{part} launches by regime: "
-                  f"{json.dumps(counts['regimes'])}")
+                  f"{json.dumps(counts['regimes'])}; container_and_counts "
+                  f"{counts['container_and_counts']}")
         print(f"phase {name}: {time.perf_counter() - t:.1f} s {card}")
 
     try:
@@ -2975,13 +3549,16 @@ def main():
               args.seed, datadir, card)
         shutil.rmtree(datadir, ignore_errors=True)
         phase("9", "9", chem_path, args.seed, datadir, card)
+        shutil.rmtree(datadir, ignore_errors=True)
+        phase("10", "10", sparse_path, min(args.sparse_slices, args.slices),
+              args.seed, datadir, card)
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
     if phase_launches:
         total = phase_launches[0]
         for counts in phase_launches[1:]:
             total = add_counts(total, counts)
-        print(f"launches by regime, phases {sorted(only) if only else '4-9'}"
+        print(f"launches by regime, phases {sorted(only) if only else '4-10'}"
               f" (8b's subprocess not counted): "
               f"{json.dumps(total['regimes'])} {card}")
     if only:
@@ -2995,13 +3572,16 @@ def main():
                "count_and_rows": "pilosa_tpu_torch/csrc/count_and_rows.cu",
                "count_op_pairs": "pilosa_tpu_torch/csrc/popcount.cu",
                "count_and_rows_multi":
-                   "pilosa_tpu_torch/csrc/count_and_rows.cu"}
+                   "pilosa_tpu_torch/csrc/count_and_rows.cu",
+               "container_and_counts": "pilosa_tpu_torch/csrc/containers.cu"}
     replaces = {"count_op_rows": "pilosa_tpu/ops/pallas_kernels.py:126",
                 "count_rows": "pilosa_tpu/ops/pallas_kernels.py:195",
                 "count_and_rows": "pilosa_tpu/ops/pallas_kernels.py:173",
                 # XLA fusions of the coalescer's fused groups
                 "count_op_pairs": "pilosa_tpu/executor.py:3552",
-                "count_and_rows_multi": "pilosa_tpu/executor.py:3520"}
+                "count_and_rows_multi": "pilosa_tpu/executor.py:3520",
+                # XLA count cells of the container tier and their lanes
+                "container_and_counts": "pilosa_tpu/ops/containers.py:395"}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all {card}")
     print(f"gpu: {smi}")
     print(json.dumps({"kernels": [

@@ -12,6 +12,14 @@ stack on the device, offset by the window, and only a caller that
 touches ``segments`` splits it into per-slice rows (views of a
 full-width stack, rebased copies of a narrower one; rows with zero
 count are dropped).
+
+A segment may also be a compressed ``ops.containers.Container`` (array,
+run or dense, with its host-known count) served by the fragment's
+container tier (ref: pilosa_tpu bitmap.py:1-18). Algebra goes through
+``bitops.dispatch_pair`` and counts through ``bitops.dispatch_count``, so
+compressed operands take their registered cells and any other pair
+densifies; ``columns()``, ``host_words``, ``device_words`` and merging
+densify with ``bitops.densify``.
 """
 import numpy as np
 import torch
@@ -28,6 +36,10 @@ _SEGMENTS_PER_GROUP = 1024
 
 
 def _seg_count(seg):
+    """A segment's cardinality: host-known for a container, a device
+    popcount for raw words."""
+    if getattr(seg, "fmt", None) is not None:
+        return seg.count
     return int(bitops.count(seg))
 
 
@@ -90,7 +102,8 @@ class Bitmap:
                     seg = full
                 mine = self._segments.get(s)
                 self._segments[s] = (seg if mine is None
-                                     else bitops.bitmap_or(mine, seg))
+                                     else bitops.dispatch_pair("or", mine,
+                                                               seg))
         return self._segments
 
     @segments.setter
@@ -143,29 +156,30 @@ class Bitmap:
     def intersect(self, other):
         out = Bitmap()
         for k in self.segments.keys() & other.segments.keys():
-            out.segments[k] = bitops.bitmap_and(self.segments[k],
-                                                other.segments[k])
+            out.segments[k] = bitops.dispatch_pair("and", self.segments[k],
+                                                   other.segments[k])
         return out
 
     def union(self, other):
-        return self._either(other, bitops.bitmap_or)
+        return self._either(other, "or")
 
     def xor(self, other):
-        return self._either(other, bitops.bitmap_xor)
+        return self._either(other, "xor")
 
-    def _either(self, other, fn):
+    def _either(self, other, op):
         out = Bitmap()
         for k in self.segments.keys() | other.segments.keys():
             a, b = self.segments.get(k), other.segments.get(k)
             out.segments[k] = (b if a is None else a if b is None
-                               else fn(a, b))
+                               else bitops.dispatch_pair(op, a, b))
         return out
 
     def difference(self, other):
         out = Bitmap()
         for k, a in self.segments.items():
             b = other.segments.get(k)
-            out.segments[k] = a if b is None else bitops.bitmap_andnot(a, b)
+            out.segments[k] = (a if b is None
+                               else bitops.dispatch_pair("andnot", a, b))
         return out
 
     def op_count(self, op, other):
@@ -173,18 +187,20 @@ class Bitmap:
         count kernels, with absent segments resolved by the op's
         identity (missing = all-zeros): ``and`` skips them, ``or``/``xor``
         count the present side, ``andnot`` counts an unopposed left
-        side (ref: bitmap.go:139 IntersectionCount)."""
+        side (ref: bitmap.go:139 IntersectionCount). Compressed segments
+        take their registered count cells (``bitops.dispatch_count``)."""
         total = 0
         mine, theirs = self.segments, other.segments
         if op == "and":
             for k in mine.keys() & theirs.keys():
-                total += int(bitops.count_op("and", mine[k], theirs[k]))
+                total += int(bitops.dispatch_count("and", mine[k],
+                                                   theirs[k]))
             return total
         if op == "andnot":
             for k, a in mine.items():
                 b = theirs.get(k)
                 total += (_seg_count(a) if b is None
-                          else int(bitops.count_op("andnot", a, b)))
+                          else int(bitops.dispatch_count("andnot", a, b)))
             return total
         for k in mine.keys() | theirs.keys():  # or / xor
             a, b = mine.get(k), theirs.get(k)
@@ -193,7 +209,7 @@ class Bitmap:
             elif b is None:
                 total += _seg_count(a)
             else:
-                total += int(bitops.count_op(op, a, b))
+                total += int(bitops.dispatch_count(op, a, b))
         return total
 
     def merge(self, other):
@@ -209,7 +225,7 @@ class Bitmap:
         for k, words in eager.items():
             mine = self.segments.get(k)
             self.segments[k] = (words if mine is None
-                                else bitops.bitmap_or(mine, words))
+                                else bitops.dispatch_pair("or", mine, words))
         self.invalidate_count()
         return self
 
@@ -224,14 +240,14 @@ class Bitmap:
         if seg is None:
             return torch.zeros(WORDS_PER_SLICE, dtype=torch.int32,
                                device=device)
-        return seg
+        return bitops.densify(seg)
 
     def host_words(self, slice_num):
         """uint64[16384] host copy of one segment (zeros when absent)."""
         seg = self.segments.get(slice_num)
         if seg is None:
             return np.zeros(SLICE_WIDTH // 64, dtype=np.uint64)
-        return seg.cpu().numpy().copy().view(np.uint64)
+        return bitops.densify(seg).cpu().numpy().copy().view(np.uint64)
 
     def count(self):
         if self._count is None:
@@ -259,7 +275,7 @@ class Bitmap:
         out = []
         for lo in range(0, len(keys), _SEGMENTS_PER_GROUP):
             group = keys[lo:lo + _SEGMENTS_PER_GROUP]
-            stack = torch.stack([segs[k] for k in group])
+            stack = torch.stack([bitops.densify(segs[k]) for k in group])
             out.append(_stack_columns(
                 stack, group, bitops.count_rows(stack).cpu().numpy()))
         if not out:

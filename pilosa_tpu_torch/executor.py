@@ -96,7 +96,26 @@ batched serve.
   sync per plane. Declines (budget, structure) serve singly; a kernel
   failure raises in every member of its group. On for a ``cuda``
   holder, off for ``cpu``; ``PILOSA_TPU_COALESCE`` overrides.
+
+The compressed container tier (``ops/containers.py``; ref: pilosa_tpu
+executor.py:1530-1536, 2809-3309, 3703-3741). With it on (its default;
+``PILOSA_CONTAINER_FORMATS=0`` turns it off) a serial leaf reads the
+row's ``Fragment.row_container`` — sorted positions, runs or the dense
+row — and Bitmap's algebra dispatches on the format, so a two-operand
+Count is one ``container_and_counts`` launch a slice. A bitmap plan, or
+a Count of a bare leaf or of a two-operand node, whose every row leaf is
+compressed on every slice (fragments not faulted in, rows of at most
+4,096 bits) is not staged into dense stacks: the bitmap plan runs
+serially from the tier, the Count from the container lanes, alone or in
+a coalesced group: a bare leaf from host-known counts, a two-operand
+node by one launch per format cell over its rows' blocks on every
+slice, packed once per (row, slice list) and cached while the index's
+epoch stands (``_lane_row``). A deeper Count tree stays batched alone
+and, in a coalesced group, fuses densely within the group's densify
+budget (``CO_DENSIFY_BYTES``); ``CO_COMPRESSED = False`` serves
+all-compressed groups singly.
 """
+import itertools
 import os
 import threading
 import time
@@ -106,17 +125,19 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from pilosa_tpu_torch import WORDS_PER_SLICE
+from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch import time_quantum as tq
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import bsi as bsi_ops
+from pilosa_tpu_torch.ops import containers as containers_mod
 from pilosa_tpu_torch.ops import topn as topn_ops
 from pilosa_tpu_torch.plancache import RANGE_MARK, PlanCache, slice_key
 from pilosa_tpu_torch.pql import Condition, parse
-from pilosa_tpu_torch.storage.fragment import TopOptions
+from pilosa_tpu_torch.storage.fragment import TopOptions, residency_generation
 from pilosa_tpu_torch.storage.view import (
+    VIEW_FIELD_PREFIX,
     VIEW_INVERSE,
     VIEW_STANDARD,
     view_field_name,
@@ -285,8 +306,13 @@ class Executor:
         self._co_leader = False
         self._co_tick_waiting = False
         self._co_stats = {"rounds": 0, "fused_queries": 0, "max_group": 0,
-                          "table_entries": 0,
+                          "table_entries": 0, "compressed_fused": 0,
+                          "lane_launches": 0, "densified_blocks": 0,
                           "declined": {}}
+        # Packed rows of the container lanes: key -> (epoch, RowLane),
+        # byte-bounded LRU (LANE_CACHE_BYTES).
+        self._lane_cache = {}
+        self._lane_bytes = 0
         # Deadline expiries while parked: written by parked threads, so
         # guarded by _co_mu (the leader alone writes _co_stats).
         self._co_expired = 0
@@ -340,6 +366,8 @@ class Executor:
                     ent = memo.pop(key)
                     if memo is self._result_memo:
                         self._result_memo_bytes -= ent[2]
+            for key in [k for k in self._lane_cache if k[0] == index]:
+                self._lane_bytes -= self._lane_cache.pop(key)[1].nbytes
 
     def _execute_call(self, index, call, slices, opt):
         name = call.name
@@ -526,8 +554,9 @@ class Executor:
             return None
         if plan[0] == "empty":
             return Bitmap()
-        pre = self._plan_stacks(index, leaves, slices, extra=1)
-        if pre is BATCH_OVER_BUDGET:
+        pre = self._plan_stacks(index, leaves, slices, extra=1,
+                                decline_compressed=True)
+        if pre is None or pre is BATCH_OVER_BUDGET:
             return pre
         win, stacks = pre
         result = self._eval_node(plan, stacks)
@@ -589,7 +618,7 @@ class Executor:
             frag = self.holder.fragment(index, frame.name, v, slice_num)
             if frag is not None:
                 bm = bm.union(Bitmap.from_device(slice_num,
-                                                 frag.device_row(id_)))
+                                                 self._serial_row(frag, id_)))
         return bm
 
     def _range_condition(self, index, call):
@@ -660,7 +689,17 @@ class Executor:
         frag = self.holder.fragment(index, frame_name, view, slice_num)
         if frag is None:
             return Bitmap()
-        return Bitmap.from_device(slice_num, frag.device_row(row_id))
+        return Bitmap.from_device(slice_num, self._serial_row(frag, row_id))
+
+    @staticmethod
+    def _serial_row(frag, row_id):
+        """One row of a serial leaf: with the container tier on, the
+        fragment picks its format (``row_container``) and Bitmap's algebra
+        dispatches on it; off, the dense device row (ref: pilosa_tpu
+        executor.py:1530-1536)."""
+        if containers_mod.enabled():
+            return frag.row_container(row_id)
+        return frag.device_row(row_id)
 
     # ------------------------------------------------------- batched path
 
@@ -740,16 +779,68 @@ class Executor:
         return (n_stacks * len(slices) * width32 * 4
                 > self.STACK_CACHE_BYTES)
 
-    def _leaf_frags(self, index, leaves, slices):
+    def _leaf_frags(self, index, leaves, slices, shared=None):
         """{(frame, view): fragments over the slice list}, one holder
         lookup per (frame, view) of the leaf specs: the lists shared by
-        the window negotiation and the stack builds."""
+        the window negotiation and the stack builds. ``shared`` carries
+        the lists across the members of a coalesced group."""
+        shared = {} if shared is None else shared
         frag_map = {}
         for frame_name, view, _ in leaves:
-            if (frame_name, view) not in frag_map:
-                frag_map[(frame_name, view)] = self.holder.fragments(
-                    index, frame_name, view, slices)
+            key = (frame_name, view)
+            if key not in frag_map:
+                if key not in shared:
+                    shared[key] = self.holder.fragments(index, frame_name,
+                                                        view, slices)
+                frag_map[key] = shared[key]
         return frag_map
+
+    def _compressed_plan(self, leaves, frag_map, probe=None):
+        """True when every row leaf of a plan serves from a compressed
+        container on every slice (``Fragment.row_compressed``), so that
+        staging dense stacks would densify the tier back onto the device
+        (ref: pilosa_tpu executor.py:3703-3741). A BSI plane leaf (a
+        field view's row) never counts as compressed: planes are dense by
+        design. Slices are checked in order, every leaf at each, so the
+        first fragment that serves dense ends the walk. ``probe``
+        memoizes the checks across a coalesced group."""
+        if not containers_mod.enabled() or not leaves:
+            return False
+        if any(view.startswith(VIEW_FIELD_PREFIX) for _, view, _ in leaves):
+            return False
+        lists = [frag_map.get((fname, view), ()) for fname, view, _ in leaves]
+        for frags in itertools.zip_longest(*lists):
+            for (_, _, rid), frag in zip(leaves, frags):
+                if frag is None:
+                    continue
+                if probe is None:
+                    hit = frag.row_compressed(rid)
+                else:
+                    pkey = (id(frag), rid)
+                    hit = probe.get(pkey)
+                    if hit is None:
+                        hit = probe[pkey] = frag.row_compressed(rid)
+                if not hit:
+                    return False
+        return True
+
+    def _compressed_verdict(self, index, leaves, slices, shared=None,
+                            probe=None):
+        """``_compressed_plan`` of a plan over the slice list, memoized
+        in the plan cache while the index's epoch and the fragments'
+        residency (``fragment.residency_generation``) stand, so that a
+        warm plan walks no fragment. ``shared`` and ``probe`` share a
+        cold walk across a group."""
+        if not containers_mod.enabled():
+            return False
+        token = (self._epoch(index), residency_generation())
+        key = ("compressed", index, slice_key(slices), tuple(leaves))
+        verdict = self.plans.get(key, token, record=False)
+        if verdict is None:
+            frag_map = self._leaf_frags(index, leaves, slices, shared=shared)
+            verdict = self._compressed_plan(leaves, frag_map, probe=probe)
+            self.plans.put(key, token, verdict)
+        return verdict
 
     def _union_window(self, frag_map):
         """(base, width) in 32-bit words of the window covering every
@@ -782,30 +873,34 @@ class Executor:
             return 0, WORDS_PER_SLICE
         return b, w
 
-    def _plan_window(self, index, leaves, slices):
+    def _plan_window(self, index, leaves, slices, shared=None):
         """(window, fragment map or None) of the fragments a plan's
         leaves read, the window memoized in the plan cache on the
-        index's epoch: a warm plan walks no fragment."""
+        index's epoch: a warm plan walks no fragment. ``shared`` holds
+        fragment lists a caller walked already."""
         epoch = self._epoch(index)
         wkey = ("win", index, frozenset(spec[:2] for spec in leaves),
                 slice_key(slices))
         win = self.plans.get(wkey, epoch)
         if win is not None:
             return win, None
-        frag_map = self._leaf_frags(index, leaves, slices)
+        frag_map = self._leaf_frags(index, leaves, slices, shared=shared)
         win = self._union_window(frag_map)
         self.plans.put(wkey, epoch, win)
         return win, frag_map
 
     def _plan_stacks(self, index, leaves, slices, extra=0, kind="plan",
-                     win=None):
+                     win=None, decline_compressed=False):
         """(window, leaf stacks) of a batched plan at the window of every
         fragment its leaves read (or at ``win``), or BATCH_OVER_BUDGET
         when the leaf stacks and ``extra`` stacks of the same shape would
         not fit the stack budget together. Prelude-memoized (ref:
         pilosa_tpu executor.py:3842-3960): a warm plan resolves its
         stacks from the stack cache by key, without a fragment walk or a
-        token check; ``kind`` names the entry ("plan", "bsi", "topnp")."""
+        token check; ``kind`` names the entry ("plan", "bsi", "topnp").
+        With ``decline_compressed``, a memo miss whose every row leaf is
+        compressed on every slice returns None: the container tier serves
+        it (ref: executor.py:3941-3944)."""
         epoch = self._epoch(index)  # before building: a racing write
         # makes the memo stale on arrival, never wrong
         pkey = (kind, index, slice_key(slices), tuple(leaves), win)
@@ -815,9 +910,13 @@ class Executor:
             if self._over_budget(len(leaves) + extra, slices, mwin[1]):
                 return BATCH_OVER_BUDGET
             return mwin, stacks
+        shared = {}  # one fragment walk for the verdict and the window
+        if decline_compressed and self._compressed_verdict(
+                index, leaves, slices, shared):
+            return None
         frag_map = None
         if win is None:
-            win, frag_map = self._plan_window(index, leaves, slices)
+            win, frag_map = self._plan_window(index, leaves, slices, shared)
         if self._over_budget(len(leaves) + extra, slices, win[1]):
             return BATCH_OVER_BUDGET
         stacks = self._leaf_stacks(index, leaves, slices, win, frag_map)
@@ -890,8 +989,17 @@ class Executor:
             return None
         if plan[0] == "empty":
             return 0
-        pre = self._plan_stacks(index, leaves, slices)
-        if pre is BATCH_OVER_BUDGET:
+        # Only a lane shape declines for the container tier: a deeper
+        # all-compressed tree stays batched, since serially from the tier
+        # it costs a launch a slice a node (a 14-view Count over 1,024
+        # slices: 3.2-5.0 s against 2.3-2.8 ms batched on an H100).
+        lane = self._lane_plan_shape(plan) is not None
+        pre = self._plan_stacks(index, leaves, slices,
+                                decline_compressed=lane)
+        if pre is None and lane:
+            # Every row leaf is compressed on every slice: the lanes.
+            return self._lane_counts(index, slices, [(plan, leaves)])[0][0]
+        if pre is None or pre is BATCH_OVER_BUDGET:
             return pre
         return int(self._count_node(plan, pre[1]).sum(dtype=torch.int64))
 
@@ -1311,11 +1419,20 @@ class Executor:
             self._co_enabled_memo = cached
         return cached
 
+    # Whether all-compressed members of a Count group fuse from the
+    # container tier (else the group serves singly), and the bytes of
+    # compressed rows one group may stage densely for deep all-compressed
+    # trees (each staged block counts a conversion): 64 MiB, ~512
+    # full-width rows (ref: executor.py:2559-2564).
+    CO_COMPRESSED = True
+    CO_DENSIFY_BYTES = 64 << 20
+
     def _co_config(self):
         """(max_wait_s, max_group) of the tick: PILOSA_COALESCE_MAX_WAIT_US
-        (default 0: a lone query never waits) and PILOSA_COALESCE_MAX_GROUP
-        (default 64), or set_coalesce_config's values; a malformed value
-        keeps the default (ref: executor.py:2566)."""
+        (default 0: a lone query never waits) and
+        PILOSA_COALESCE_MAX_GROUP (default 64), or set_coalesce_config's
+        values; a malformed number keeps the default (ref:
+        executor.py:2566-2598)."""
         cached = getattr(self, "_co_config_memo", None)
         if cached is None:
             def num(name, default):
@@ -1339,19 +1456,25 @@ class Executor:
         self._co_config_memo = (wait_s, group)
 
     def coalesce_snapshot(self):
-        """The coalescer's knobs and counters (ref: executor.py:1224,
-        without its compressed-lane fields): ticks, queries served by a
-        fused group, the largest group, kernel table entries launched
-        (members with equal plans share one), declines by reason,
-        deadline expiries."""
+        """The coalescer's knobs and counters (ref: executor.py:
+        1224-1256): ticks, queries served by a fused group and by
+        compressed lanes among them, lane launches, blocks densified by
+        deep compressed groups, the largest group, kernel table entries
+        launched (members with equal plans share one), declines by
+        reason, deadline expiries."""
         wait_s, group = self._co_config()
         st = self._co_stats
         return {
             "enabled": self._co_enabled(),
             "maxWaitUs": int(wait_s * 1e6),
             "maxGroup": group,
+            "compressed": self.CO_COMPRESSED,
+            "densifyBudgetBytes": self.CO_DENSIFY_BYTES,
             "rounds": st["rounds"],
             "fused_queries": st["fused_queries"],
+            "compressedFusedQueries": st["compressed_fused"],
+            "laneLaunches": st["lane_launches"],
+            "densifiedBlocks": st["densified_blocks"],
             "max_group": st["max_group"],
             "tableEntries": st["table_entries"],
             "expiredWaits": self._co_expired,
@@ -1522,19 +1645,73 @@ class Executor:
         })
 
     def _co_run_fused(self, reqs):
-        """K same-structure Counts in one launch (ref: the dense branch
-        of executor.py:2818-2980). Each distinct member folds its
-        non-root nodes with torch ops at the group's window; the roots
-        go out in ONE ``count_op_pairs`` launch. No [K, S, W] query-axis
-        stack is built.
-        False (the members then serve singly) for a leafless plan or a
-        group whose stacks would not fit the stack budget together. The
-        operands' references live until the counts reach the host."""
+        """K same-structure Counts in as few launches as their formats
+        allow (ref: executor.py:2809-2902). A member whose every row leaf
+        is compressed on every slice is served from the container tier:
+        a bare leaf or a two-operand node through the lanes
+        (``_co_fuse_lanes``), a deeper tree densely within the group's
+        densify budget; the rest fuse densely (``_co_fuse_dense``).
+        False when a member was left unserved (it then serves singly)."""
         index, slices = reqs[0]["index"], reqs[0]["slices"]
         if (not slices or not reqs[0]["leaves"]
                 or reqs[0]["plan"][0] == "empty"):
             self._co_note_decline("structural")
             return False
+        shared, probe = {}, {}
+        comp = [self._compressed_verdict(index, req["leaves"], slices,
+                                         shared, probe) for req in reqs]
+        dense = [req for req, c in zip(reqs, comp) if not c]
+        ok = True
+        densify_blocks = 0
+        if len(dense) < len(reqs):
+            if not self.CO_COMPRESSED:
+                # The group serves singly, from the container tier.
+                self._co_note_decline("compressed_off")
+                return False
+            lanes, deep = [], []
+            for req, c in zip(reqs, comp):
+                if c:
+                    (lanes if self._lane_plan_shape(req["plan"]) is not None
+                     else deep).append(req)
+            if deep:
+                # No count identity serves a deep tree: stage it densely
+                # when its blocks fit the budget, else serve it singly
+                # (alone it stays batched, one member at a time).
+                merged = {}
+                for req in deep:
+                    merged.update(self._leaf_frags(index, req["leaves"],
+                                                   slices, shared=shared))
+                win = self._union_window(merged)
+                blocks = sum(len(req["leaves"]) for req in deep) * len(
+                    slices)
+                if blocks * win[1] * 4 <= self.CO_DENSIFY_BYTES:
+                    densify_blocks = blocks
+                    dense.extend(deep)
+                else:
+                    self._co_note_decline("densify_budget")
+                    ok = False
+            if lanes:
+                self._co_fuse_lanes(lanes)
+        if dense:
+            served = self._co_fuse_dense(dense)
+            if served and densify_blocks:
+                # Counted once the blocks were staged: a declined group
+                # serves singly through the serial cells, which densify
+                # nothing.
+                self._co_stats["densified_blocks"] += densify_blocks
+                containers_mod.note_conversion(densify_blocks)
+            ok = served and ok
+        return ok
+
+    def _co_fuse_dense(self, reqs):
+        """K dense-served Counts in one launch (ref: the dense branch of
+        executor.py:2818-2980). Each distinct member folds its non-root
+        nodes with torch ops at the group's window; the roots go out in
+        ONE ``count_op_pairs`` launch. No [K, S, W] query-axis stack is
+        built. False (the members then serve singly) for a group whose
+        stacks would not fit the stack budget together. The operands'
+        references live until the counts reach the host."""
+        index, slices = reqs[0]["index"], reqs[0]["slices"]
         entries = self._co_dedupe(reqs)
         win = self._co_window(
             index, [e[0]["leaves"] for e in entries], slices)
@@ -1574,6 +1751,101 @@ class Executor:
         acc = Executor._eval_node((node[0], node[1][:-1]), stacks)
         last = Executor._eval_node(node[1][-1], stacks)
         return acc, last, _COUNT_OPS[node[0]]
+
+    # ------------------------------------------ compressed Count lanes
+
+    @staticmethod
+    def _lane_plan_shape(plan):
+        """("count", leaf) for a bare row leaf (served from host-known
+        cardinalities, no device work), (op, leaf_a, leaf_b) for a
+        two-operand node over row leaves (one intersection lane per
+        format cell and the count identities), None otherwise (ref:
+        executor.py:2980-2996)."""
+        if plan[0] == "leaf":
+            return ("count", plan[1])
+        op = _COUNT_OPS.get(plan[0])
+        if (op is not None and len(plan[1]) == 2
+                and plan[1][0][0] == "leaf" and plan[1][1][0] == "leaf"):
+            return (op, plan[1][0][1], plan[1][1][1])
+        return None
+
+    def _co_fuse_lanes(self, reqs):
+        """Serve K all-compressed same-structure Counts from the container
+        lanes (ref: executor.py:3004-3131): equal members share one entry
+        (``_co_dedupe``) and every distinct two-operand member's rows
+        count in one launch of ``container_and_counts`` per format cell
+        for the whole group (``_lane_counts``); nothing densifies."""
+        entries = self._co_dedupe(reqs)
+        totals, launches = self._lane_counts(
+            reqs[0]["index"], reqs[0]["slices"],
+            [(e[0]["plan"], e[0]["leaves"]) for e in entries])
+        for e, total in zip(entries, totals):
+            for req in e:
+                req["out"] = total
+        self._co_stats["lane_launches"] += launches
+        self._co_stats["compressed_fused"] += len(reqs)
+        self._co_note_fused(len(reqs))
+        return True
+
+    def _lane_counts(self, index, slices, members):
+        """([count], kernel launches) of all-compressed Counts over one
+        slice list, each member a (plan, leaves) of a lane shape: a bare
+        leaf sums its host-known counts, a two-operand node is |a ∩ b|
+        of its rows' RowLanes, all pairs in one
+        ``containers.lane_and_counts`` call, and the op's identity over
+        the rows' counts."""
+        out, pairs, ops = [None] * len(members), [], []
+        for i, (plan, leaves) in enumerate(members):
+            shape = self._lane_plan_shape(plan)
+            specs = [leaves[j] for j in shape[1:]]
+            if shape[0] == "count":
+                spec = specs[0]
+                out[i] = sum(f.row_count(spec[2]) for f in
+                             self.holder.fragments(index, *spec[:2], slices)
+                             if f is not None)
+                continue
+            pairs.append(tuple(self._lane_row(index, spec, slices)
+                               for spec in specs))
+            ops.append((i, shape[0]))
+        inter, launches = containers_mod.lane_and_counts(pairs)
+        for (i, op), (la, lb), x in zip(ops, pairs, inter.tolist()):
+            out[i] = int(containers_mod.count_identity(op, x, la.count,
+                                                       lb.count))
+        return out, launches
+
+    # Bytes of the lanes' packed rows kept between queries.
+    LANE_CACHE_BYTES = 256 << 20
+
+    def _lane_row(self, index, spec, slices):
+        """The RowLane of one row leaf over the slice list: its blocks
+        (``Fragment.row_container``) packed for the lanes, cached until
+        the index's epoch moves (a write), byte-bounded LRU (ref: the
+        tick-shared container memo of executor.py:3035-3050, kept here
+        across queries)."""
+        key = (index, *spec, slice_key(slices))
+        epoch = self._epoch(index)  # before building: a racing write
+        # makes the entry stale on arrival, never wrong
+        with self._cache_mu:
+            hit = self._lane_cache.get(key)
+            if hit is not None and hit[0] == epoch:
+                self._lane_cache[key] = self._lane_cache.pop(key)
+                return hit[1]
+        frags = self.holder.fragments(index, spec[0], spec[1], slices)
+        lane = containers_mod.RowLane([
+            f.row_container(spec[2]) if f is not None else None
+            for f in frags])
+        with self._cache_mu:
+            old = self._lane_cache.pop(key, None)
+            if old is not None:
+                self._lane_bytes -= old[1].nbytes
+            while self._lane_cache and (self._lane_bytes + lane.nbytes
+                                        > self.LANE_CACHE_BYTES):
+                ev = self._lane_cache.pop(next(iter(self._lane_cache)))
+                self._lane_bytes -= ev[1].nbytes
+            if lane.nbytes <= self.LANE_CACHE_BYTES:
+                self._lane_cache[key] = (epoch, lane)
+                self._lane_bytes += lane.nbytes
+        return lane
 
     # ------------------------------------------ coalesced Sum, Min/Max
 

@@ -110,3 +110,56 @@ def count_xor(a, b):
 
 def count_andnot(a, b):
     return count_op("andnot", a, b)
+
+
+# ---------------------------------------------------------------------------
+# Format-polymorphic dispatch (ref: pilosa_tpu ops/bitops.py:405-500, the
+# registry shape of the reference's container matrix, roaring.go:1811-3283).
+# An operand carries a format descriptor (``fmt``; raw word tensors are
+# dense), a table maps (op, fmt_a, fmt_b) to a count cell, and a pair with no
+# cell densifies both sides. ops/containers.py registers its cells at import.
+# ---------------------------------------------------------------------------
+
+FMT_DENSE = "dense"
+FMT_ARRAY = "array"
+FMT_RUN = "run"
+
+_COUNT_KERNELS = {}  # (op, fmt_a, fmt_b) -> count cell
+_DENSE_COUNT = {"and": count_and, "or": count_or, "xor": count_xor,
+                "andnot": count_andnot}
+
+
+def operand_format(x):
+    """An operand's format: its ``fmt``, or dense for a raw tensor."""
+    return getattr(x, "fmt", FMT_DENSE)
+
+
+def register_count_kernel(op, fmt_a, fmt_b, fn):
+    """Install the count cell of one (op, format, format); the last
+    registration wins."""
+    _COUNT_KERNELS[(op, fmt_a, fmt_b)] = fn
+
+
+def densify(x):
+    """Dense int32 words of any operand: a raw tensor passes through, a
+    container gives ``dense_words()``."""
+    fn = getattr(x, "dense_words", None)
+    return x if fn is None else fn()
+
+
+def dispatch_count(op, a, b):
+    """|a OP b| by the operands' formats: dense×dense is the dense count
+    (``count_op_rows``), a registered cell runs its kernel, any other
+    pair densifies both sides."""
+    fa, fb = operand_format(a), operand_format(b)
+    if fa != FMT_DENSE or fb != FMT_DENSE:
+        fn = _COUNT_KERNELS.get((op, fa, fb))
+        if fn is not None:
+            return fn(a, b)
+    return _DENSE_COUNT[op](densify(a), densify(b))
+
+
+def dispatch_pair(op, a, b):
+    """a OP b as dense words: compressed operands densify first (results
+    feed dense Bitmap segments)."""
+    return PAIR_OPS[op](densify(a), densify(b))

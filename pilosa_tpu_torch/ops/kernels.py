@@ -20,6 +20,11 @@ and its design:
 - :func:`count_and_rows_multi` — popcount(row_r & filt_k) per slice for
   R shared row stacks and K filter stacks; replaces the fused Sum
   group's XLA fusion (``csrc/count_and_rows.cu``).
+- :func:`container_and_counts` — per-member |a ∩ b| of compressed row
+  blocks (array × array, array × run, array × dense, run × dense), N
+  members packed into one launch; replaces the count cells of the
+  compressed container tier and their lane twins
+  (``csrc/containers.cu``).
 
 Words are ``int32`` views of the 32-bit device words, shape
 ``[..., W]``; results are ``int32[...]``. A wrapper takes the plain
@@ -49,7 +54,8 @@ OPS = {"and": 1, "or": 2, "xor": 3, "andnot": 4}
 MAX_WIDTH = (1 << 26) - 1
 
 launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0,
-            "count_op_pairs": 0, "count_and_rows_multi": 0}
+            "count_op_pairs": 0, "count_and_rows_multi": 0,
+            "container_and_counts": 0}
 # The kernels' regime codes (REGIME_* in the CUDA sources), by value.
 REGIMES = ("full", "narrow", "split")
 regime_launches = {name: dict.fromkeys(REGIMES, 0)
@@ -67,6 +73,7 @@ _car_fn = None
 _car_strided_fn = None
 _pairs_fn = None
 _multi_fn = None
+_cont_fn = None
 
 
 def reset_launches():
@@ -509,4 +516,215 @@ def count_and_rows_multi(rows, filts):
                         f"count_and_rows_multi: kernel launch failed: CUDA "
                         f"error {rc} ({err_str(rc).decode()})")
                 _count_launch("count_and_rows_multi")
+    return out
+
+
+# ------------------------------------------------------ container counts
+
+# Cell codes shared with csrc/containers.cu.
+CONTAINER_CELLS = {"array_array": 0, "array_run": 1, "array_dense": 2,
+                   "run_dense": 3}
+# Blocks a launch gives the card at the least (two per SM), spread over
+# few members; csrc/containers.cu takes up to 65,535 per member.
+_CONT_MIN_BLOCKS = 2 * 132
+_CONT_MAX_BLOCKS_PER_MEMBER = 64
+
+
+def _item_members(offs):
+    """(item indices, their member ids) of a packed side whose member m
+    holds items [offs[m], offs[m + 1]), both int64."""
+    offs = offs.to(torch.int64)
+    items = torch.arange(int(offs[0]), int(offs[-1]), dtype=torch.int64,
+                         device=offs.device)
+    return items, torch.searchsorted(offs[1:], items, right=True)
+
+
+def _dense_rows(rows, device):
+    """(distinct dense rows stacked, each member's index into them): a
+    lane's members often share rows, which are stacked once."""
+    if torch.is_tensor(rows):
+        return rows, torch.arange(rows.shape[0], device=device)
+    seen, distinct, index = {}, [], []
+    for r in rows:
+        j = seen.setdefault((r.data_ptr(), r.shape[0]), len(distinct))
+        if j == len(distinct):
+            distinct.append(r)
+        index.append(j)
+    return (torch.stack(distinct),
+            torch.tensor(index, dtype=torch.int64, device=device))
+
+
+def container_and_counts_plain(cell, a, b):
+    """Plain version of :func:`container_and_counts`. The members'
+    items are keyed by (member, value) as int64, so one
+    ``searchsorted`` over a whole packed side serves every member."""
+    n = a[-1].shape[0] - 1
+    out = torch.zeros(n, dtype=torch.int64, device=a[0].device)
+    ia, ma = _item_members(a[-1])
+    if cell == "run_dense":
+        rows, ridx = _dense_rows(b, out.device)
+        limit = rows.shape[-1] * 32
+        s = a[0].to(torch.int64)[ia].clamp(min=0)
+        e = a[1].to(torch.int64)[ia].clamp(max=limit)
+        first, last = s >> 5, (e - 1) >> 5
+        nw = torch.where(s < e, last - first + 1, torch.zeros_like(s))
+        run = torch.repeat_interleave(
+            torch.arange(len(s), device=s.device), nw)
+        start = torch.cumsum(nw, 0) - nw
+        w = first[run] + torch.arange(len(run), device=s.device) - start[run]
+        words = rows[ridx[ma[run]], w].to(torch.int64) & 0xFFFFFFFF
+        mask = torch.full_like(words, 0xFFFFFFFF)
+        lo = w == first[run]
+        hi = w == last[run]
+        mask = torch.where(lo, mask & ((0xFFFFFFFF << (s[run] & 31))
+                                       & 0xFFFFFFFF), mask)
+        mask = torch.where(hi, mask & (0xFFFFFFFF >> (31 - ((e[run] - 1)
+                                                           & 31))), mask)
+        out.index_add_(0, ma[run], popcount32(words & mask))
+        return out.to(torch.int32)
+    pos = a[0].to(torch.int64)[ia]
+    if cell == "array_dense":
+        rows, ridx = _dense_rows(b, out.device)
+        ok = (pos >= 0) & (pos < rows.shape[-1] * 32)
+        p = torch.where(ok, pos, torch.zeros_like(pos))
+        bit = (rows[ridx[ma], p >> 5].to(torch.int64) >> (p & 31)) & 1
+        out.index_add_(0, ma, torch.where(ok, bit, torch.zeros_like(bit)))
+        return out.to(torch.int32)
+    ib, mb = _item_members(b[-1])
+    key_a = (ma << 32) + pos
+    key_b = (mb << 32) + b[0].to(torch.int64)[ib]
+    if cell == "array_array":
+        j = torch.searchsorted(key_b, key_a)
+        jc = j.clamp(max=max(len(key_b) - 1, 0))
+        hit = (j < len(key_b)) & (key_b[jc] == key_a) if len(key_b) else \
+            torch.zeros_like(key_a, dtype=torch.bool)
+    elif cell == "array_run":
+        j = torch.searchsorted(key_b, key_a, right=True) - 1
+        jc = j.clamp(min=0)
+        ends = b[1].to(torch.int64)[ib]
+        hit = ((j >= 0) & (mb[jc] == ma) & (pos < ends[jc])
+               if len(key_b) else torch.zeros_like(key_a, dtype=torch.bool))
+    else:
+        raise ValueError(f"unknown container cell: {cell!r}")
+    out.index_add_(0, ma, hit.to(torch.int64))
+    return out.to(torch.int32)
+
+
+def _cont_kernel():
+    global _cont_fn
+    if _cont_fn is None:
+        lib = loader.library("containers")
+        fn = lib.pilosa_container_and_counts
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + \
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.pilosa_containers_error_string.argtypes = [ctypes.c_int]
+        lib.pilosa_containers_error_string.restype = ctypes.c_char_p
+        _cont_fn = (fn, lib.pilosa_containers_error_string)
+    return _cont_fn
+
+
+def _check_side(name, side, n, dev):
+    """A packed array side (vals, offs) or run side (starts, ends, offs):
+    1-D contiguous int32 on ``dev``, offsets of n + 1 members."""
+    for t in side:
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name}: payloads and offsets must be 1-D "
+                            f"int32, got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name}: device mismatch {dev} vs {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: payloads must be contiguous")
+    if side[-1].shape[0] != n + 1:
+        raise ValueError(f"{name}: {side[-1].shape[0] - 1} members on one "
+                         f"side, {n} on the other")
+    if len(side) == 3 and side[0].shape != side[1].shape:
+        raise ValueError(f"{name}: {side[0].shape[0]} run starts, "
+                         f"{side[1].shape[0]} ends")
+
+
+def _check_rows(rows, n, dev):
+    """A dense side: n int32 rows of one width on ``dev``, one [n, W]
+    tensor or a list of [W] tensors. Returns W."""
+    one = rows if torch.is_tensor(rows) else rows[0] if rows else None
+    count = rows.shape[0] if torch.is_tensor(rows) else len(rows)
+    if count != n:
+        raise ValueError(f"container_and_counts: {n} members, {count} "
+                         "dense rows")
+    if one is None:
+        return 1
+    if one.dim() != (2 if torch.is_tensor(rows) else 1):
+        raise ValueError("container_and_counts: dense rows must be [N, W] "
+                         f"or N of [W], got {tuple(one.shape)}")
+    _check("container_and_counts", *([rows] if torch.is_tensor(rows)
+                                     else rows))
+    if one.device != dev:
+        raise ValueError("container_and_counts: dense rows on another "
+                         "device")
+    return one.shape[-1]
+
+
+def container_and_counts(cell, a, b):
+    """Per-member |a ∩ b| of N compressed row blocks in one launch ->
+    int32[N]. ``cell`` is ``array_array``, ``array_run``,
+    ``array_dense`` or ``run_dense``; an array side is (positions,
+    offsets), a run side (starts, ends, offsets) — the members' sorted
+    int32 payloads concatenated, member m's at [offsets[m], offsets[m +
+    1]) — and a dense side N int32[W] rows, a list or one [N, W]
+    tensor."""
+    if cell not in CONTAINER_CELLS:
+        raise ValueError(f"unknown container cell: {cell!r}")
+    want_a = 3 if cell == "run_dense" else 2
+    if len(a) != want_a:
+        raise ValueError(f"container_and_counts: {cell} takes a side of "
+                         f"{want_a} tensors, got {len(a)}")
+    n = a[-1].shape[0] - 1
+    dev = a[0].device
+    _check_side("container_and_counts", a, n, dev)
+    if cell.endswith("dense"):
+        rows = b if torch.is_tensor(b) else list(b)
+        row_width = _check_rows(rows, n, dev)
+    else:
+        if len(b) != (2 if cell == "array_array" else 3):
+            raise ValueError(f"container_and_counts: {cell}'s right side "
+                             f"has {len(b)} tensors")
+        _check_side("container_and_counts", b, n, dev)
+        row_width = 1
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        return container_and_counts_plain(cell, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"container_and_counts: no kernel for device {dev}")
+    out = torch.zeros(n, dtype=torch.int32, device=dev)
+    fn, err_str = _cont_kernel()
+    a_vals, a_offs = a[0], a[-1]
+    a_ends = a[1] if cell == "run_dense" else a[0]
+    b_vals = b_ends = b_offs = a_offs
+    base, table = 0, None
+    if cell.endswith("dense"):
+        if torch.is_tensor(rows):
+            base = rows.data_ptr()
+        elif len(rows) == 1:
+            base = rows[0].data_ptr()
+        else:
+            ptrs = np.asarray([r.data_ptr() for r in rows], dtype=np.uint64)
+            table = torch.from_numpy(ptrs.view(np.int64)).to(dev)
+    else:
+        b_vals, b_offs = b[0], b[-1]
+        b_ends = b[1] if cell == "array_run" else b[0]
+    per = max(1, min(_CONT_MAX_BLOCKS_PER_MEMBER,
+                     -(-_CONT_MIN_BLOCKS // n)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(CONTAINER_CELLS[cell], n, a_vals.data_ptr(),
+                a_ends.data_ptr(), a_offs.data_ptr(), b_vals.data_ptr(),
+                b_ends.data_ptr(), b_offs.data_ptr(), base,
+                0 if table is None else table.data_ptr(), row_width, per,
+                out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"container_and_counts: kernel launch failed: "
+                           f"CUDA error {rc} ({err_str(rc).decode()})")
+    _count_launch("container_and_counts")
     return out

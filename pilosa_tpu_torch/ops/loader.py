@@ -22,7 +22,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # name -> source file under csrc/
 SOURCES = {"popcount": "popcount.cu",
-           "count_and_rows": "count_and_rows.cu"}
+           "count_and_rows": "count_and_rows.cu",
+           "containers": "containers.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

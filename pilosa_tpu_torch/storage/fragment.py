@@ -47,6 +47,18 @@ write, written back on unload and close. ``top()`` ranks exact counts
 — host row counts, or the ``count_and_rows`` kernel against a Src row
 on the device — over the rows the cache admits.
 
+The compressed serving tier (ref: pilosa_tpu fragment.py:1583-1839).
+``row_container`` serves one row as a ``containers.Container`` chosen by
+the roaring thresholds: sorted positions (at most 4,096 bits), runs, or
+the dense device row with its known count. Compressed containers are
+memoized per (row, version), at most 8,192 a fragment, keyed by the
+physical row or by ``("lazy", row)`` on a non-resident fragment (lazy
+ones are governor-charged and dropped with the lazy memos); a rebuild
+in another format is a conversion. ``row_compressed`` tells the
+executor whether a row of a non-resident fragment serves compressed,
+and ``container_stats`` rolls the tier up by format for
+``memory_stats``.
+
 A BSI field's fragment (view ``field_<name>``) holds the value bits in
 rows 0..depth-1 and the not-null row ``depth``; ``planes_win`` hands
 them to the descents of ``ops/bsi.py`` as one device matrix.
@@ -69,6 +81,7 @@ from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import bsi as bsi_ops
+from pilosa_tpu_torch.ops import containers
 from pilosa_tpu_torch.ops import topn as topn_ops
 from pilosa_tpu_torch.roaring import codec
 from pilosa_tpu_torch.storage.cache import NopCache, new_cache
@@ -89,6 +102,22 @@ _MIN_W64 = 64
 # A lazy read declined (the fragment is resident, or its file cannot be
 # read lazily): the caller takes the resident path.
 _NOT_LAZY = object()
+
+# Moves whenever a fragment becomes resident or leaves residency. A
+# fault-in or an eviction moves no index epoch, so a route memoized on
+# the epoch (the executor's compressed-plan verdict, which asks
+# ``row_compressed``) reads this too.
+_residency = itertools.count(1)
+_residency_gen = 0
+
+
+def residency_generation():
+    return _residency_gen
+
+
+def _residency_moved():
+    global _residency_gen
+    _residency_gen = next(_residency)
 
 HOLDER_LOCK_NAME = ".holder.lock"
 
@@ -307,6 +336,14 @@ class Fragment:
         self._lazy_bytes = 0     # bytes of the _lazy_rows blocks
         self._lazy_cache_ids = None  # the sidecar's TopN ids
         self._lazy_counts = {}   # row_id -> exact count
+        # The compressed serving tier (ops/containers.py): phys, or
+        # ("lazy", row_id) on a non-resident fragment -> (version,
+        # Container) for ARRAY/RUN rows (a dense row wraps the mirror per
+        # call), the last format each row served as (conversions), and
+        # this fragment's conversions.
+        self._cont_dev = {}
+        self._cont_fmt = {}
+        self._conversions = 0
 
     @property
     def cache(self):
@@ -374,6 +411,7 @@ class Fragment:
             if self._snap_card is None:
                 self._snap_card = int(self._row_counts.sum())
             self._resident = True
+            _residency_moved()
             if torn:
                 self.snapshot()
             if not self._cache_loaded:
@@ -402,6 +440,7 @@ class Fragment:
             self._release_lock()
             self._opened = False
             self._resident = False
+            _residency_moved()
             self._cache_loaded = False
             self._reset_storage_locked()
         finally:
@@ -470,6 +509,8 @@ class Fragment:
             dev += memo[1].nbytes
         for memo in list(self._planes_cache.values()):
             dev += memo[1].nbytes
+        for memo in list(self._cont_dev.values()):
+            dev += memo[1].device_bytes()
         resident = self._resident
         try:
             disk = os.path.getsize(self.path)
@@ -483,6 +524,7 @@ class Fragment:
             "lazyBytes": int(self.lazy_bytes()),
             "diskBytes": int(disk),
             "cacheEntries": len(self._cache),
+            "containers": self.container_stats(),
         }
 
     def unload(self, blocking=True):
@@ -505,7 +547,9 @@ class Fragment:
                 # are charged too, so one eviction frees everything.
                 if (self._lazy is None and not self._lazy_rows
                         and self._lazy_cache_ids is None
-                        and not self._lazy_planes_bytes()):
+                        and not self._lazy_planes_bytes()
+                        and not any(isinstance(k, tuple)
+                                    for k in self._cont_dev)):
                     return False
                 self._drop_lazy_locked()
             else:
@@ -517,6 +561,7 @@ class Fragment:
                 if self._cache_loaded:
                     self._flush_cache_locked()
                 self._resident = False
+                _residency_moved()
                 # The file is unchanged: the version and the index's
                 # epoch stay, so stacks and result memos built from it
                 # stay valid across the eviction and the next fault-in.
@@ -544,6 +589,11 @@ class Fragment:
         if any(k[0] == "lazy" for k in self._planes_cache):
             self._planes_cache = {k: v for k, v in self._planes_cache.items()
                                   if k[0] != "lazy"}
+        for name in ("_cont_dev", "_cont_fmt"):
+            memo = getattr(self, name)
+            if any(isinstance(k, tuple) for k in memo):
+                setattr(self, name, {k: v for k, v in memo.items()
+                                     if not isinstance(k, tuple)})
 
     def _drop_reader(self):
         """Release the mmap reader ONLY (the reader cap): memos stay and
@@ -570,6 +620,10 @@ class Fragment:
         if self._lazy_cache_ids is not None:
             overhead += 32 + len(self._lazy_cache_ids) * 32
         overhead += self._lazy_planes_bytes()
+        # Containers built from lazy decodes are charged like every other
+        # lazy memo, so an evicted index's serving tier stays in budget.
+        overhead += sum(v[1].nbytes() for k, v in list(self._cont_dev.items())
+                        if isinstance(k, tuple))
         return self._lazy_bytes + overhead
 
     def _lazy_planes_bytes(self):
@@ -1051,6 +1105,8 @@ class Fragment:
         self._rc_dev = None
         self._row_dev = {}
         self._planes_cache = {}
+        self._cont_dev = {}
+        self._cont_fmt = {}
         if bump:
             self._version += 1
             self.epoch.bump()
@@ -1222,6 +1278,183 @@ class Fragment:
                 self._row_dev.clear()
             self._row_dev[key] = (self._version, row)
             return row
+
+    # ------------------------------------------- compressed serving tier
+
+    def row_container(self, row_id):
+        """``containers.Container`` of one row at full slice width (ref:
+        pilosa_tpu fragment.py:1583-1667). Its format comes from the
+        row's count and one vectorized run scan, by the roaring
+        thresholds (``containers.choose_format``): sorted positions, runs,
+        or the dense device row wrapped with its known count. ARRAY and
+        RUN containers are memoized per (row, version); a rebuild in
+        another format counts a conversion. A non-resident fragment
+        classifies from its lazy decode: compressed results memoize
+        (a memo hit touches no reader), dense rows upload per call, as
+        ``device_row`` does."""
+        if not self._resident and self._opened:
+            # Memo first, without the lock: a warm compressed tier serves
+            # without recreating the reader (each pins a descriptor).
+            memo = self._cont_dev.get(("lazy", row_id))
+            if memo is not None and memo[0] == self._version:
+                if self.governor is not None:
+                    # The recency stamp, or the hottest compressed
+                    # fragments would be evicted first.
+                    self.governor.touch(self)
+                return memo[1]
+            out = self._lazy_serve(
+                lambda r: self._lazy_container(r, row_id))
+            if out is not _NOT_LAZY:
+                return out
+        with self.mu:
+            phys = self._row_index.get(row_id)
+            if phys is None:
+                return containers.empty_container(WORDS_PER_SLICE,
+                                                  self.device)
+            memo = self._cont_dev.get(phys)
+            if memo is not None and memo[0] == self._version:
+                return memo[1]
+            fm = self._cont_fmt.get(phys)
+            if fm is not None and fm == (self._version, bitops.FMT_DENSE):
+                # Classified dense at this version: no run scan, wrap the
+                # mirror (a hot dense row on the serial path stays a dict
+                # hit and a wrap).
+                return containers.dense_container(
+                    self.device_row_win(row_id, 0, WORDS_PER_SLICE),
+                    WORDS_PER_SLICE, int(self._row_counts[phys]))
+            cont = self._build_container_locked(phys)
+            self._note_format_locked(phys, fm, cont)
+            return cont
+
+    def _note_format_locked(self, key, fm, cont):
+        """Record the format ``cont`` served in (a conversion when it
+        differs from the last one) and memoize it when compressed."""
+        if fm is not None and fm[1] != cont.fmt:
+            self._conversions += 1
+            containers.note_conversion()
+        self._cont_fmt[key] = (self._version, cont.fmt)
+        if cont.fmt != bitops.FMT_DENSE:
+            self._memo_container(key, cont)
+
+    def _lazy_container(self, reader, row_id):
+        """Container of one row of a non-resident fragment from the lazy
+        decode (ref: pilosa_tpu fragment.py:1669-1710): a sparse row costs
+        one transient full-width host assembly, then lives as its
+        payload. A dense row is not memoized (it would pin a 128 KB
+        device row an entry)."""
+        key = ("lazy", row_id)
+        memo = self._cont_dev.get(key)
+        if memo is not None and memo[0] == self._version:
+            return memo[1]
+        words = self._lazy_row64_span(reader, row_id, 0, WORDS64)
+        fm = self._cont_fmt.get(key)
+        if fm is not None and fm == (self._version, bitops.FMT_DENSE):
+            # Classified dense at this version: no popcount or run scan.
+            cnt = self._lazy_counts.get(row_id)
+            if cnt is None:
+                cnt = int(codec.popcount64(words).sum())
+                if len(self._lazy_counts) < 65536:
+                    self._lazy_counts[row_id] = cnt
+            return containers.dense_container(
+                torch.from_numpy(words.view(np.int32)).to(self.device),
+                WORDS_PER_SLICE, cnt)
+        cont = containers.build_container(words, WORDS_PER_SLICE,
+                                          count=self._lazy_counts.get(row_id),
+                                          device=self.device)
+        self._note_format_locked(key, fm, cont)
+        return cont
+
+    def _memo_container(self, key, cont):
+        """Memoize a compressed container, at most 8,192 a fragment,
+        oldest out."""
+        if len(self._cont_dev) >= 8192:
+            self._cont_dev.pop(next(iter(self._cont_dev)))
+        self._cont_dev[key] = (self._version, cont)
+
+    def row_compressed(self, row_id):
+        """Whether this row serves from the compressed tier rather than
+        a dense device stack (ref: pilosa_tpu fragment.py:1720-1749):
+        only for an open, non-resident fragment whose row has at most
+        ARRAY_MAX_BITS bits (or none). Resident fragments keep the
+        batched path: their dense mirrors are paid for already."""
+        if not containers.enabled():
+            return False
+        if self._resident or not self._opened:
+            return False
+        memo = self._cont_dev.get(("lazy", row_id))
+        if memo is not None and memo[0] == self._version:
+            return memo[1].fmt != bitops.FMT_DENSE
+        return self.row_count(row_id) <= containers.ARRAY_MAX_BITS
+
+    def row_format_probe(self, row_id):
+        """A read-only guess of one row's format, "dense", "array" or
+        "run", from the serving memos when warm, else from the count
+        (at most ARRAY_MAX_BITS: array). Builds nothing, memoizes
+        nothing (ref: pilosa_tpu fragment.py:1751-1786)."""
+        if not containers.enabled():
+            return bitops.FMT_DENSE
+        version = self._version
+        if not self._resident and self._opened:
+            memo = self._cont_dev.get(("lazy", row_id))
+            if memo is not None and memo[0] == version:
+                return memo[1].fmt
+            fm = self._cont_fmt.get(("lazy", row_id))
+            if fm is not None and fm[0] == version:
+                return fm[1]
+            return (bitops.FMT_ARRAY
+                    if self.row_count(row_id) <= containers.ARRAY_MAX_BITS
+                    else bitops.FMT_DENSE)
+        phys = self._row_index.get(row_id)
+        if phys is None:
+            return bitops.FMT_ARRAY  # an absent row serves an empty array
+        memo = self._cont_dev.get(phys)
+        if memo is not None and memo[0] == version:
+            return memo[1].fmt
+        fm = self._cont_fmt.get(phys)
+        if fm is not None and fm[0] == version:
+            return fm[1]
+        return bitops.FMT_DENSE
+
+    def _build_container_locked(self, phys):
+        """Classify and build one resident row's container from its window
+        words: positions and runs rebase by the window's offset to slice
+        bits, and a dense row wraps the device mirror. Caller holds
+        ``self.mu``."""
+        row_id = self._phys_rows[phys]
+        return containers.build_container(
+            self._matrix[phys], WORDS_PER_SLICE,
+            count=int(self._row_counts[phys]), offset=self._w64_base * 64,
+            dense_fn=lambda: self.device_row_win(row_id, 0, WORDS_PER_SLICE),
+            device=self.device)
+
+    def container_stats(self):
+        """The compressed tier per format: blocks and payload bytes, the
+        bytes the dense tier would hold for the same blocks (a resident
+        row pages to this fragment's window, a lazy one to the full
+        slice), and conversions (ref: pilosa_tpu fragment.py:1803-1839).
+        Lock-free, like memory_stats."""
+        out = {f: {"blocks": 0, "bytes": 0}
+               for f in (bitops.FMT_DENSE, bitops.FMT_ARRAY, bitops.FMT_RUN)}
+        dense_row_bytes = 2 * self._w64 * 4
+        equiv = 0
+        version = self._version
+        for key, memo in list(self._cont_dev.items()):
+            if memo[0] != version:
+                continue
+            c = memo[1]
+            out[c.fmt]["blocks"] += 1
+            out[c.fmt]["bytes"] += c.nbytes()
+            equiv += (c.dense_equiv_bytes() if isinstance(key, tuple)
+                      else dense_row_bytes)
+        for key, (ver, fmt) in list(self._cont_fmt.items()):
+            if fmt == bitops.FMT_DENSE and ver == version:
+                b = (WORDS_PER_SLICE * 4 if isinstance(key, tuple)
+                     else dense_row_bytes)
+                out[fmt]["blocks"] += 1
+                out[fmt]["bytes"] += b
+                equiv += b
+        return {"formats": out, "denseEquivBytes": equiv,
+                "conversions": self._conversions}
 
     # ---------------------------------------------------------- mutations
 
@@ -1617,6 +1850,7 @@ class Fragment:
                         self.op_n = 0
                         self._snap_card = int(self._row_counts.sum())
                         self._resident = True  # the restored state
+                        _residency_moved()
                         if not self._cache_loaded:
                             self._cache.clear()
                             self._open_cache()

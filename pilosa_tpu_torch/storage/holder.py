@@ -208,18 +208,20 @@ class Holder:
         """Per-index and total memory occupancy — host matrix bytes of
         resident fragments, device bytes of their tensors, lazy-read
         memo bytes, file bytes on disk, TopN cache entries, fragment and
-        resident-fragment counts — and the governor's gauges (ref:
-        pilosa_tpu holder.py:649-704, without its 2 s memo and the
-        compressed-container rollup)."""
+        resident-fragment counts, and the compressed container tier's
+        rollup by format — and the governor's gauges (ref: pilosa_tpu
+        holder.py:645-720, without its 2 s memo)."""
         with self.mu:
             indexes = [(name, self.indexes[name])
                        for name in sorted(self.indexes)]
         per_index = {}
         totals = dict.fromkeys(self._MEM_KEYS, 0)
         totals["fragments"] = totals["residentFragments"] = 0
+        totals["containers"] = self._empty_container_agg()
         for name, idx in indexes:
             agg = dict.fromkeys(self._MEM_KEYS, 0)
             agg["fragments"] = agg["residentFragments"] = 0
+            cagg = self._empty_container_agg()
             for frame in list(idx.frames.values()):
                 for view in list(frame.views.values()):
                     for frag in list(view.fragments.values()):
@@ -228,24 +230,49 @@ class Holder:
                         agg["residentFragments"] += int(m["resident"])
                         for k in self._MEM_KEYS:
                             agg[k] += m[k]
+                        self._add_container_agg(cagg, m["containers"])
+            agg["containers"] = cagg
             per_index[name] = agg
             for k, v in agg.items():
-                totals[k] += v
+                if k == "containers":
+                    self._add_container_agg(totals["containers"], v)
+                else:
+                    totals[k] += v
         return {"indexes": per_index, "totals": totals,
                 "governor": self.governor.snapshot()}
+
+    @staticmethod
+    def _empty_container_agg():
+        """A zeroed container rollup: dense/array/run blocks and payload
+        bytes, the dense-tier bytes of the same blocks, conversions."""
+        return {"formats": {f: {"blocks": 0, "bytes": 0}
+                            for f in ("dense", "array", "run")},
+                "denseEquivBytes": 0, "conversions": 0}
+
+    @staticmethod
+    def _add_container_agg(into, c):
+        for fmt, fv in c["formats"].items():
+            into["formats"][fmt]["blocks"] += fv["blocks"]
+            into["formats"][fmt]["bytes"] += fv["bytes"]
+        into["denseEquivBytes"] += c["denseEquivBytes"]
+        into["conversions"] += c["conversions"]
 
     def fragment(self, index, frame, view, slice_num):
         """Accessor chain (ref: holder.go:196-338)."""
         return self.fragments(index, frame, view, [slice_num])[0]
 
     def fragments(self, index, frame, view, slices):
-        """One lookup per slice after resolving index→frame→view once."""
+        """One lookup per slice after resolving index→frame→view once,
+        under one hold of the view's lock (a lock a slice convoys when
+        many request threads walk at once)."""
         idx = self.index(index)
         fr = idx.frame(frame) if idx is not None else None
         v = fr.view(view) if fr is not None else None
         if v is None:
             return [None] * len(slices)
-        return [v.fragment(s) for s in slices]
+        with v.mu:
+            get = v.fragments.get
+            return [get(s) for s in slices]
 
     def max_slices(self):
         """{index: max_slice}."""

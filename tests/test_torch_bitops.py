@@ -129,9 +129,14 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
                        torch.zeros((2, 3), dtype=torch.int32))
     assert torch.equal(kernels.count_and_rows_multi([a], [a, a]),
                        torch.stack([kernels.count_rows_plain(a)[None]] * 2))
+    pos = torch.tensor([0, 31, 40], dtype=torch.int32)
+    offs = torch.tensor([0, 3], dtype=torch.int32)
+    assert kernels.container_and_counts(
+        "array_array", (pos, offs), (pos, offs)).tolist() == [3]
     assert kernels.launches == {"count_op_rows": 0, "count_rows": 0,
                                 "count_and_rows": 0, "count_op_pairs": 0,
-                                "count_and_rows_multi": 0}
+                                "count_and_rows_multi": 0,
+                                "container_and_counts": 0}
 
 
 def test_cpu_wrappers_count_no_regime():

@@ -12,7 +12,11 @@ and all-one rows, bit 31, widths 1-32,768, storage offsets off 16
 bytes, K = 1 and 257).
 
 Every test pins the port's coalescer on for a CPU holder
-(``_co_enabled_memo``) and holds the tick window open
+(``_co_enabled_memo``) and the container tier off, so that the dense
+group kernels serve (this directory's rows are sparse and reopened
+lazily: with the tier on they would be compressed lanes, which
+tests/test_torch_containers.py holds against pilosa_tpu), and holds the
+tick window open
 until the whole group has arrived (``set_coalesce_config``), so the
 grouping is deterministic; the result memos are off so that each query
 reaches the tick. Every answer is an integer: tolerance 0."""
@@ -29,7 +33,7 @@ from pilosa_tpu.storage.holder import Holder as JHolder
 from pilosa_tpu_torch import errors as terr
 from pilosa_tpu_torch.executor import PRIO_INTERACTIVE, SumCount
 from pilosa_tpu_torch.executor import Executor as TExecutor
-from pilosa_tpu_torch.ops import bitops, kernels
+from pilosa_tpu_torch.ops import bitops, containers, kernels
 from pilosa_tpu_torch.storage.frame import Field, FrameOptions
 from pilosa_tpu_torch.storage.holder import Holder as THolder
 
@@ -114,8 +118,9 @@ def data(tmp_path_factory):
 
 
 @pytest.fixture
-def port(data):
+def port(data, monkeypatch):
     path, want = data
+    monkeypatch.setattr(containers, "_ENABLED", False)
     h = THolder(path, device="cpu").open()
     e = TExecutor(h)
     e._co_enabled_memo = True

@@ -10,7 +10,9 @@ and ``Bitmap.columns()`` on the card
 against a host unpacking of the same words. Marked
 ``cuda``; where no GPU is present every test skips (decided inside the
 fixture, never at import). Run on a GPU machine with
-``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+``python -m pytest tests/test_torch_cuda.py -m cuda``. The container
+tier's lane kernel ``container_and_counts`` is held against its plain
+version in every cell at its boundary shapes (N = 1 to 76,296 members)."""
 import json
 import re
 from collections import Counter
@@ -150,9 +152,15 @@ def test_launch_counters_count_launches_only(gen):
     kernels.count_and_rows_stacks([a[:0]], a[:0])
     kernels.count_op_pairs([a[:0]], [a[:0]], "and")
     kernels.count_and_rows_multi([a], [])
+    pos = torch.tensor([3, 31], dtype=torch.int32, device="cuda")
+    none = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.container_and_counts("array_array", (pos, none), (pos, none))
+    offs = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    kernels.container_and_counts("array_array", (pos, offs), (pos, offs))
     assert kernels.launches == {"count_op_rows": 1, "count_rows": 1,
                                 "count_and_rows": 1, "count_op_pairs": 0,
-                                "count_and_rows_multi": 0}
+                                "count_and_rows_multi": 0,
+                                "container_and_counts": 1}
 
 
 def test_regime_launches_split_the_launch_counts(gen):
@@ -667,11 +675,18 @@ def test_server_on_gpu_matches_cpu(gen, tmp_path):
     assert json.loads(answers["cpu"][0][1])["results"][0] > 0
 
 
-def test_windows_and_cold_reads_on_gpu_match_cpu(gen, tmp_path):
+def test_windows_and_cold_reads_on_gpu_match_cpu(gen, tmp_path,
+                                                 monkeypatch):
     """A narrow, row-heavy frame (a 128-word window) written on the CPU,
     reopened on the GPU under a host budget: cold batched reads build
     CUDA stacks at the window without a fault-in, and Count, TopN with a
-    Tanimoto threshold and a bitmap result answer as on the CPU."""
+    Tanimoto threshold and a bitmap result answer as on the CPU. The
+    container tier is off: with it on, these sparse cold rows would serve
+    the Count and the bitmap result serially from compressed containers
+    (test_compressed_tier_on_gpu_matches_cpu covers that route)."""
+    from pilosa_tpu_torch.ops import containers
+
+    monkeypatch.setattr(containers, "_ENABLED", False)
     rng = np.random.default_rng(3)
     path = str(tmp_path / "d")
     h = Holder(path, device="cpu").open()
@@ -713,3 +728,183 @@ def test_windows_and_cold_reads_on_gpu_match_cpu(gen, tmp_path):
     want = run("cpu")
     assert got.pop("faults") > 0 and {k: v for k, v in got.items()} == {
         k: v for k, v in want.items() if k != "faults"}
+
+
+# ------------------------------------------------ container_and_counts
+
+def _cont_side(fmt, n, seed, big=False):
+    """n members of one side at full slice width on the card, cycling
+    through the boundary cases of ``fmt`` (for ``big`` lanes, among 64
+    rows of 500 spread bits): arrays of 0, 1 (bit 31; the last bit),
+    700, 4,096 positions and 4,096 bit-31 positions; runs of 2,048 runs,
+    one run over the whole row, one across words, none, 2,000 bits;
+    dense rows of 4,097 bits, all ones, bit 31 of every word, random,
+    zeros. Members share their case's payload. Returns (containers,
+    packed side)."""
+    from pilosa_tpu_torch.ops import containers as C
+
+    rng = np.random.default_rng(seed)
+    limit, w32 = SLICE_WIDTH, SLICE_WIDTH // 32
+
+    def spread(k):
+        return np.sort(rng.choice(limit, k, replace=False)).astype(np.int32)
+
+    if fmt == "array":
+        cases = [np.zeros(0, np.int32), np.array([31], np.int32),
+                 np.array([limit - 1], np.int32), spread(700), spread(4096),
+                 np.arange(31, limit, 32, dtype=np.int32)[:4096]]
+        if big:
+            cases += [spread(500) for _ in range(64)]
+        conts = [C.Container("array", w32, len(p), positions=p,
+                             device="cuda")
+                 for p in (cases[i % len(cases)] for i in range(n))]
+        return conts, C.stack_positions(conts)
+    if fmt == "run":
+        start = int(rng.integers(0, limit - 3000))
+        cases = [np.stack([np.arange(2048) * 6, np.arange(2048) * 6 + 3],
+                          axis=1), np.array([[0, limit]]),
+                 np.array([[30, 70]]), np.zeros((0, 2)),
+                 np.array([[start, start + 2000]])]
+        cases = [c.astype(np.int32) for c in cases]
+        # A big lane's members cover the whole row once, not a fifth of
+        # the time (the plain version expands every covered word).
+        pick = [cases[i % len(cases)] if not big or i < len(cases)
+                else cases[4] for i in range(n)]
+        conts = [C.Container("run", w32, int((r[:, 1] - r[:, 0]).sum()),
+                             runs=r, device="cuda") for r in pick]
+        return conts, C.stack_runs(conts)
+    bits4097 = np.zeros(limit, np.uint8)
+    bits4097[rng.choice(limit, 4097, replace=False)] = 1
+    rows = [np.packbits(bits4097, bitorder="little").view(np.uint64),
+            np.full(limit // 64, np.uint64(2**64 - 1)),
+            np.full(limit // 64, np.uint64(0x8000000080000000)),
+            rng.integers(0, 2**64, limit // 64, dtype=np.uint64),
+            np.zeros(limit // 64, np.uint64)]
+    rows = [torch.from_numpy(r.view(np.int32).copy()).cuda() for r in rows]
+    conts = [C.dense_container(rows[i % len(rows)], w32, 0)
+             for i in range(n)]
+    return conts, [c.dense_words() for c in conts]
+
+
+@pytest.mark.parametrize("n", [1, 7, 76_296])
+@pytest.mark.parametrize("cell", ["array_array", "array_run", "array_dense",
+                                  "run_dense"])
+def test_container_and_counts_equals_plain(gen, cell, n):
+    fa, fb = cell.split("_")
+    big = n > 1000
+    _, a = _cont_side(fa, n, 1, big)
+    _, b = _cont_side(fb, n, 2, big)
+    kernels.reset_launches()
+    got = kernels.container_and_counts(cell, a, b)
+    assert kernels.launches["container_and_counts"] == 1
+    assert torch.equal(got, kernels.container_and_counts_plain(cell, a, b))
+    if fb == "dense":  # one stacked [N, W] tensor instead of a table
+        rows = torch.stack(list(b))
+        assert torch.equal(kernels.container_and_counts(cell, a, rows), got)
+
+
+def test_container_and_counts_rejects_cpu_device_mix(gen):
+    pos = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        kernels.container_and_counts("array_array", (pos, offs),
+                                     (pos.cpu(), offs.cpu()))
+
+
+def test_compressed_tier_on_gpu_matches_cpu(gen, tmp_path):
+    """A count100b-shaped index opened lazily: lone Counts through the
+    lanes, the same pinned serial (a launch a slice), and a coalesced
+    lane group on a GPU holder launch container_and_counts and answer as
+    the CPU holder does."""
+    import threading
+
+    rng = np.random.default_rng(9)
+    path = str(tmp_path / "d")
+    h = Holder(path, device="cpu").open()
+    f = h.create_index("ns").create_frame("f")
+    for s in range(6):
+        base = s * SLICE_WIDTH
+        cols = {1: rng.choice(SLICE_WIDTH, 500, replace=False),
+                2: rng.choice(SLICE_WIDTH, 300, replace=False),
+                0: np.flatnonzero(rng.random(SLICE_WIDTH) < 0.5)}
+        start = int(rng.integers(0, SLICE_WIDTH - 3000))
+        cols[3] = np.arange(start, start + 2000)
+        for r, c in cols.items():
+            f.import_bits([r] * len(c), (base + c).tolist())
+    h.close()
+    row = 'Bitmap(frame="f", rowID={})'.format
+    serial = [f"Count({op}({row(a)}, {row(b)}))"
+              for op in ("Intersect", "Union", "Difference", "Xor")
+              for a, b in ((1, 2), (1, 3), (3, 2), (1, 0), (3, 0))]
+    group = [f"Count(Intersect({row(a)}, {row(b)}))"
+             for a, b in ((1, 2), (1, 3), (2, 3), (1, 2))]
+    answers = {}
+    for device in ("cpu", "cuda"):
+        h = Holder(path, device=device).open()
+        ex = Executor(h)
+        ex._result_memo_off = True
+        ex._co_enabled_memo = True
+        kernels.reset_launches()
+        got = [ex.execute("ns", q)[0] for q in serial]
+        ex._force_path = "serial"
+        got += [ex.execute("ns", q)[0] for q in serial]
+        ex._force_path = None
+        ex.set_coalesce_config(max_wait_us=10_000_000, max_group=len(group))
+        out = [None] * len(group)
+        barrier = threading.Barrier(len(group))
+
+        def run(i, q):
+            barrier.wait(timeout=30)
+            out[i] = ex.execute("ns", q)[0]
+
+        threads = [threading.Thread(target=run, args=(i, q))
+                   for i, q in enumerate(group)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        answers[device] = (got, out)
+        st = ex.coalesce_snapshot()
+        assert st["compressedFusedQueries"] == len(group), st
+        if device == "cuda":
+            assert kernels.launches["container_and_counts"] > 0
+        h.close()
+    assert answers["cuda"] == answers["cpu"]
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_row_lanes_on_gpu_match_cpu(gen, op):
+    """RowLane pairs whose blocks change format from slice to slice: on
+    the card one launch a format cell, the same totals as on the CPU."""
+    from pilosa_tpu_torch.ops import containers as C
+
+    rng = np.random.default_rng(31)
+    limit, w32 = SLICE_WIDTH, SLICE_WIDTH // 32
+
+    def block(kind, device):
+        if kind is None:
+            return None
+        if kind == "run":
+            s0 = int(rng.integers(0, limit - 3000))
+            return C.Container("run", w32, 2000, runs=np.array(
+                [[s0, s0 + 2000]], np.int32), device=device)
+        p = np.sort(rng.choice(limit, 500, replace=False)).astype(np.int32)
+        return C.Container("array", w32, 500, positions=p, device=device)
+
+    kinds = [("array", "array"), ("array", "run"), ("run", "array"),
+             ("run", "run"), (None, "array"), ("array", "array")] * 50
+    state = rng.bit_generator.state
+    totals = {}
+    for device in ("cpu", "cuda"):
+        rng.bit_generator.state = state
+        blocks = [(block(a, device), block(b, device)) for a, b in kinds]
+        la = C.RowLane([x for x, _ in blocks])
+        lb = C.RowLane([y for _, y in blocks])
+        kernels.reset_launches()
+        inter, launches = C.lane_and_counts([(la, lb), (lb, la)])
+        totals[device] = [int(C.count_identity(op, int(x), p.count, q.count))
+                          for x, (p, q) in zip(inter, [(la, lb), (lb, la)])]
+        assert launches == 2
+        if device == "cuda":
+            assert kernels.launches["container_and_counts"] == 2
+    assert totals["cuda"] == totals["cpu"]

@@ -50,7 +50,7 @@ print(json.dumps(sorted(sys.modules)))
     assert "pilosa_tpu_torch.storage.attrs" in mods
     assert "pilosa_tpu_torch.storage.memgov" in mods
     for name in ("server.wireproto", "server.handler", "server.server",
-                 "server.respcache", "plancache",
+                 "server.respcache", "plancache", "ops.containers",
                  "cluster.client", "cli.commands", "cli.__main__"):
         assert f"pilosa_tpu_torch.{name}" in mods
     assert [m for m in mods if _forbidden(m)] == []

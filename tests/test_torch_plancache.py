@@ -29,6 +29,7 @@ from pilosa_tpu.server.handler import Handler as JHandler
 from pilosa_tpu.storage.holder import Holder as JHolder
 from pilosa_tpu_torch import plancache
 from pilosa_tpu_torch.executor import Executor as TExecutor
+from pilosa_tpu_torch.ops import containers as tcontainers
 from pilosa_tpu_torch.server.handler import Handler as THandler
 from pilosa_tpu_torch.storage.frame import Field, FrameOptions
 from pilosa_tpu_torch.storage.holder import Holder as THolder
@@ -305,7 +306,10 @@ def test_kill_switch_and_pinned_path_bypass_the_memos(tmp_path,
         h.close()
 
 
-def test_prelude_memo_rebuilds_an_evicted_stack(memo):
+def test_prelude_memo_rebuilds_an_evicted_stack(memo, monkeypatch):
+    # The batched path's prelude memo: with the container tier on, this
+    # lazily reopened sparse Count would serve serially from containers.
+    monkeypatch.setattr(tcontainers, "_ENABLED", False)
     h, e, fresh = memo
     e._result_memo_off = True
     q = QUERIES[0]

@@ -24,6 +24,7 @@ from pilosa_tpu.storage.holder import Holder as JHolder
 from pilosa_tpu.storage.index import FrameOptions as JFrameOptions
 from pilosa_tpu.storage.memgov import HostMemGovernor as JGovernor
 from pilosa_tpu_torch.executor import Executor as TExecutor
+from pilosa_tpu_torch.ops import containers as tcontainers
 from pilosa_tpu_torch.roaring import codec as tcodec
 from pilosa_tpu_torch.storage import fragment as tfragment
 from pilosa_tpu_torch.storage.fragment import Fragment as TFragment
@@ -364,7 +365,11 @@ def test_holder_open_decodes_no_file(tmp_path, monkeypatch):
     th.close()
 
 
-def test_cold_batched_stacks_live_on_the_holder_device(tmp_path):
+def test_cold_batched_stacks_live_on_the_holder_device(tmp_path,
+                                                      monkeypatch):
+    # The dense batched path: with the container tier on, these sparse
+    # cold rows would serve serially from compressed containers.
+    monkeypatch.setattr(tcontainers, "_ENABLED", False)
     data = _cold_holders(tmp_path)
     th = THolder(data, device="cpu").open()
     te = TExecutor(th)
