@@ -33,10 +33,16 @@ Phases, each of which fails the run (exit code != 0, no result line):
    array, array × run, array × dense, run × dense) at its boundary
    cases — 0, 1, 4,096 and bit-31 positions, 2,048 runs, a whole-row
    run, an empty member among full ones, 4,097-bit, all-ones and bit-31
-   dense rows — with N = 1, 7 and 76,296 members, then timed at the
-   serial shapes (one member of phase 10's rows) and at a lane of
-   GROUP_PAIRS distinct array × array row pairs over 9,537 slices
-   (76,296 members of 500 × 300 positions);
+   dense rows — with N = 1, 7 and 76,296 members, in the identity form
+   and through member tables (repeated sides, shuffled subsets), members
+   on both sides of the warp/block size threshold, a launch past
+   the kernel's table of sides and rows of mixed formats through the
+   lanes; then timed at the serial shapes (one member of phase 10's
+   rows) and at a lane of each cell over GROUP_PAIRS row pairs of 9,537
+   slices (76,296 members of 500 × 300 positions, 500 positions × a
+   2,000-bit run; × dense rows and a run × dense rows as off-path
+   probes, the main path's dense cells being serial), each with its
+   bound;
 4. main path, Count and bitmap results — a data directory of N slices
    (default 9,537 = 10.0B columns; one index, one frame, three dense
    rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
@@ -139,13 +145,15 @@ Phases, each of which fails the run (exit code != 0, no result line):
    (a) Count of Intersect(1, 2), Intersect(1, 3), Union(1, 2),
    Difference(1, 3) and Xor(2, 3), each alone through the container
    lanes (one launch a format cell over every slice), first-query
-   seconds and p50 (n=5), then pinned serial (a launch a slice); (b)
+   seconds and p50 (n=5), the p50 again with the pair's member tables
+   built cold each time, then pinned serial (a launch a slice); (b)
    Intersect(1, 0) and Intersect(3, 0) pinned serial (the array × dense
    and run × dense cells); (c) a group of 8 concurrent Count(Intersect(a,
    b)) over rows 1-3, released by a Barrier, through the coalescer's
    container lanes (3 rounds) against the 8 served one after another,
    with the lane launches and a round's host ms (the rows' cached
-   RowLanes, the cells' packing) against its kernel ms, and a row's cold
+   RowLanes, the cells' member tables from the pairs' kept ones, and
+   from tables built cold) against its kernel ms, and a row's cold
    RowLane build; (d) ``Holder.memory_stats()``'s container rollup, the
    array and run payload at least 10× under its dense equivalent, and
    ``torch.cuda.max_memory_allocated()``; (e) the first query again with
@@ -444,12 +452,16 @@ def launch_counts():
     counts = dict(kernels.launches)
     counts["regimes"] = {name: dict(split) for name, split
                          in kernels.regime_launches.items()}
+    counts["container_forms"] = dict(kernels.container_forms)
     return counts
 
 
 def add_counts(x, y):
     """Two launch_counts() added."""
-    total = {k: x[k] + y[k] for k in x if k != "regimes"}
+    total = {k: x[k] + y[k] for k in x
+             if k not in ("regimes", "container_forms")}
+    total["container_forms"] = {f: n + y["container_forms"][f] for f, n
+                                in x["container_forms"].items()}
     total["regimes"] = {name: {r: n + y["regimes"][name][r]
                                for r, n in split.items()}
                         for name, split in x["regimes"].items()}
@@ -1086,46 +1098,81 @@ def cont_side(fmt, n, seed, big=False):
     return conts, [c.dense_words() for c in conts]
 
 
-def cont_bound_ms(cell, a_conts, b_conts):
+def cont_bound_ms(cell, a_conts, b_conts, row_of=None):
     """Least time for container_and_counts over these members: each
-    payload byte and offset read once and one int32 a member written;
-    a dense side costs one 32-byte sector a position (array x dense) or
-    the words its runs cover (run x dense). Bytes bind: a binary search
-    step is one compare, far under the card's integer rate."""
+    payload byte and offset read once and one int32 a member written; a
+    dense side costs the 32-byte sectors of its rows that the positions
+    touch (array x dense) or the words its runs cover (run x dense), each
+    once, where ``row_of`` gives each member's row among shared ones
+    (default: a row a member). Bytes bind: a merge step is a compare or
+    two, far under the card's integer rate."""
     n = len(a_conts)
     fa, fb = cell.split("_")
     nbytes = n * 4 + (n + 1) * 4
     if fa == "array":
-        positions = sum(c.count for c in a_conts)
-        nbytes += positions * 4
+        nbytes += sum(c.count for c in a_conts) * 4
     else:
         nbytes += sum(len(c.runs) for c in a_conts) * 8
     if fb == "array":
         nbytes += sum(c.count for c in b_conts) * 4 + (n + 1) * 4
     elif fb == "run":
         nbytes += sum(len(c.runs) for c in b_conts) * 8 + (n + 1) * 4
-    elif fa == "array":
-        nbytes += positions * SECTOR_BYTES
     else:
-        nbytes += sum(int(((r[:, 1] - 1) // 32 - r[:, 0] // 32 + 1).sum())
-                      for r in (c.runs.astype(np.int64) for c in a_conts)
-                      if len(r)) * 4
+        rows = np.arange(n) if row_of is None else np.asarray(row_of)
+        unit = SECTOR_BYTES * 8 if fa == "array" else 32  # bits a unit
+        units = -(-WORDS32 * 32 // unit)
+        keys = []
+        for r, c in zip(rows, a_conts):
+            if fa == "array":
+                at = c.positions.astype(np.int64) // unit
+            else:
+                runs = c.runs.astype(np.int64)
+                if not len(runs):
+                    continue
+                lo, hi = runs[:, 0] // unit, (runs[:, 1] - 1) // unit + 1
+                at = np.repeat(lo - np.cumsum(hi - lo) + (hi - lo),
+                               hi - lo) + np.arange(int((hi - lo).sum()))
+            keys.append(at + int(r) * units)
+        touched = len(np.unique(np.concatenate(keys))) if keys else 0
+        nbytes += touched * (unit // 8)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def cont_table_case(n, seed):
+    """A member table over two identity sides of n members each that
+    names every side twice (repeated sides) and a shuffled subset of the
+    members (three in four). Returns (int32 [K, 4] table, the members'
+    indices in table order)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.permutation(n)[:max(1, (3 * n) // 4)]
+    k = np.arange(len(pick))
+    table = np.stack([k % 2, pick, (k // 2) % 2, pick], axis=1).astype(
+        np.int32)
+    return table, pick
 
 
 def container_checks(card):
     """Phase 3's container_and_counts: every cell against its plain
     version at the boundary cases, with N = 1, 7 and CONT_LANE_MEMBERS
-    members, exactly; then timed at the serial path's shapes (one member
-    of phase 10's rows) and at a big lane (CONT_LANE_MEMBERS members of
-    500 x 300 positions). Returns its stats."""
+    members, exactly, in the identity form and through member tables
+    (repeated sides, shuffled subsets); the size
+    threshold's edges, a launch past the kernel's table of sides and
+    rows of mixed formats through the lanes; then timed at the serial
+    path's shapes (one member of phase 10's rows) and at a lane of each
+    cell (CONT_LANE_MEMBERS members of phase 10's 500 and 300 positions,
+    its 2,000-bit run and dense rows). Returns the array × array lane's
+    stats."""
     import torch
 
+    from pilosa_tpu_torch.ops import containers as C
     from pilosa_tpu_torch.ops import kernels
 
-    def count(cell, a, b):
-        return kernels.container_and_counts(cell, a, b)
+    def count(cell, a, b, *table):
+        return kernels.container_and_counts(cell, a, b, *table)
 
+    t_start = time.perf_counter()
+    th = kernels.container_thresholds()
+    block_min = th["block_min_ints"]
     err, cases = 0, 0
     for cell in CONT_CELLS:
         fa, fb = cell.split("_")
@@ -1145,16 +1192,81 @@ def container_checks(card):
                     check(torch.equal(count(cell, a, rows), want),
                           f"container_and_counts {cell} stacked rows")
                     cases += 1
+            table, pick = cont_table_case(n, n)
+            tdev = torch.from_numpy(table).to(DEVICE)
+            got = count(cell, [a, a], [b, b], tdev)
+            check(torch.equal(got, want[torch.from_numpy(pick).to(DEVICE)]),
+                  f"container_and_counts {cell} N = {n} table != plain")
+            cases += 1
             del a, b
+    # The size threshold's edges: members of block_min - 1, block_min and
+    # block_min + 1 staged ints among lane members, in no order.
+    rng = np.random.default_rng(6)
+    edge = []
+    for k in range(3000):
+        tot = block_min - 1 + k % 3 if k % 2 else 800
+        edge.append((tot // 2, tot - tot // 2))
+    edge = [edge[i] for i in rng.permutation(len(edge))]
+    conts = [[C.Container("array", WORDS32, k, positions=np.sort(
+        rng.choice(SLICE_COLS, k, replace=False)).astype(np.int32),
+        device=DEVICE) for k in side] for side in zip(*edge)]
+    a, b = C.stack_positions(conts[0]), C.stack_positions(conts[1])
+    ident = np.arange(len(edge), dtype=np.int32)
+    table = np.stack([0 * ident, ident, 0 * ident, ident], axis=1)
+    got = count("array_array", [a], [b], table)
+    check(torch.equal(got, kernels.container_and_counts_plain(
+        "array_array", a, b)), "container_and_counts threshold edges")
+    cases += 1
+    # Past the kernel's table: 3 * max_sides + 1 left sides, 70 right.
+    sides_a = [C.stack_positions(conts[0][i::200][:5])
+               for i in range(3 * th["max_sides"] + 1)]
+    sides_b = [C.stack_runs([C.Container("run", WORDS32, 2000, runs=np.array(
+        [[s0, s0 + 2000]], np.int32), device=DEVICE) for s0 in
+        rng.integers(0, SLICE_COLS - 3000, 5)]) for _ in range(70)]
+    table = np.stack([np.repeat(np.arange(len(sides_a)), 5),
+                      np.tile(np.arange(5), len(sides_a)),
+                      rng.integers(0, len(sides_b), 5 * len(sides_a)),
+                      rng.integers(0, 5, 5 * len(sides_a))],
+                     axis=1).astype(np.int32)
+    before = kernels.launches["container_and_counts"]
+    got = count("array_run", sides_a, sides_b, table)
+    split = kernels.launches["container_and_counts"] - before
+    check((split > 1 or DEVICE != "cuda") and torch.equal(
+        got, kernels.container_and_counts_plain(
+            "array_run", sides_a, sides_b, table)),
+        f"container_and_counts past {th['max_sides']} sides ({split} "
+        "launches)")
+    cases += 1
+    # Rows of mixed formats through the lanes: subsets of packed rows.
+    kinds = [("array", "array"), ("array", "run"), ("run", "array"),
+             ("run", "run"), (None, "array"), ("array", "dense"),
+             ("array4096", "array4096")] * 300
+    state = rng.bit_generator.state
+    totals = {}
+    for dev in ("cpu", DEVICE):
+        rng.bit_generator.state = state
+        blocks = [(cont_block(x, dev, rng), cont_block(y, dev, rng))
+                  for x, y in kinds]
+        la = C.RowLane([x for x, _ in blocks])
+        lb = C.RowLane([y for _, y in blocks])
+        totals[dev] = C.lane_and_counts([(la, lb), (lb, la)])[0].tolist()
+    check(totals["cpu"] == totals[DEVICE],
+          f"mixed-format lanes {totals[DEVICE]} != {totals['cpu']}")
+    cases += 1
     print(f"container_and_counts: {cases} cases exact (cells {CONT_CELLS}, "
-          f"N = 1, 7, {CONT_LANE_MEMBERS}; 0, 1, 4,096 and bit-31 "
-          f"positions, 2,048 runs, a whole-row run, empty members, "
-          f"4,097-bit, all-ones and bit-31 dense rows); max_abs_err {err}")
+          f"N = 1, 7, {CONT_LANE_MEMBERS} in the identity form and through "
+          f"member tables of repeated sides and shuffled subsets; 0, 1, "
+          f"4,096 and bit-31 positions, 2,048 runs, a whole-row run, empty "
+          f"members among 4,096-position ones, 4,097-bit, all-ones and "
+          f"bit-31 dense rows; members of {block_min - 1} to "
+          f"{block_min + 1} staged ints; {len(sides_a)} sides in {split} "
+          f"launches; rows of mixed formats through the lanes); max_abs_err "
+          f"{err}; thresholds {th}")
+    del conts, a, b, sides_a, sides_b
 
     # The serial shapes: one member of phase 10's rows (500 and 300
     # spread positions, a 2,000-bit run, a dense row), a launch a slice.
     rng = np.random.default_rng(5)
-    from pilosa_tpu_torch.ops import containers as C
 
     def one(fmt):
         if fmt == "array":
@@ -1195,9 +1307,10 @@ def container_checks(card):
               f"call and synchronize {st['call_ms']:.4f} ms; {nbytes} bytes,"
               f" bound {bound:.6f} ms ({by}) {card}")
 
-    # A big lane: GROUP_PAIRS distinct array x array row pairs over
-    # MAIN_SLICES slices are CONT_LANE_MEMBERS members of 500 and 300
-    # spread positions.
+    # A lane of each cell: GROUP_PAIRS row pairs over MAIN_SLICES slices
+    # are CONT_LANE_MEMBERS members of phase 10's rows: 500 and 300
+    # spread positions, one 2,000-bit run, a dense row (2,048 distinct
+    # rows, one [2048, W] stack read through the member table).
     n = CONT_LANE_MEMBERS
     pool_a = [np.sort(rng.choice(SLICE_COLS, 500, replace=False)).astype(
         np.int32) for _ in range(256)]
@@ -1207,34 +1320,100 @@ def container_checks(card):
                       device=DEVICE) for i in range(n)]
     cb = [C.Container("array", WORDS32, 300, positions=pool_b[i % 251],
                       device=DEVICE) for i in range(n)]
+    cr = [C.Container("run", WORDS32, SPARSE_RUN, runs=np.array(
+        [[s0, s0 + SPARSE_RUN]], np.int32), device=DEVICE)
+        for s0 in rng.integers(0, SLICE_COLS - 3000, n)]
     t0 = time.perf_counter()
     pa, pb = C.stack_positions(ca), C.stack_positions(cb)
     sync()
     pack_ms = (time.perf_counter() - t0) * 1e3
-    pa, pb = list(pa), list(pb)
-    got = count("array_array", pa, pb)
-    want = kernels.container_and_counts_plain("array_array", pa, pb)
-    check(torch.equal(got, want), "container_and_counts lane != plain")
-    bound, by, nbytes = cont_bound_ms("array_array", ca, cb)
-    lane = {
-        "ms": timed_ms(lambda: count("array_array", pa, pb), reps=10),
-        "dev_ms": cold_ms(lambda x, y: count("array_array", x, y), pa, pb),
-        "lone_ms": one_ms(lambda: count("array_array", pa, pb)),
-        "plain_ms": timed_ms(lambda: kernels.container_and_counts_plain(
-            "array_array", pa, pb), reps=1, warm=1),
-        "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-        "max_abs_err": err, "pack_ms": pack_ms, "serial": stats}
-    print(f"container_and_counts lane ({GROUP_PAIRS} row pairs: {n} "
-          f"members of 500 x 300 positions): call {lane['ms']:.4f} ms, dev "
-          f"{lane['dev_ms']:.4f} ms, lone {lane['lone_ms']:.4f} ms, plain "
-          f"version {lane['plain_ms']:.4f} ms; {nbytes} bytes, bound "
-          f"{bound:.4f} ms ({by}), {bound / lane['dev_ms']:.1%} of bound; "
-          f"packing the lane on the host {pack_ms:.2f} ms; library call: "
-          f"none (no PyTorch call counts a sorted-list intersection) {card}")
-    del ca, cb, pa, pb, got, want
+    pr = C.stack_runs(cr)
+    rows = torch.randint(-2**31, 2**31 - 1, (2048, WORDS32),
+                         dtype=torch.int32, device=DEVICE)
+    ident = np.arange(n, dtype=np.int32)
+    dense_table = torch.from_numpy(np.stack(
+        [0 * ident, ident, 0 * ident, ident % 2048], axis=1)).to(DEVICE)
+    lanes = {}
+    for cell, a, b, conts in (
+            ("array_array", pa, pb, (ca, cb)),
+            ("array_run", pa, pr, (ca, cr)),
+            ("array_dense", pa, rows, (ca, None)),
+            ("run_dense", pr, rows, (cr, None))):
+        a, b = list(a), (b if torch.is_tensor(b) else list(b))
+        if cell.endswith("dense"):
+            def fn(x, y, t, cell=cell):
+                return count(cell, [x], [y], t)
+            args = (a, b, dense_table)
+            call = (lambda cell=cell, a=a, b=b:
+                    count(cell, [a], [b], dense_table))
+            want = kernels.container_and_counts_plain(
+                cell, [a], [b], dense_table)
+            plain = (lambda cell=cell, a=a, b=b:
+                     kernels.container_and_counts_plain(
+                         cell, [a], [b], dense_table))
+        else:
+            def fn(x, y, cell=cell):
+                return count(cell, x, y)
+            args = (a, b)
+            call = lambda cell=cell, a=a, b=b: count(cell, a, b)
+            want = kernels.container_and_counts_plain(cell, a, b)
+            plain = (lambda cell=cell, a=a, b=b:
+                     kernels.container_and_counts_plain(cell, a, b))
+        check(torch.equal(call(), want),
+              f"container_and_counts lane {cell} != plain")
+        dense = cell.endswith("dense")
+        bound, by, nbytes = cont_bound_ms(
+            cell, conts[0], conts[1] or [], ident % 2048 if dense else None)
+        lane = lanes[cell] = {
+            "ms": timed_ms(call, reps=10),
+            "dev_ms": cold_ms(fn, *args),
+            "lone_ms": one_ms(call),
+            "plain_ms": timed_ms(plain, reps=1, warm=1),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+        what = ("an off-path probe: the main path launches dense cells "
+                "serially, a member a slice; 2,048 rows shared"
+                if dense else "phase 10's lane shape")
+        print(f"container_and_counts lane {cell} ({GROUP_PAIRS} row pairs: "
+              f"{n} members; {what}): call {lane['ms']:.4f} ms, dev "
+              f"{lane['dev_ms']:.4f} ms, lone {lane['lone_ms']:.4f} ms, "
+              f"plain version {lane['plain_ms']:.4f} ms; {nbytes} bytes, "
+              f"bound {bound:.4f} ms ({by}), {bound / lane['dev_ms']:.1%} of "
+              f"bound {card}")
+        del want
+    lane = dict(lanes["array_array"], max_abs_err=err, pack_ms=pack_ms,
+                serial=stats, lanes=lanes)
+    print(f"container_and_counts lane array_array: packing the lane on the "
+          f"host {pack_ms:.2f} ms; library call: none (no PyTorch call "
+          f"counts a sorted-list intersection); checks and timings "
+          f"{time.perf_counter() - t_start:.1f} s {card}")
+    del ca, cb, cr, pa, pb, pr, rows
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return lane
+
+
+def cont_block(kind, device, rng):
+    """One block of a mixed-format row: None, 500 spread positions,
+    4,096 positions, a 2,000-bit run or a random dense row."""
+    from pilosa_tpu_torch.ops import containers as C
+
+    import torch
+
+    if kind is None:
+        return None
+    if kind == "run":
+        s0 = int(rng.integers(0, SLICE_COLS - 3000))
+        return C.Container("run", WORDS32, SPARSE_RUN, runs=np.array(
+            [[s0, s0 + SPARSE_RUN]], np.int32), device=device)
+    if kind == "dense":
+        w = rng.integers(-2**31, 2**31, WORDS32, dtype=np.int64).astype(
+            np.int32)
+        return C.dense_container(torch.from_numpy(w).to(device), WORDS32,
+                                 int(np.bitwise_count(w.view(np.uint32))
+                                     .sum()))
+    k = 4096 if kind == "array4096" else 500
+    p = np.sort(rng.choice(SLICE_COLS, k, replace=False)).astype(np.int32)
+    return C.Container("array", WORDS32, k, positions=p, device=device)
 
 
 def count_route(ex, index, pql, slices):
@@ -3249,6 +3428,13 @@ def _write_sparse_slices(frag_dir, seed, lo, hi):
     return lo, counts
 
 
+def forget_pair_tables(pairs):
+    """Drop the member tables the rows of these RowLane pairs keep for
+    their partners, so that the next lane round builds them cold."""
+    for row, _ in pairs:
+        row._pairs.clear()
+
+
 def sparse_path(slices, seed, datadir, card):
     """Phase 10: the sparse index of count100b's shape served from the
     compressed container tier — single Counts through the lanes and
@@ -3299,6 +3485,12 @@ def sparse_path(slices, seed, datadir, card):
         launched = kernels.launches["container_and_counts"] - before
         p50, got = p50_ms(lambda: ex.execute("ns", q)[0], 5)
         check(got == want[k], f"warm sparse {q} changed")
+
+        def cold_tables(q=q):
+            forget_pair_tables([(r, r) for _, r in ex._lane_cache.values()])
+            return ex.execute("ns", q)[0]
+        cold_p50, got = p50_ms(cold_tables, 5)
+        check(got == want[k], f"sparse {q} with cold member tables changed")
         ex._force_path = "serial"
         t = time.perf_counter()
         got = ex.execute("ns", q)[0]
@@ -3308,7 +3500,9 @@ def sparse_path(slices, seed, datadir, card):
         check(got == want[k], f"sparse serial {q}: {got} != {want[k]}")
         print(f"  sparse {label:16s} route {route}: first {first_s:.2f} s "
               f"({launched} container_and_counts launches), p50 "
-              f"{p50:.3f} ms (n=5); pinned serial {serial_ms:.1f} ms  {got}")
+              f"{p50:.3f} ms (n=5), with the pair's member tables built "
+              f"cold {cold_p50:.3f} ms; pinned serial {serial_ms:.1f} ms  "
+              f"{got}")
     # (b) the dense cells, pinned serial.
     ex._force_path = "serial"
     for k, (label, a, b, _, op) in enumerate(SPARSE_QUERIES[5:], 5):
@@ -3374,13 +3568,17 @@ def sparse_path(slices, seed, datadir, card):
     pairs = [tuple(ex._lane_row("ns", ("f", "standard", r), span)
                    for r in pair) for pair in distinct]
     t1 = time.perf_counter()
-    cells, _ = containers.lane_cells(pairs)
+    cells = containers.lane_cells(pairs)[0]
     sync()
     t2 = time.perf_counter()
+    forget_pair_tables(pairs)
+    t_cold = time.perf_counter()
+    containers.lane_cells(pairs)  # the pairs' member tables built cold
+    sync()
+    cold_tables_ms = (time.perf_counter() - t_cold) * 1e3
     timing_before = kernels.launches["container_and_counts"]
-    kernel_ms = sum(timed_ms(lambda c=c, x=x, y=y:
-                             kernels.container_and_counts(c, x, y), reps=5)
-                    for c, x, y, _, _ in cells)
+    kernel_ms = sum(timed_ms(lambda c=c: kernels.container_and_counts(
+        c.cell, c.a_sides, c.b_sides, c.members), reps=5) for c in cells)
     timing = kernels.launches["container_and_counts"] - timing_before
     frags = holder.fragments("ns", "f", "standard", list(span))
     t3 = time.perf_counter()
@@ -3389,7 +3587,7 @@ def sparse_path(slices, seed, datadir, card):
     cold_ms = (time.perf_counter() - t3) * 1e3
     g50 = float(np.percentile(group_ms, 50))
     rounds = ", ".join(f"{m:.1f}" for m in group_ms)
-    sizes = {c: sum(n) for c, _, _, _, n in cells}
+    sizes = {c.cell: c.n for c in cells}
     print(f"sparse group {card}: {len(group)} concurrent Counts over "
           f"{slices} slices in one group, ms per round {rounds} (p50 "
           f"{g50:.1f}) against {seq_ms:.1f} ms served one after another "
@@ -3397,7 +3595,10 @@ def sparse_path(slices, seed, datadir, card):
           f"({lane_kernel} container_and_counts launches); a round's "
           f"lanes: {len(distinct)} distinct pairs, members by cell {sizes},"
           f" host {(t1 - t0) * 1e3:.3f} ms for the cached rows + "
-          f"{(t2 - t1) * 1e3:.3f} ms packing the cells against "
+          f"{(t2 - t1) * 1e3:.3f} ms building the cells' member tables "
+          f"from the pairs' kept ones ({cold_tables_ms:.3f} ms with the "
+          f"pairs' tables built cold and uploaded; no payload copied) "
+          f"against "
           f"{kernel_ms:.3f} ms of kernel calls (CUDA events); row 1's "
           f"RowLane cold from its memoized containers {cold_ms:.1f} ms")
     del pairs, cells
@@ -3438,6 +3639,7 @@ def sparse_path(slices, seed, datadir, card):
         containers.set_enabled(True)
     launches = launch_counts()
     launches["container_and_counts"] -= timing  # the timed calls above
+    launches["container_forms"]["lane"] -= timing
     holder.close()
     check(launches["container_and_counts"] > 0,
           f"container_and_counts never launched in phase 10: {launches}")
@@ -3524,7 +3726,8 @@ def main():
         for part, counts in zip(("", "c"), outs):
             print(f"phase {name}{part} launches by regime: "
                   f"{json.dumps(counts['regimes'])}; container_and_counts "
-                  f"{counts['container_and_counts']}")
+                  f"{counts['container_and_counts']} "
+                  f"{json.dumps(counts['container_forms'])}")
         print(f"phase {name}: {time.perf_counter() - t:.1f} s {card}")
 
     try:
@@ -3560,7 +3763,8 @@ def main():
             total = add_counts(total, counts)
         print(f"launches by regime, phases {sorted(only) if only else '4-10'}"
               f" (8b's subprocess not counted): "
-              f"{json.dumps(total['regimes'])} {card}")
+              f"{json.dumps(total['regimes'])}; container_and_counts by "
+              f"form {json.dumps(total['container_forms'])} {card}")
     if only:
         print(f"chip_smoke: phases {sorted(only)} in "
               f"{time.perf_counter() - t_start:.1f} s {card}; a partial "

@@ -109,8 +109,9 @@ compressed on every slice (fragments not faulted in, rows of at most
 serially from the tier, the Count from the container lanes, alone or in
 a coalesced group: a bare leaf from host-known counts, a two-operand
 node by one launch per format cell over its rows' blocks on every
-slice, packed once per (row, slice list) and cached while the index's
-epoch stands (``_lane_row``). A deeper Count tree stays batched alone
+slice, packed once per (row, slice list), cached while the index's
+epoch stands (``_lane_row``) and read in place through a member table. A
+deeper Count tree stays batched alone
 and, in a coalesced group, fuses densely within the group's densify
 budget (``CO_DENSIFY_BYTES``); ``CO_COMPRESSED = False`` serves
 all-compressed groups singly.

@@ -20,8 +20,10 @@ roaring.go:1811-1923). The intersections run in one hand-written kernel,
 ``kernels.container_and_counts`` (``csrc/containers.cu``), whose input is
 packed: each side's members concatenated with int32 offsets. A serial
 count is a launch of one member; the lanes launch once per format cell
-over whole rows (``RowLane``), for a lone two-operand Count as for a
-coalesced group. Run × run stays on the host, as in the reference.
+over whole rows (``RowLane``, each row packed once), for a lone
+two-operand Count as for a coalesced group, reading the rows' packed
+sides in place through a table of member indices. Run × run stays on the
+host, as in the reference.
 Tensors on the CPU take the kernel's plain version, so a ``cpu`` holder
 runs the card's lane code.
 
@@ -30,6 +32,8 @@ off: every block is then served dense, as before the tier.
 """
 import os
 import threading
+import typing
+import weakref
 
 import numpy as np
 import torch
@@ -411,7 +415,8 @@ def count_run_run(runs_a, runs_b):
 # ------------------------------------------------------------ the lanes
 # A row's blocks over a slice list are packed once by format (a RowLane);
 # a set of (row, row) pairs then counts in one kernel launch per format
-# cell, each side's payloads concatenated with int32 offsets (ref: the
+# cell, which reads the rows' packed sides where they lie through a table
+# of member indices (ref: the
 # vmapped lanes of pilosa_tpu containers.py:568-656, which pad every
 # member to a power of two for XLA's static shapes and are fed member by
 # member).
@@ -465,9 +470,15 @@ _LANE_PACK = {LANE_ARRAY: stack_positions, LANE_RUN: stack_runs}
 class RowLane:
     """One row's blocks over a slice list, ready for the lanes: each
     slice's block code (``codes``), the row's count, and its array and
-    run blocks packed on their device in slice order. ``conts`` holds
-    the blocks (None for an absent fragment); ``nbytes`` their payload
-    plus the packed copies."""
+    run blocks packed on their device in slice order, once. ``member``
+    gives each slice's index in its format's packed side (-1: none), so
+    a lane names a subset of the row's slices by member indices and
+    never repacks it. ``conts`` holds the blocks (None for an absent
+    fragment); ``nbytes`` their payload plus the packed copies. Pairs
+    keep their member tables on the left row (``pair_rows``)."""
+
+    # Partners whose member tables a row keeps; past them it forgets all.
+    MAX_PAIRS = 64
 
     def __init__(self, conts):
         self.conts = conts
@@ -476,22 +487,62 @@ class RowLane:
             if c is not None and c.count:
                 codes[i] = _LANE_CODES[c.fmt]
         self.codes = codes
+        self.member = np.full(len(conts), -1, np.int32)
         self.count = sum(c.count for c in conts if c is not None)
-        self._at, self._packed = {}, {}
+        self.packed = {}
         self.nbytes = sum(c.nbytes() for c in conts if c is not None)
         for code, pack in _LANE_PACK.items():
-            at = self._at[code] = np.flatnonzero(codes == code)
+            at = np.flatnonzero(codes == code)
             if len(at):
-                side = self._packed[code] = pack([conts[i] for i in at])
+                self.member[at] = np.arange(len(at), dtype=np.int32)
+                side = self.packed[code] = pack([conts[i] for i in at])
                 self.nbytes += sum(t.nbytes for t in side)
+        self._pairs = weakref.WeakKeyDictionary()
+        self._pairs_mu = threading.Lock()
 
-    def side(self, code, at):
-        """The packed side of this row's ``code`` blocks at the slice
-        positions ``at`` (some of them, in order): the packed row when
-        ``at`` holds them all, else those blocks packed anew."""
-        if len(at) == len(self._at[code]):
-            return self._packed[code]
-        return _LANE_PACK[code]([self.conts[i] for i in at])
+    def pair_rows(self, other):
+        """This row's lanes against ``other``: ``([(cell, swap, table)],
+        rest)`` — for each kernel cell its member table on the rows'
+        device (int32 [n, 4] of views of one upload; side columns 0, so
+        it is the table of a launch over this pair alone; ``swap``:
+        ``other`` is the cell's left side), and the intersections of the
+        slices no cell takes (run × run on the host, a dense block
+        through its serial cell). Both rows are immutable, so the answer
+        is kept while ``other`` lives."""
+        with self._pairs_mu:
+            hit = self._pairs.get(other)
+        if hit is not None:
+            return hit
+        cells, parts, dev = [], [], None
+        taken = np.zeros(len(self.codes), bool)
+        for cell, ca, cb, swap in _LANE_CELLS:
+            x, y = (other, self) if swap else (self, other)
+            both = (x.codes == ca) & (y.codes == cb)
+            at = np.flatnonzero(both)
+            if len(at):
+                rows = np.zeros((len(at), 4), np.int32)
+                rows[:, 1] = x.member[at]
+                rows[:, 3] = y.member[at]
+                cells.append((cell, swap))
+                parts.append(rows)
+                taken |= both
+                dev = x.packed[ca][0].device
+        rest = 0
+        for i in np.flatnonzero((self.codes > 0) & (other.codes > 0)
+                                & ~taken):
+            rest += int(bitops.dispatch_count("and", self.conts[i],
+                                              other.conts[i]))
+        tables = []
+        if parts:
+            up = torch.from_numpy(np.concatenate(parts)).to(dev)
+            tables = torch.split(up, [len(r) for r in parts])
+        out = ([(cell, swap, t) for (cell, swap), t in zip(cells, tables)],
+               rest)
+        with self._pairs_mu:
+            if len(self._pairs) >= self.MAX_PAIRS:
+                self._pairs.clear()
+            self._pairs[other] = out
+        return out
 
 
 # The kernel's cells over two rows' block codes: (cell, code of the
@@ -500,67 +551,95 @@ class RowLane:
 _LANE_CELLS = (("array_array", LANE_ARRAY, LANE_ARRAY, False),
                ("array_run", LANE_ARRAY, LANE_RUN, False),
                ("array_run", LANE_ARRAY, LANE_RUN, True))
+_CELL_CODES = {cell: (ca, cb) for cell, ca, cb, _ in _LANE_CELLS}
 
 
-def _cat_sides(sides):
-    """Several packed sides as one: payloads concatenated, offsets
-    rebased."""
-    if len(sides) == 1:
-        return sides[0]
-    vals = [torch.cat([s[k] for s in sides])
-            for k in range(len(sides[0]) - 1)]
-    offs, base = [], 0
-    for s in sides:
-        offs.append(s[-1][:-1] + base)
-        base += s[0].shape[0]
-    offs.append(sides[-1][-1][-1:] + (base - sides[-1][0].shape[0]))
-    return (*vals, torch.cat(offs))
+class LaneCell(typing.NamedTuple):
+    """One launch of a lane round: the cell, its distinct sides (the
+    RowLanes' packed sides themselves), the member table on the sides'
+    device, and whose members they are: the position of the one pair
+    (an int), or each member's pair (an int64 tensor on the device)."""
+    cell: str
+    a_sides: list
+    b_sides: list
+    members: torch.Tensor
+    owners: typing.Union[int, torch.Tensor]
+
+    @property
+    def n(self):
+        return len(self.members)
 
 
 def lane_cells(pairs):
     """The lanes of (RowLane, RowLane) pairs over one slice list:
-    ``[(cell, a side, b side, pair positions, members per pair)]``, every
-    pair's members of a cell packed into one side, and np.int64[len(pairs)]
-    intersections of the members no kernel cell takes (run × run on the
-    host, a dense block through its serial cell)."""
+    ``([LaneCell], rest)`` — a launch per kernel cell for all the pairs,
+    reading each row's packed sides where they lie through a member
+    table, and np.int64[len(pairs)] intersections of the members no
+    kernel cell takes. When each cell holds one pair's kept table
+    (``pair_rows``; a lone Count) it is launched as it is; else every
+    cell's kept tables are joined on the device in one ``torch.cat``,
+    each pair's side indices and position set from one upload of a row
+    a table. No payload is copied."""
     rest = np.zeros(len(pairs), np.int64)
     by_cell = {}
     for p, (la, lb) in enumerate(pairs):
-        taken = np.zeros(len(la.codes), bool)
-        for cell, ca, cb, swap in _LANE_CELLS:
+        cells, rest[p] = la.pair_rows(lb)
+        for cell, swap, table in cells:
             x, y = (lb, la) if swap else (la, lb)
-            hit = (x.codes == ca) & (y.codes == cb)
-            at = np.flatnonzero(hit)
-            if len(at):
-                by_cell.setdefault(cell, []).append(
-                    (p, x.side(ca, at), y.side(cb, at), len(at)))
-                taken |= hit
-        for i in np.flatnonzero((la.codes > 0) & (lb.codes > 0) & ~taken):
-            rest[p] += int(bitops.dispatch_count("and", la.conts[i],
-                                                 lb.conts[i]))
-    cells = [(cell, _cat_sides([it[1] for it in items]),
-              _cat_sides([it[2] for it in items]),
-              [it[0] for it in items], [it[3] for it in items])
-             for cell, items in by_cell.items()]
-    return cells, rest
+            ca, cb = _CELL_CODES[cell]
+            sides_a, sides_b, cols, parts = by_cell.setdefault(
+                cell, ({}, {}, [], []))
+            sa, sb = x.packed[ca], y.packed[cb]
+            cols.append((sides_a.setdefault(id(sa), (len(sides_a), sa))[0],
+                         sides_b.setdefault(id(sb), (len(sides_b), sb))[0],
+                         p, len(table)))
+            parts.append(table)
+    groups = list(by_cell.items())
+    sides = [([s for _, s in sa.values()], [s for _, s in sb.values()])
+             for _, (sa, sb, _, _) in groups]
+    if all(len(g[3]) == 1 for _, g in groups):
+        return [LaneCell(cell, a, b, g[3][0], g[2][0][2])
+                for (cell, g), (a, b) in zip(groups, sides)], rest
+    parts = [t for _, g in groups for t in g[3]]
+    col = torch.from_numpy(np.asarray(
+        [c for _, g in groups for c in g[2]], np.int64)).to(parts[0].device)
+    members = torch.cat(parts)
+    each = torch.repeat_interleave(col[:, :3], col[:, 3], dim=0,
+                                   output_size=len(members))
+    members[:, 0::2] = each[:, :2]
+    out, at = [], 0
+    for (cell, g), (a, b) in zip(groups, sides):
+        n = sum(len(t) for t in g[3])
+        out.append(LaneCell(cell, a, b, members[at:at + n],
+                            each[at:at + n, 2]))
+        at += n
+    return out, rest
 
 
 def lane_and_counts(pairs):
     """(np.int64[len(pairs)] of Σ|a ∩ b| over the slices of each
     (RowLane, RowLane) pair, kernel launches): one launch of
-    ``container_and_counts`` per format cell for all the pairs, one copy
-    of the counts to the host."""
+    ``container_and_counts`` per format cell for all the pairs, the
+    members summed by pair on their device (int64), one copy of the
+    sums to the host."""
     cells, inter = lane_cells(pairs)
-    outs = [kernels.container_and_counts(cell, a, b)
-            for cell, a, b, _, _ in cells]
-    if outs:
-        counts = torch.cat(outs).to(torch.int64).cpu().numpy()
-        at = 0
-        for _, _, _, owners, sizes in cells:
-            for p, n in zip(owners, sizes):
-                inter[p] += int(counts[at:at + n].sum())
-                at += n
-    return inter, len(outs)
+    if not cells:
+        return inter, 0
+    ones, sums = [], []
+    for c in cells:
+        got = kernels.container_and_counts(c.cell, c.a_sides, c.b_sides,
+                                           c.members)
+        if isinstance(c.owners, int):
+            ones.append(c.owners)
+            sums.append(got.sum(dtype=torch.int64).reshape(1))
+        else:
+            sums.append(torch.zeros(len(pairs), dtype=torch.int64,
+                                    device=got.device).index_add_(
+                0, c.owners, got.to(torch.int64)))
+    host = (sums[0] if len(sums) == 1 else torch.cat(sums)).cpu().numpy()
+    np.add.at(inter, ones, host[:len(ones)])
+    inter += host[len(ones):].reshape(-1, len(pairs)).sum(axis=0)
+    return inter, len(cells)
 
 
 def count_identity(op, inter, ca, cb):

@@ -22,7 +22,8 @@ and its design:
   group's XLA fusion (``csrc/count_and_rows.cu``).
 - :func:`container_and_counts` — per-member |a ∩ b| of compressed row
   blocks (array × array, array × run, array × dense, run × dense), N
-  members packed into one launch; replaces the count cells of the
+  members in one launch, read in place from their packed sides through
+  a member table (the lane table); replaces the count cells of the
   compressed container tier and their lane twins
   (``csrc/containers.cu``).
 
@@ -61,6 +62,9 @@ REGIMES = ("full", "narrow", "split")
 regime_launches = {name: dict.fromkeys(REGIMES, 0)
                    for name in ("count_op_rows", "count_rows",
                                 "count_and_rows")}
+# container_and_counts' launches by form: the identity form (the serial
+# cells, a member a slice) and the table form (the lanes).
+container_forms = {"serial": 0, "lane": 0}
 # Server threads launch concurrently; a count is a read-modify-write.
 _launches_mu = threading.Lock()
 
@@ -83,13 +87,17 @@ def reset_launches():
         for split in regime_launches.values():
             for regime in split:
                 split[regime] = 0
+        for form in container_forms:
+            container_forms[form] = 0
 
 
-def _count_launch(name, regime=None):
+def _count_launch(name, regime=None, form=None):
     with _launches_mu:
         launches[name] += 1
         if regime is not None:
             regime_launches[name][REGIMES[regime]] += 1
+        if form is not None:
+            container_forms[form] += 1
 
 
 # ----------------------------------------------------------- plain versions
@@ -524,10 +532,9 @@ def count_and_rows_multi(rows, filts):
 # Cell codes shared with csrc/containers.cu.
 CONTAINER_CELLS = {"array_array": 0, "array_run": 1, "array_dense": 2,
                    "run_dense": 3}
-# Blocks a launch gives the card at the least (two per SM), spread over
-# few members; csrc/containers.cu takes up to 65,535 per member.
-_CONT_MIN_BLOCKS = 2 * 132
-_CONT_MAX_BLOCKS_PER_MEMBER = 64
+# Distinct sides one launch reads on each side of its cell
+# (csrc/containers.cu MAX_SIDES); the wrapper launches again past it.
+CONT_MAX_SIDES = 64
 
 
 def _item_members(offs):
@@ -554,9 +561,9 @@ def _dense_rows(rows, device):
             torch.tensor(index, dtype=torch.int64, device=device))
 
 
-def container_and_counts_plain(cell, a, b):
-    """Plain version of :func:`container_and_counts`. The members'
-    items are keyed by (member, value) as int64, so one
+def _identity_plain(cell, a, b):
+    """The plain count over one side each, member m against member m.
+    The members' items are keyed by (member, value) as int64, so one
     ``searchsorted`` over a whole packed side serves every member."""
     n = a[-1].shape[0] - 1
     out = torch.zeros(n, dtype=torch.int64, device=a[0].device)
@@ -610,14 +617,52 @@ def container_and_counts_plain(cell, a, b):
     return out.to(torch.int32)
 
 
+def _gather_side(sides, side_idx, mem_idx):
+    """One packed side holding, in table order, the members (side_idx[k],
+    mem_idx[k]) of ``sides`` (int64 index tensors): the sides' payloads
+    concatenated and indexed, the offsets rebuilt."""
+    dev = sides[0][0].device
+    vals = [torch.cat([s[t] for s in sides]) for t in range(len(sides[0])
+                                                            - 1)]
+    base = torch.tensor([0] + [s[0].shape[0] for s in sides[:-1]],
+                        dtype=torch.int64, device=dev).cumsum(0)
+    start = torch.tensor([0] + [s[-1].shape[0] for s in sides[:-1]],
+                         dtype=torch.int64, device=dev).cumsum(0)
+    offs = torch.cat([s[-1].to(torch.int64) + base[i]
+                      for i, s in enumerate(sides)])
+    lo = offs[start[side_idx] + mem_idx]
+    sizes = offs[start[side_idx] + mem_idx + 1] - lo
+    new = torch.zeros(len(lo) + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(sizes, 0, out=new[1:])
+    items = (torch.repeat_interleave(lo - new[:-1], sizes)
+             + torch.arange(int(new[-1]), dtype=torch.int64, device=dev))
+    return (*[v[items] for v in vals], new.to(torch.int32))
+
+
+def container_and_counts_plain(cell, a, b, members=None):
+    """Plain version of :func:`container_and_counts`, in both forms: the
+    table's members are gathered into one side each, then counted as
+    the identity form."""
+    if members is None:
+        return _identity_plain(cell, a, b)
+    table = torch.as_tensor(members).to(a[0][0].device,
+                                        torch.int64).reshape(-1, 4)
+    ga = _gather_side(a, table[:, 0], table[:, 1])
+    if cell.endswith("dense"):
+        gb = [b[s][m] for s, m in table[:, 2:].tolist()]
+    else:
+        gb = _gather_side(b, table[:, 2], table[:, 3])
+    return _identity_plain(cell, ga, gb)
+
+
 def _cont_kernel():
     global _cont_fn
     if _cont_fn is None:
         lib = loader.library("containers")
         fn = lib.pilosa_container_and_counts
-        fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + \
-            [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p, ctypes.c_void_p]
+        ll, vp = ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int, ll, vp, ctypes.c_int, vp, ctypes.c_int,
+                       vp, ll, vp, vp]
         fn.restype = ctypes.c_int
         lib.pilosa_containers_error_string.argtypes = [ctypes.c_int]
         lib.pilosa_containers_error_string.restype = ctypes.c_char_p
@@ -625,9 +670,27 @@ def _cont_kernel():
     return _cont_fn
 
 
-def _check_side(name, side, n, dev):
+_cont_thresholds = None
+
+
+def container_thresholds():
+    """csrc/containers.cu's thresholds, read once from the built library:
+    ``block_min_ints`` (the kernel gives a member of more staged ints —
+    positions, plus run starts and ends — a block, a lighter one a
+    warp), ``block_all_max_n`` (a launch of at most this many members
+    gives each a block), ``max_sides``."""
+    global _cont_thresholds
+    if _cont_thresholds is None:
+        keys = ("block_min_ints", "block_all_max_n", "max_sides")
+        vals = (ctypes.c_longlong * len(keys))()
+        loader.library("containers").pilosa_containers_thresholds(vals)
+        _cont_thresholds = dict(zip(keys, map(int, vals)))
+    return _cont_thresholds
+
+
+def _check_side(name, side, dev):
     """A packed array side (vals, offs) or run side (starts, ends, offs):
-    1-D contiguous int32 on ``dev``, offsets of n + 1 members."""
+    1-D contiguous int32 on ``dev``. Returns its member count."""
     for t in side:
         if t.dtype != torch.int32 or t.dim() != 1:
             raise TypeError(f"{name}: payloads and offsets must be 1-D "
@@ -636,24 +699,27 @@ def _check_side(name, side, n, dev):
             raise ValueError(f"{name}: device mismatch {dev} vs {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: payloads must be contiguous")
-    if side[-1].shape[0] != n + 1:
-        raise ValueError(f"{name}: {side[-1].shape[0] - 1} members on one "
-                         f"side, {n} on the other")
     if len(side) == 3 and side[0].shape != side[1].shape:
         raise ValueError(f"{name}: {side[0].shape[0]} run starts, "
                          f"{side[1].shape[0]} ends")
+    return side[-1].shape[0] - 1
 
 
-def _check_rows(rows, n, dev):
-    """A dense side: n int32 rows of one width on ``dev``, one [n, W]
-    tensor or a list of [W] tensors. Returns W."""
+def _side_rows(rows):
+    """(rows, width) of a dense side: one [R, W] tensor or R [W]
+    tensors."""
+    if torch.is_tensor(rows):
+        return rows.shape[0], rows.shape[-1]
+    return len(rows), (rows[0].shape[-1] if len(rows) else 1)
+
+
+def _check_rows(rows, dev):
+    """A dense side: int32 rows of one width on ``dev``, one [R, W]
+    tensor or a list of [W] tensors. Returns (R, W)."""
     one = rows if torch.is_tensor(rows) else rows[0] if rows else None
-    count = rows.shape[0] if torch.is_tensor(rows) else len(rows)
-    if count != n:
-        raise ValueError(f"container_and_counts: {n} members, {count} "
-                         "dense rows")
+    count, width = _side_rows(rows)
     if one is None:
-        return 1
+        return count, width
     if one.dim() != (2 if torch.is_tensor(rows) else 1):
         raise ValueError("container_and_counts: dense rows must be [N, W] "
                          f"or N of [W], got {tuple(one.shape)}")
@@ -662,69 +728,164 @@ def _check_rows(rows, n, dev):
     if one.device != dev:
         raise ValueError("container_and_counts: dense rows on another "
                          "device")
-    return one.shape[-1]
+    return count, width
 
 
-def container_and_counts(cell, a, b):
-    """Per-member |a ∩ b| of N compressed row blocks in one launch ->
-    int32[N]. ``cell`` is ``array_array``, ``array_run``,
-    ``array_dense`` or ``run_dense``; an array side is (positions,
-    offsets), a run side (starts, ends, offsets) — the members' sorted
-    int32 payloads concatenated, member m's at [offsets[m], offsets[m +
-    1]) — and a dense side N int32[W] rows, a list or one [N, W]
-    tensor."""
-    if cell not in CONTAINER_CELLS:
-        raise ValueError(f"unknown container cell: {cell!r}")
-    want_a = 3 if cell == "run_dense" else 2
-    if len(a) != want_a:
-        raise ValueError(f"container_and_counts: {cell} takes a side of "
-                         f"{want_a} tensors, got {len(a)}")
-    n = a[-1].shape[0] - 1
-    dev = a[0].device
-    _check_side("container_and_counts", a, n, dev)
-    if cell.endswith("dense"):
-        rows = b if torch.is_tensor(b) else list(b)
-        row_width = _check_rows(rows, n, dev)
-    else:
-        if len(b) != (2 if cell == "array_array" else 3):
-            raise ValueError(f"container_and_counts: {cell}'s right side "
-                             f"has {len(b)} tensors")
-        _check_side("container_and_counts", b, n, dev)
-        row_width = 1
-    if n == 0:
-        return torch.zeros(0, dtype=torch.int32, device=dev)
-    if dev.type == "cpu":
-        return container_and_counts_plain(cell, a, b)
-    if dev.type != "cuda":
-        raise ValueError(f"container_and_counts: no kernel for device {dev}")
-    out = torch.zeros(n, dtype=torch.int32, device=dev)
+def _side_ptrs(side, dense, dev, keep):
+    """The 3 device addresses csrc/containers.cu takes for a side; a
+    dense side of several separate rows uploads its table of row
+    pointers (kept alive in ``keep``)."""
+    if not dense:
+        vals, offs = side[0], side[-1]
+        ends = side[1] if len(side) == 3 else None
+        return (vals.data_ptr(), 0 if ends is None else ends.data_ptr(),
+                offs.data_ptr())
+    if torch.is_tensor(side):
+        return side.data_ptr(), 0, 0
+    if len(side) == 1:
+        return side[0].data_ptr(), 0, 0
+    ptrs = np.asarray([r.data_ptr() for r in side], dtype=np.uint64)
+    table = torch.from_numpy(ptrs.view(np.int64)).to(dev)
+    keep.append(table)
+    return 0, table.data_ptr(), 0
+
+
+def _launch_cont(cell, a, b, table, n, width, out):
+    """One launch over at most CONT_MAX_SIDES sides a side; ``table`` is a
+    device int32 [n, 4] tensor or None (the identity)."""
     fn, err_str = _cont_kernel()
-    a_vals, a_offs = a[0], a[-1]
-    a_ends = a[1] if cell == "run_dense" else a[0]
-    b_vals = b_ends = b_offs = a_offs
-    base, table = 0, None
-    if cell.endswith("dense"):
-        if torch.is_tensor(rows):
-            base = rows.data_ptr()
-        elif len(rows) == 1:
-            base = rows[0].data_ptr()
-        else:
-            ptrs = np.asarray([r.data_ptr() for r in rows], dtype=np.uint64)
-            table = torch.from_numpy(ptrs.view(np.int64)).to(dev)
-    else:
-        b_vals, b_offs = b[0], b[-1]
-        b_ends = b[1] if cell == "array_run" else b[0]
-    per = max(1, min(_CONT_MAX_BLOCKS_PER_MEMBER,
-                     -(-_CONT_MIN_BLOCKS // n)))
+    dev = out.device
+    dense = cell.endswith("dense")
+    keep = []
+    pa = np.asarray([_side_ptrs(s, False, dev, keep) for s in a],
+                    dtype=np.uint64)
+    pb = np.asarray([_side_ptrs(s, dense, dev, keep) for s in b],
+                    dtype=np.uint64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(CONTAINER_CELLS[cell], n, a_vals.data_ptr(),
-                a_ends.data_ptr(), a_offs.data_ptr(), b_vals.data_ptr(),
-                b_ends.data_ptr(), b_offs.data_ptr(), base,
-                0 if table is None else table.data_ptr(), row_width, per,
+        rc = fn(CONTAINER_CELLS[cell], n, pa.ctypes.data, len(a),
+                pb.ctypes.data, len(b),
+                0 if table is None else table.data_ptr(), width,
                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"container_and_counts: kernel launch failed: "
                            f"CUDA error {rc} ({err_str(rc).decode()})")
-    _count_launch("container_and_counts")
+    _count_launch("container_and_counts",
+                  form="serial" if table is None else "lane")
+
+
+def _launch_split(cell, a, b, host, width, out):
+    """Launches past CONT_MAX_SIDES sides: the table's rows grouped by
+    the chunks of sides they read, each group one launch over its chunks
+    with rebased side indices, the counts put back in table order."""
+    dev = out.device
+    m = CONT_MAX_SIDES
+    key = (host[:, 0] // m).astype(np.int64) * (len(b) // m + 1) + \
+        host[:, 2] // m
+    order = np.argsort(key, kind="stable")
+    bounds = np.flatnonzero(np.diff(key[order])) + 1
+    tmp = torch.empty(len(host), dtype=torch.int32, device=dev)
+    for lo, hi in zip(np.concatenate(([0], bounds)),
+                      np.concatenate((bounds, [len(host)]))):
+        rows = host[order[lo:hi]].copy()
+        ca, cb = rows[0, 0] // m, rows[0, 2] // m
+        rows[:, 0] -= ca * m
+        rows[:, 2] -= cb * m
+        sub = torch.from_numpy(rows).to(dev)
+        _launch_cont(cell, a[ca * m:(ca + 1) * m], b[cb * m:(cb + 1) * m],
+                     sub, hi - lo, width, tmp[lo:hi])
+    out[torch.from_numpy(order).to(dev)] = tmp
+
+
+def container_and_counts(cell, a, b, members=None):
+    """Per-member |a ∩ b| of N compressed row blocks in one launch ->
+    int32[N]. ``cell`` is ``array_array``, ``array_run``,
+    ``array_dense`` or ``run_dense``. A side is an array side
+    (positions, offsets), a run side (starts, ends, offsets) — its
+    members' sorted int32 payloads concatenated, member m's at
+    [offsets[m], offsets[m + 1]) — or a dense side of rows, one [R, W]
+    tensor or a list of R int32[W] tensors.
+
+    Without ``members`` (the identity form), ``a`` and ``b`` are one side
+    each and member m of a meets member m of b. With ``members``, an
+    int32 [N, 4] table of (a side, a member, b side, b member) rows, ``a``
+    and ``b`` are lists of sides, read in place: the lanes' RowLanes are
+    never repacked. A table on the host is checked and uploaded; one
+    already on the card is taken as is. How the kernel spreads the
+    members over the card (a warp or a block each) is its own choice."""
+    if cell not in CONTAINER_CELLS:
+        raise ValueError(f"unknown container cell: {cell!r}")
+    dense = cell.endswith("dense")
+    want_a = 3 if cell == "run_dense" else 2
+    want_b = {"array_array": 2, "array_run": 3}.get(cell)
+    name = "container_and_counts"
+    if members is None:
+        sides_a, sides_b = [a], [b if torch.is_tensor(b) or not dense
+                                 else list(b)]
+    else:
+        sides_a, sides_b = list(a), list(b)
+        if not sides_a or not sides_b:
+            raise ValueError(f"{name}: a table form needs a side on each "
+                             "side")
+    for s in sides_a:
+        if len(s) != want_a:
+            raise ValueError(f"{name}: {cell} takes a side of {want_a} "
+                             f"tensors, got {len(s)}")
+    dev = sides_a[0][0].device
+    sizes_a = [_check_side(name, s, dev) for s in sides_a]
+    if dense:
+        sizes_b = [_check_rows(r, dev)[0] for r in sides_b]
+        width = _side_rows(sides_b[0])[1]
+        if any(_side_rows(r)[1] != width for r in sides_b):
+            raise ValueError(f"{name}: dense rows of different widths")
+    else:
+        for s in sides_b:
+            if len(s) != want_b:
+                raise ValueError(f"{name}: {cell}'s right side has "
+                                 f"{len(s)} tensors")
+        sizes_b = [_check_side(name, s, dev) for s in sides_b]
+        width = 1
+    table, host = None, None
+    if members is None:
+        n = sizes_a[0]
+        if sizes_b[0] != n:
+            what = "dense rows" if dense else "on the other"
+            raise ValueError(f"{name}: {n} members on one side, "
+                             f"{sizes_b[0]} {what}")
+    else:
+        table = torch.as_tensor(members).contiguous()
+        if (table.dtype != torch.int32 or table.dim() != 2
+                or table.shape[1] != 4):
+            raise TypeError(f"{name}: members must be int32 [N, 4], got "
+                            f"{table.dtype} {tuple(table.shape)}")
+        n = table.shape[0]
+        if table.device.type == "cpu":
+            host = table.numpy()
+            for col, sizes in ((0, sizes_a), (2, sizes_b)):
+                if n and (host[:, col].min() < 0
+                          or host[:, col].max() >= len(sizes)):
+                    raise ValueError(f"{name}: a side index out of range")
+                if n and ((host[:, col + 1] < 0).any() or (
+                        host[:, col + 1] >= np.asarray(sizes)[
+                            host[:, col]]).any()):
+                    raise ValueError(f"{name}: a member index out of "
+                                     "range")
+        elif table.device != dev:
+            raise ValueError(f"{name}: members on {table.device}, sides on "
+                             f"{dev}")
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        return container_and_counts_plain(cell, a, b, members)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if len(sides_a) <= CONT_MAX_SIDES and len(sides_b) <= CONT_MAX_SIDES:
+        if host is not None:
+            table = table.to(dev)
+        _launch_cont(cell, sides_a, sides_b, table, n, width, out)
+    else:
+        if host is None:
+            host = table.cpu().numpy()
+        _launch_split(cell, sides_a, sides_b, host, width, out)
     return out

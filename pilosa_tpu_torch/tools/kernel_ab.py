@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Builds of count_op_rows/count_rows and count_and_rows side by side on
-one card: another checkout's CUDA sources (``--parent``, the commit
-before a kernel change) against this checkout's, and this checkout's
-with their regime thresholds rewritten so that one regime serves every
-shape (``full``, ``split``, ``narrow``), so that two regimes meet at
-the same shape.
+"""Builds of count_op_rows/count_rows, count_and_rows and
+container_and_counts side by side on one card: another checkout's CUDA
+sources (``--parent``, the commit before a kernel change) against this
+checkout's, and this checkout's with their thresholds rewritten so that
+one regime serves every shape (``full``, ``split``, ``narrow``; for
+containers.cu ``warp`` and ``block``, every member a warp or a block),
+so that two regimes meet at the same shape.
 
     python3 pilosa_tpu_torch/tools/kernel_ab.py --parent DIR [--out FILE]
-        [--build-dir DIR]
+        [--build-dir DIR] [--only popcount,count_and_rows,containers]
 
 DIR is the root of the other checkout (its ``pilosa_tpu_torch/csrc``
 is built); the builds go to ``pilosa_tpu_torch/_build/ab/``, one nvcc
@@ -37,7 +38,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SOURCES = {"popcount": "popcount.cu", "count_and_rows": "count_and_rows.cu"}
+SOURCES = {"popcount": "popcount.cu", "count_and_rows": "count_and_rows.cu",
+           "containers": "containers.cu"}
 # The constants that force one regime on every shape (ops/kernels.py
 # REGIMES): a narrow limit below every width, a split limit above or
 # below every shape. count_and_rows's narrow body holds at most 512 words
@@ -53,6 +55,11 @@ FORCE = {
         "split": {"NARROW_MAX_WORDS": "-1", "SPLIT_MIN_WORDS": "-1",
                   "SPLIT_ITEMS": "1LL << 40"},
         "narrow": {"NARROW_MIN_ROWS": "0"}},
+    # container_and_counts: every member a warp (a member over a warp's
+    # buffers read in place) or every member a block.
+    "containers": {
+        "warp": {"BLOCK_MIN_INTS": "1LL << 40", "BLOCK_ALL_MAX_N": "0"},
+        "block": {"BLOCK_MIN_INTS": "-1"}},
 }
 REGIMES = ("full", "narrow", "split")
 REGIME_SYMBOL = {"popcount": "pilosa_count_op_rows_regime",
@@ -73,14 +80,15 @@ def rewrite(text, consts):
     return text
 
 
-def build_all(parent, build_dir):
+def build_all(parent, build_dir, sources):
     """{(source, build): library path}, compiled in parallel."""
     sys.path.insert(0, ROOT)
     from pilosa_tpu_torch.ops import loader
 
     os.makedirs(build_dir, exist_ok=True)
     jobs = {}
-    for src, fname in SOURCES.items():
+    for src in sources:
+        fname = SOURCES[src]
         with open(os.path.join(ROOT, "pilosa_tpu_torch", "csrc", fname)) as f:
             this = f.read()
         with open(os.path.join(parent, "pilosa_tpu_torch", "csrc",
@@ -174,6 +182,170 @@ class Build:
         return REGIMES[self.regime.value] if self.reports else "full"
 
 
+CONT_CELLS = {"array_array": 0, "array_run": 1, "array_dense": 2,
+              "run_dense": 3}
+
+
+class ContBuild:
+    """One build of csrc/containers.cu, called over one packed side each
+    (the identity form of the member table): the parent's interface (a
+    grid of (N, G) blocks, out zeroed, the wrapper's blocks-per-member
+    rule) or this one's (the kernel spreads the members itself)."""
+
+    def __init__(self, src, name, path):
+        self.src, self.name = src, name
+        self.lib = ctypes.CDLL(path)
+        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        self.new = hasattr(self.lib, "pilosa_containers_thresholds")
+        self.fn = self.lib.pilosa_container_and_counts
+        self.fn.restype = ci
+        if self.new:
+            self.fn.argtypes = [ci, ll, vp, ci, vp, ci, vp, ll, vp, vp]
+        else:
+            self.fn.argtypes = [ci, ll] + [vp] * 8 + [ll, ci, vp, vp]
+
+    def caller(self, cell, n, width):
+        """fn(a0, a1, a_offs, b0, b1, b_offs) -> int32[N]: b0 is a dense
+        cell's device table of row pointers; unused slots are ignored."""
+        import numpy as np
+        import torch
+
+        code = CONT_CELLS[cell]
+        dense = cell.endswith("dense")
+
+        def run(a0, a1, ao, b0, b1, bo):
+            stream = torch.cuda.current_stream().cuda_stream
+            if self.new:
+                out = torch.empty(n, dtype=torch.int32, device="cuda")
+                pa = np.asarray([a0.data_ptr(), a1.data_ptr(),
+                                 ao.data_ptr()], dtype=np.uint64)
+                pb = np.asarray([0, b0.data_ptr(), 0] if dense else
+                                [b0.data_ptr(), b1.data_ptr(), bo.data_ptr()],
+                                dtype=np.uint64)
+                rc = self.fn(code, n, pa.ctypes.data, 1, pb.ctypes.data, 1,
+                             None, width, out.data_ptr(), stream)
+            else:
+                out = torch.zeros(n, dtype=torch.int32, device="cuda")
+                per = max(1, min(64, -(-2 * 132 // n)))
+                rc = self.fn(code, n, a0.data_ptr(), a1.data_ptr(),
+                             ao.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+                             bo.data_ptr(), 0,
+                             b0.data_ptr() if dense else None, width, per,
+                             out.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"containers-{self.name}: CUDA error {rc}")
+            return out
+        return run
+
+
+def container_ab(builds, smoke, card):
+    """container_and_counts: the parent's build against this one at the
+    lane shapes (GROUP_PAIRS row pairs over MAIN_SLICES slices: members
+    of phase 10's 500 and 300 positions, its 2,000-bit run, dense rows)
+    and at the serial shapes (one member); then this build against its
+    forced ``warp`` and ``block`` builds across member sizes around the
+    threshold and member counts around BLOCK_ALL_MAX_N. Returns the
+    rows."""
+    import numpy as np
+    import torch
+
+    from pilosa_tpu_torch.ops import containers as C
+    from pilosa_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(77)
+    limit, w32 = smoke.SLICE_COLS, smoke.WORDS32
+    rows_out = []
+    dummy = torch.zeros(4, dtype=torch.int32, device="cuda")
+    pool = [torch.from_numpy(rng.integers(-2**31, 2**31, w32, dtype=np.int64)
+                             .astype(np.int32)).cuda() for _ in range(2048)]
+
+    def arrays(n, k, distinct=256):
+        parts = [np.sort(rng.choice(limit, k, replace=False)).astype(np.int32)
+                 for _ in range(min(n, distinct))]
+        conts = [C.Container("array", w32, k, positions=parts[i % len(parts)],
+                             device="cuda") for i in range(n)]
+        vals, offs = C.stack_positions(conts)
+        return conts, (vals, dummy, offs)
+
+    def runs(n):
+        starts = rng.integers(0, limit - 3000, n)
+        conts = [C.Container("run", w32, 2000, runs=np.array(
+            [[s0, s0 + 2000]], np.int32), device="cuda") for s0 in starts]
+        return conts, C.stack_runs(conts)
+
+    def dense(n):
+        rows = [pool[i % len(pool)] for i in range(n)]
+        ptrs = np.asarray([r.data_ptr() for r in rows], dtype=np.uint64)
+        return rows, (torch.from_numpy(ptrs.view(np.int64)).cuda(), dummy,
+                      dummy)
+
+    def make(cell, n, ka=500, kb=300):
+        """(args, plain result, bound ms)."""
+        fa, fb = cell.split("_")
+        ca, sa = arrays(n, ka) if fa == "array" else runs(n)
+        if fb == "array":
+            cb, sb = arrays(n, kb)
+            plain_b = (sb[0], sb[2])
+        elif fb == "run":
+            cb, sb = runs(n)
+            plain_b = sb
+        else:
+            rows, sb = dense(n)
+            cb = [C.dense_container(r, w32, 0) for r in rows]
+            plain_b = rows
+        plain_a = (sa[0], sa[2]) if fa == "array" else sa
+        want = kernels.container_and_counts_plain(cell, plain_a, plain_b)
+        shared = np.arange(n) % len(pool) if fb == "dense" else None
+        bound = smoke.cont_bound_ms(cell, ca, cb, shared)[0]
+        return (*sa, *sb), want, bound
+
+    def measure(group, cell, n, names, ka=500, kb=300, serial=False):
+        args_, want, bound = make(cell, n, ka, kb)
+        shape = f"{cell} N = {n} ({ka} x {kb})" if cell == "array_array" \
+            else f"{cell} N = {n}"
+        row = {"group": group, "kernel": "container_and_counts",
+               "shape": shape, "bound_ms": bound, "builds": {}}
+        for name in names:
+            b = builds[("containers", name)]
+            fn = b.caller(cell, n, w32)
+            got = fn(*args_)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"kernel_ab: containers-{name} != plain at "
+                                 f"{shape}")
+            t = {"dev": smoke.cold_ms(fn, *args_),
+                 "lone": smoke.one_ms(fn, *args_, reps=30),
+                 "call": smoke.timed_ms(lambda: fn(*args_), reps=50)}
+            if serial:
+                t["wait"] = smoke.sync_ms(lambda: fn(*args_))
+            row["builds"][name] = t
+        rows_out.append(row)
+        print(f"{group} | {shape} | bound {bound:.5f} | " + " | ".join(
+            f"{nm} dev {t['dev']:.4f} ({bound / t['dev']:.1%}) lone "
+            f"{t['lone']:.4f} call {t['call']:.4f}"
+            + (f" wait {t['wait']:.4f}" if "wait" in t else "")
+            for nm, t in row["builds"].items()) + f" {card}")
+        del args_, want
+        torch.cuda.empty_cache()
+
+    lane_n = smoke.GROUP_PAIRS * smoke.MAIN_SLICES
+    for cell in CONT_CELLS:
+        measure("lane", cell, lane_n, ("parent", "this", "warp", "block")
+                if cell == "array_array" else ("parent", "this"))
+    for cell in CONT_CELLS:
+        measure("serial", cell, 1, ("parent", "this", "warp", "block"),
+                serial=True)
+    # Member sizes around BLOCK_MIN_INTS at a lane's ~61M staged ints.
+    for k in (128, 256, 400, 512, 640, 768, 1024, 1100, 2048, 4096):
+        measure("warp|block", "array_array", max(1, 61_000_000 // (2 * k)),
+                ("this", "warp", "block"), ka=k, kb=k)
+    # Member counts around BLOCK_ALL_MAX_N.
+    for n in (2, 7, 16, 32, 64, 65, 128, 256, 512, 1024, 4096):
+        measure("warp|block", "array_array", n, ("this", "warp", "block"),
+                serial=n <= 16)
+    return rows_out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True,
@@ -182,7 +354,13 @@ def main():
         ROOT, "pilosa_tpu_torch", "_build", "ab"))
     ap.add_argument("--out", help="JSON file (default: kernel_ab.json in "
                     "the build directory)")
+    ap.add_argument("--only", default=",".join(SOURCES),
+                    help="comma-separated sources to build and time (default:"
+                         " all)")
     args = ap.parse_args()
+    sources = [x for x in args.only.split(",") if x]
+    if not sources or set(sources) - set(SOURCES):
+        ap.error(f"--only takes sources of {sorted(SOURCES)}")
     args.out = args.out or os.path.join(args.build_dir, "kernel_ab.json")
     sys.stdout.reconfigure(line_buffering=True)
 
@@ -200,9 +378,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     card = f"[{smi}]"
-    builds = {k: Build(*k, path) for k, path in
-              build_all(os.path.abspath(args.parent),
-                        args.build_dir).items()}
+    builds = {k: (ContBuild if k[0] == "containers" else Build)(*k, path)
+              for k, path in build_all(os.path.abspath(args.parent),
+                                       args.build_dir, sources).items()}
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
     def rand(*shape):
@@ -230,7 +408,9 @@ def main():
             lambda rows, f: smoke.and_rows_bound_ms(len(rows), *f.shape)[0]),
     }
     results = []
-    empty = builds[("popcount", "this")].lib.pilosa_empty_launch
+    from pilosa_tpu_torch.ops import loader
+
+    empty = loader.library("popcount").pilosa_empty_launch
     empty.argtypes = [ctypes.c_void_p]
 
     def empty_call():
@@ -244,6 +424,8 @@ def main():
 
     def measure(group, kind, names, make, serial=False):
         src, caller, plain, bound = kinds[kind]
+        if src not in sources:
+            return
         args_ = make()
         want = plain(*args_)
         shape = (f"{len(args_[0])} x {list(args_[1].shape)}"
@@ -341,6 +523,8 @@ def main():
                 ("this", "narrow", "full"),
                 lambda: ([rand(SLICES, w) for _ in range(8)],
                          rand(SLICES, w)))
+    if "containers" in sources:
+        results += container_ab(builds, smoke, card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": smi, "floor": floor, "shapes": results}, f,

@@ -416,6 +416,197 @@ def test_container_and_counts_checks_its_inputs():
         "array_array", (pos, empty), (pos, empty)).tolist() == []
 
 
+# The edge cases of each side of a cell: empty members, one position (the
+# last bit), bit 31 of every word, 700 and 4,096 positions; runs of 37,
+# 2,048 runs, one over the whole block, none; dense rows of 4,097 bits and
+# of random words.
+TABLE_KINDS = {"array": ("empty", "one", "bit31", "array", "array4096"),
+               "run": ("run", "runs2048", "ones", "norun"),
+               "dense": ("array4097", "dense")}
+
+
+def _edge_conts(fmt, n, rng):
+    """n (port, reference) containers of ``fmt`` cycling through its
+    TABLE_KINDS."""
+    out = []
+    for i in range(n):
+        kind = TABLE_KINDS[fmt][i % len(TABLE_KINDS[fmt])]
+        if kind == "norun":
+            runs = np.zeros((0, 2), np.int32)
+            out.append((tcont.Container("run", W32, 0, runs=runs,
+                                        device="cpu"),
+                        jcont.Container("run", W32, 0, runs=runs)))
+            continue
+        w = _kind_words(kind, rng)
+        t = tcont.build_container(w, W32, device="cpu")
+        j = jcont.build_container(w, W32)
+        if fmt == "array" and kind == "empty":
+            assert t.fmt == "array" and t.count == 0
+        else:
+            assert t.fmt == j.fmt == fmt, (kind, t.fmt)
+        out.append((t, j))
+    return out
+
+
+def _side(fmt, conts):
+    if fmt == "array":
+        return tcont.stack_positions(conts)
+    if fmt == "run":
+        return tcont.stack_runs(conts)
+    return [c.dense_words() for c in conts]
+
+
+@pytest.mark.parametrize("cell", ["array_array", "array_run", "array_dense",
+                                  "run_dense"])
+def test_table_form_plain_matches_reference_cells(cell):
+    """The lane table's form through the kernel's plain version (what a
+    CPU holder's lanes run) against pilosa_tpu's serial cells
+    (``dispatch_count``, containers.py:395-505) and its vmapped lanes
+    (:618-636) on the same member pairs: members spread over three left
+    and two right packed sides, each side named twice in the launch, the
+    table's rows shuffled and some repeated."""
+    fa, fb = cell.split("_")
+    rng = np.random.default_rng(41)
+    n = 20
+    left, right = _edge_conts(fa, n, rng), _edge_conts(fb, n, rng)
+    sides_a = [_side(fa, [t for t, _ in left[k::3]]) for k in range(3)]
+    sides_b = [_side(fb, [t for t, _ in right[k::2]]) for k in range(2)]
+    rows = np.concatenate([rng.permutation(n), rng.integers(0, n, 6)])
+    table = np.stack([rows % 3 + 3 * (rows % 2), rows // 3,
+                      rows % 2 + 2 * (rows % 3 == 1), rows // 2],
+                     axis=1).astype(np.int32)
+    got = kernels.container_and_counts(cell, sides_a + sides_a,
+                                       sides_b + sides_b, table)
+    assert got.dtype == torch.int32
+    serial = [int(jbitops.dispatch_count("and", left[r][1], right[r][1]))
+              for r in rows]
+    ja, jb = [left[r][1] for r in rows], [right[r][1] for r in rows]
+    if cell == "array_array":
+        fused = jcont.fused_count_array_array(jcont.stack_positions(ja),
+                                              jcont.stack_positions(jb, 1))
+    elif cell == "array_run":
+        fused = jcont.fused_count_array_run(jcont.stack_positions(ja),
+                                            *jcont.stack_runs(jb))
+    elif cell == "array_dense":
+        fused = jcont.fused_count_array_dense(jcont.stack_positions(ja),
+                                              jcont.stack_dense(jb))
+    else:
+        fused = jcont.fused_count_run_dense(*jcont.stack_runs(ja),
+                                            jcont.stack_dense(jb))
+    assert got.tolist() == serial == np.asarray(fused).tolist()
+    assert got.tolist() == kernels.container_and_counts_plain(
+        cell, sides_a + sides_a, sides_b + sides_b, table).tolist()
+
+
+def test_table_form_checks_its_indices():
+    pos = torch.tensor([1, 2, 5], dtype=torch.int32)
+    side = (pos, torch.tensor([0, 2, 3], dtype=torch.int32))
+    for bad in ([[0, 2, 0, 0]], [[1, 0, 0, 0]], [[0, 0, 0, -1]]):
+        with pytest.raises(ValueError):
+            kernels.container_and_counts(
+                "array_array", [side], [side], np.asarray(bad, np.int32))
+    with pytest.raises(TypeError):
+        kernels.container_and_counts("array_array", [side], [side],
+                                     np.zeros((1, 3), np.int32))
+    with pytest.raises(TypeError):
+        kernels.container_and_counts("array_array", [side], [side],
+                                     np.zeros((1, 4), np.int64))
+    got = kernels.container_and_counts(
+        "array_array", [side], [side],
+        np.asarray([[0, 1, 0, 0], [0, 0, 0, 0]], np.int32))
+    assert got.tolist() == [0, 2]
+
+
+def test_lane_cells_read_rows_in_place(monkeypatch):
+    """Rows of mixed formats (blocks that change format from slice to
+    slice, absent slices, 4,096-position members among 500-position
+    ones): the cells' sides are the RowLanes' own packed sides, a
+    subset of a row's slices only member indices, each table row names
+    its slice's members, and nothing is packed after the rows are
+    built."""
+    rng = np.random.default_rng(23)
+    kinds = [("array", "array"), ("array4096", "array4096"),
+             ("array", "run"), ("run", "array"), (None, "array"),
+             ("dense", "array"), ("run", "run"), ("array4096", "run")] * 3
+
+    def block(kind):
+        return None if kind is None else tcont.build_container(
+            _kind_words(kind, rng), W32, device="cpu")
+
+    blocks = [(block(x), block(y)) for x, y in kinds]
+    la = tcont.RowLane([x for x, _ in blocks])
+    lb = tcont.RowLane([y for _, y in blocks])
+    want = sum(int(tbitops.dispatch_count("and", x, y))
+               for x, y in blocks if x is not None and y is not None)
+    packs = []
+    for name in ("_pack", "stack_runs"):
+        real = getattr(tcont, name)
+        monkeypatch.setattr(tcont, name, lambda *a, real=real, name=name: (
+            packs.append(name), real(*a))[1])
+    cells, rest = tcont.lane_cells([(la, lb), (lb, la)])
+    assert [c.cell for c in cells] == ["array_array", "array_run"]
+    rows = (la, lb)
+    for c in cells:
+        for s in c.a_sides + c.b_sides:
+            assert any(s is r.packed[code] for r in rows
+                       for code in r.packed)
+        table = c.members.numpy()
+        for (sa, ma, sb, mb), own in zip(table, c.owners.tolist()):
+            x, y = rows[own], rows[1 - own]
+            if c.a_sides[sa] is not x.packed[tcont.LANE_ARRAY]:
+                x, y = y, x  # the run block is the pair's left row
+            slot = np.flatnonzero(x.member == ma)
+            slot = slot[x.codes[slot] == tcont.LANE_ARRAY]
+            assert len(slot) == 1 and y.member[slot[0]] == mb
+    assert (rest > 0).all()
+    inter, launches = tcont.lane_and_counts([(la, lb), (lb, la)])
+    assert inter.tolist() == [want, want] and launches == 2
+    assert packs == []
+
+
+def test_lane_rounds_reuse_pair_tables():
+    """A pair's member tables are built once and kept on its left row: a
+    lone pair whose cells hold one kept table each launches them as they
+    are, a round of several
+    pairs joins the kept tables with each pair's side indices, in any
+    order of the pairs; the counts come back in the caller's order, and
+    a row that meets more than MAX_PAIRS partners forgets them."""
+    rng = np.random.default_rng(29)
+
+    def row(kinds):
+        return tcont.RowLane([tcont.build_container(
+            _kind_words(k, rng), W32, device="cpu") for k in kinds])
+
+    r1 = row(["array", "array4096", "run", "array"])
+    r2 = row(["array", "run", "array", "array4096"])
+    r3 = row(["run", "array", "array", "bit31"])
+    pairs = [(r1, r2), (r2, r3), (r3, r1), (r1, r1)]
+    want = [sum(int(tbitops.dispatch_count("and", x, y))
+                for x, y in zip(a.conts, b.conts)) for a, b in pairs]
+    kept = r1.pair_rows(r2)
+    assert r1.pair_rows(r2) is kept
+    alone = r2.pair_rows(r2)[0]  # one table, array x array
+    lone = tcont.lane_cells([(r2, r2)])[0]
+    assert [(c.members, c.owners) for c in lone] == [(alone[0][2], 0)]
+    both = tcont.lane_cells([(r1, r2)])[0]  # array x run both ways: joined
+    assert [c.cell for c in both] == ["array_array", "array_run"]
+    assert all(c.owners.tolist() == [0] * c.n for c in both)
+    cells, _ = tcont.lane_cells(pairs)
+    for c in cells:
+        if isinstance(c.owners, int):
+            continue
+        table = c.members.numpy()
+        assert len(c.a_sides) > 1 and len(c.a_sides) == table[:, 0].max() + 1
+        assert len(c.b_sides) == table[:, 2].max() + 1
+    assert tcont.lane_and_counts(pairs)[0].tolist() == want
+    assert tcont.lane_and_counts(pairs[::-1])[0].tolist() == want[::-1]
+    assert r1.pair_rows(r2) is kept
+    partners = [row(["array"] * 4) for _ in range(tcont.RowLane.MAX_PAIRS)]
+    for other in partners:
+        r1.pair_rows(other)
+    assert r1.pair_rows(r2) is not kept
+
+
 @pytest.mark.parametrize("kind", ["array", "bit31", "array4096", "one"])
 def test_array_to_dense_matches_reference(kind):
     w = _kind_words(kind, np.random.default_rng(8))
@@ -712,6 +903,38 @@ def test_coalesced_lane_group_matches_reference(sparse, port, op, lanes):
     assert st["laneLaunches"] == 2 and st["declined"] == {}
     assert st["densifiedBlocks"] == 0 and tcont.conversions_total() == conv
     assert len(e._lane_cache) == 3 and len(built) == N_SLICES
+
+
+def test_coalesced_round_packs_no_payload(port, monkeypatch):
+    """A coalesced group round over cached rows packs nothing: every
+    payload its launches read is a RowLane's packed side, built when the
+    row was first served; a round adds only member tables."""
+    h, e, want = port
+    labels = ["and12", "and13", "and12", "and13"]
+    queries = [_q(SPARSE_QUERIES[k][0]) for k in labels]
+    assert [e.execute("ns", q)[0] for q in queries] == [want[k]
+                                                        for k in labels]
+    packs, sides = [], []
+    for name in ("_pack", "stack_runs"):
+        real = getattr(tcont, name)
+        monkeypatch.setattr(tcont, name, lambda *a, real=real, name=name: (
+            packs.append(name), real(*a))[1])
+    real_cells = tcont.lane_cells
+
+    def cells(pairs, *a, **k):
+        out = real_cells(pairs, *a, **k)
+        sides.extend(s for c in out[0] for s in c.a_sides + c.b_sides)
+        rows = [r for p in pairs for r in p]
+        assert all(any(s is r.packed.get(code) for r in rows
+                       for code in r.packed) for s in sides)
+        return out
+
+    monkeypatch.setattr(tcont, "lane_cells", cells)
+    e._co_enabled_memo = True
+    got, errors = _concurrent(e, queries)
+    assert errors == [] and got == [want[k] for k in labels]
+    assert e.coalesce_snapshot()["compressedFusedQueries"] == len(labels)
+    assert packs == [] and sides
 
 
 LONE = ("and12", "and13", "or12", "andnot13", "xor23", "leaf3")

@@ -908,3 +908,124 @@ def test_row_lanes_on_gpu_match_cpu(gen, op):
         if device == "cuda":
             assert kernels.launches["container_and_counts"] == 2
     assert totals["cuda"] == totals["cpu"]
+
+
+def _table_case(n, seed):
+    """A member table over two identity sides of n members each, every
+    side named twice, a shuffled three-in-four subset of the members.
+    Returns (table, the members in table order)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.permutation(n)[:max(1, (3 * n) // 4)]
+    k = np.arange(len(pick))
+    table = np.stack([k % 2, pick, (k // 2) % 2, pick], axis=1).astype(
+        np.int32)
+    return table, pick
+
+
+@pytest.mark.parametrize("n", [1, 7, 76_296])
+@pytest.mark.parametrize("cell", ["array_array", "array_run", "array_dense",
+                                  "run_dense"])
+def test_container_and_counts_table_equals_plain(gen, cell, n):
+    """The lane table's form on the card: repeated sides, a shuffled
+    subset of the members, 4,096-position and 2,048-run members (a block
+    each) among light ones (a warp each), one launch, every count as the
+    identity form's plain version gives it."""
+    fa, fb = cell.split("_")
+    big = n > 1000
+    _, a = _cont_side(fa, n, 5, big)
+    _, b = _cont_side(fb, n, 6, big)
+    want = kernels.container_and_counts_plain(cell, a, b)
+    table, pick = _table_case(n, n)
+    kernels.reset_launches()
+    for members in (table, torch.from_numpy(table).cuda()):
+        got = kernels.container_and_counts(cell, [a, a], [b, b], members)
+        assert torch.equal(got, want[torch.from_numpy(pick).cuda()])
+    assert kernels.launches["container_and_counts"] == 2
+
+
+def test_container_and_counts_threshold_edges(gen):
+    """Members of block_min - 1, block_min and block_min + 1 staged ints
+    among lane-sized ones, and empty members beside 4,096-position ones,
+    on both sides of the block/warp split, in a shuffled order (the
+    kernel sorts them itself)."""
+    from pilosa_tpu_torch.ops import containers as C
+
+    th = kernels.container_thresholds()
+    block_min = th["block_min_ints"]
+    rng = np.random.default_rng(8)
+    sizes = []
+    for k in range(1500):
+        tot = (block_min - 1 + k % 4 if k % 4 < 3 else
+               (0 if k % 8 == 3 else 8192))
+        sizes.append((min(4096, tot // 2), tot - min(4096, tot // 2)))
+    sizes = [sizes[i] for i in rng.permutation(len(sizes))]
+    sides = [C.stack_positions([C.Container(
+        "array", SLICE_WIDTH // 32, k, positions=np.sort(rng.choice(
+            SLICE_WIDTH, k, replace=False)).astype(np.int32), device="cuda")
+        for k in col]) for col in zip(*sizes)]
+    assert 0 < sum(x + y > block_min for x, y in sizes) < len(sizes)
+    ident = np.arange(len(sizes), dtype=np.int32)
+    table = np.stack([0 * ident, ident, 0 * ident, ident], axis=1)
+    want = kernels.container_and_counts_plain("array_array", *sides)
+    for got in (kernels.container_and_counts("array_array", [sides[0]],
+                                             [sides[1]], table),
+                kernels.container_and_counts("array_array", *sides)):
+        assert torch.equal(got, want)
+
+
+def test_container_and_counts_past_max_sides(gen):
+    """More distinct sides than the kernel's parameter table: the
+    wrapper launches once per chunk of sides and puts the counts back in
+    table order."""
+    from pilosa_tpu_torch.ops import containers as C
+
+    rng = np.random.default_rng(9)
+    w32 = SLICE_WIDTH // 32
+    m = kernels.container_thresholds()["max_sides"]
+    assert m == kernels.CONT_MAX_SIDES
+
+    def positions(k):
+        return C.Container("array", w32, k, positions=np.sort(rng.choice(
+            SLICE_WIDTH, k, replace=False)).astype(np.int32), device="cuda")
+
+    sides_a = [C.stack_positions([positions(300) for _ in range(3)])
+               for _ in range(2 * m + 3)]
+    sides_b = [C.stack_positions([positions(500) for _ in range(3)])
+               for _ in range(m + 1)]
+    k = 4 * len(sides_a)
+    table = np.stack([rng.integers(0, len(sides_a), k),
+                      rng.integers(0, 3, k),
+                      rng.integers(0, len(sides_b), k),
+                      rng.integers(0, 3, k)], axis=1).astype(np.int32)
+    kernels.reset_launches()
+    got = kernels.container_and_counts("array_array", sides_a, sides_b,
+                                       table)
+    assert kernels.launches["container_and_counts"] >= 4
+    assert torch.equal(got, kernels.container_and_counts_plain(
+        "array_array", sides_a, sides_b, table))
+
+
+def test_lane_round_reads_rows_in_place_on_card(gen):
+    """A lane round on the card takes the RowLanes' packed sides
+    themselves (no payload copied), sums each pair's members on the
+    card, and gives the CPU's totals."""
+    from pilosa_tpu_torch.ops import containers as C
+
+    rng = np.random.default_rng(10)
+    w32 = SLICE_WIDTH // 32
+    state = rng.bit_generator.state
+    totals = {}
+    for device in ("cpu", "cuda"):
+        rng.bit_generator.state = state
+        rows = [C.RowLane([C.Container(
+            "array", w32, k, positions=np.sort(rng.choice(
+                SLICE_WIDTH, k, replace=False)).astype(np.int32),
+            device=device) for k in rng.integers(0, 4097, 64)])
+            for _ in range(3)]
+        pairs = [(rows[0], rows[1]), (rows[1], rows[2]), (rows[0], rows[2])]
+        cells = C.lane_cells(pairs)[0]
+        for c in cells:
+            assert all(any(s is r.packed[C.LANE_ARRAY] for r in rows)
+                       for s in c.a_sides + c.b_sides)
+        totals[device] = C.lane_and_counts(pairs)[0].tolist()
+    assert totals["cuda"] == totals["cpu"]
