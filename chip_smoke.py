@@ -42,7 +42,13 @@ Phases, each of which fails the run (exit code != 0, no result line):
    slices (76,296 members of 500 × 300 positions, 500 positions × a
    2,000-bit run; × dense rows and a run × dense rows as off-path
    probes, the main path's dense cells being serial), each with its
-   bound;
+   bound; the ingest classify kernel ``ingest_classify`` on the empty
+   stream, one entry, bits 31/32 and 2^20-1, a whole-row run of 2^20
+   entries, rows of 4,096 and 4,097 bits, 1, 3 and 1,024 rows and rows
+   ending on and inside its chunks, then timed at phase 11's shapes (a
+   slice group of (a), ~1,000,000 entries over 1,024 rows, and an
+   8,000,000-entry batch in one slice) with its bound, its plain
+   version, the stream's copy to the card and the whole classify cell;
 4. main path, Count and bitmap results — a data directory of N slices
    (default 9,537 = 10.0B columns; one index, one frame, three dense
    rows of bit density 0.5, 0.5 and 0.25 and a sparse row 3 of density
@@ -86,7 +92,7 @@ Phases, each of which fails the run (exit code != 0, no result line):
 7. main path, time windows — Pilosa's event-analytics example
    (``docs/examples.md:61-70``): a data directory of its own with index
    ``events`` and frame ``clicks`` (``timeQuantum="YMD"``), four rows
-   over 1,024 slices (reduced from 9,537: EVENT_SLICES), each (row,
+   over 512 slices (reduced from 9,537: EVENT_SLICES), each (row,
    column) clicked with probability 1/64
    on one day of 2017-06-01 … 14, so 17 views (``standard``,
    ``standard_2017``, ``standard_201706``, one per day) written in
@@ -159,7 +165,25 @@ Phases, each of which fails the run (exit code != 0, no result line):
    ``torch.cuda.max_memory_allocated()``; (e) the first query again with
    the container tier off (``containers.set_enabled(False)``: the dense
    batched route). Every answer against numpy;
-   ``container_and_counts`` must have launched.
+   ``container_and_counts`` must have launched;
+11. bulk ingest (``ingest_path``) — ``POST /index/{i}/ingest`` of a
+   ``Server`` on the card under a 6 GiB host budget, in a data
+   directory of its own: (a) benchmarks/ingest.py's wide shape, 1,024
+   rows, 4 binary requests of 8,000,000 bits with columns uniform over
+   32 slices (array containers), bits/s alone and with 2 of them
+   (reduced from 4) under a closed-loop Count(Intersect) client (report
+   only), a JSON request, the seeded
+   containers and no conversion, Counts, Count(Intersect), TopN and a
+   pinned serial Count; (b) count100b's sparse shape over 1,024 slices
+   in one request, first query's seconds and route; (c) 1,000 BSI
+   values a slice over 256 slices (reduced from 1,024), Sum and Max;
+   (d) 1,000,000
+   timestamped bits into a YMD frame, Count(Range) over 14 days and 1;
+   (e) 100,000 keyed pairs through JSON ``/import`` and ``cli import
+   -k`` of 10,000 lines, the same ids after a reopen; (f)
+   docs/input-definition.md's definition and 10,000 records through
+   ``/input``. Every answer against numpy; every classify pass launches
+   ``ingest_classify``, and the host bytes end within the budget.
 
 The result memos and the response cache are off
 (``PILOSA_TPU_RESULT_MEMO=0``) but in phase 8c's warm repeats, so the
@@ -175,15 +199,15 @@ Count(Intersect(row 3, row 3)).
 
 Every open is lazy (no fragment file is read until a query touches
 it); each phase prints its open and first-query seconds. The serial
-path of phases 4-7 runs over the first 512 slices (the batched path
+path of phases 4-7 runs over the first 256 slices (the batched path
 and the top-level bare ``Bitmap`` over all of them), so that the script
 stays inside its 1,200 s limit (PERF.md §5 has the measured total).
 ``--event-slices`` and ``--sparse-slices`` set phase 7's and phase
-10's slice counts and ``--only`` runs a subset of phases 4-10 (no phase
+10's slice counts and ``--only`` runs a subset of phases 4-11 (no phase
 3 and no result lines): all are for measurements, and the contract run
 takes none.
 
-Each of phases 4-10 prints its launches per kernel and, for
+Each of phases 4-11 prints its launches per kernel and, for
 ``count_op_rows``, ``count_rows`` and ``count_and_rows``, per regime; a
 line after them sums the regimes over the phases. The second-to-last
 line is a JSON object describing every kernel; the last is ``{"ok":
@@ -216,10 +240,10 @@ POPC_PER_S = 132 * 16 * 1.98e9       # popcount
 OPS = ("and", "or", "xor", "andnot")
 DEVICE = "cuda"
 TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
-# Slices of the serial loops of phases 4-7. reduced: 512, not 1,024 (nor
-# every slice), to keep the script inside its limit on the slower H100
-# hosts (PERF.md §4).
-SERIAL_SLICES = 512
+# Slices of the serial loops of phases 4-7. reduced: 256, not 1,024 (nor
+# every slice): at 512 the script with phase 11 took 1,162.7 s of its
+# 1,200 s limit on a slower H100 host (PERF.md §4).
+SERIAL_SLICES = 256
 WINDOW_BUCKETS = (128, 512, 2048, 8192, 32768)  # batched stack widths
 GOVERNOR_BYTES = 256 << 20  # phase 4's host budget on its reopen
 GOVERNED_SLICES = 512       # slices of its serial TopN and bitmap read
@@ -228,9 +252,10 @@ GOVERNED_BATCH = 2048       # slices of its batched Count and TopN
 # fragment files) the phase alone took 600.4 s on an H100 machine
 # (writes 191.2 s, the first 14-view Count 240.4 s), and at 4,096 slices
 # it carried the whole script past its 1,200 s limit on a slower host,
-# so the event-analytics example runs at 1,024 slices (1.07B columns;
-# PERF.md §4).
-EVENT_SLICES = 1024
+# and at 1,024 slices (107.4 s of the phase) the script with phase 11
+# took 1,162.7 s on a slower host, so the event-analytics example runs
+# at 512 slices (0.54B columns; PERF.md §4).
+EVENT_SLICES = 512
 # Slices of phase 10. reduced: count100b's shape is 95,368 slices (100B
 # columns); at 9,537 the phase took 82.4 s and the whole script 942.7 s
 # on a slower H100 host (PERF.md §4), too near the 1,200 s limit.
@@ -1390,6 +1415,144 @@ def container_checks(card):
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return lane
+
+
+# The ingest classify kernel: phase 3's streams (tests/test_torch_cuda.py
+# has the same), sorted by (row, position) and deduplicated.
+CLASSIFY_CASES = ("empty", "one", "edges", "whole_row", "4096_4097",
+                  "rows_1", "rows_3", "rows_1024", "chunk_edges")
+
+
+def classify_stream(lengths, rng, run_share=0.5):
+    """(rowidx, positions, n_rows) of rows of the given lengths, each a
+    run of ``run_share`` of its bits and spread bits."""
+    rows, pos = [], []
+    for r, k in enumerate(lengths):
+        run = int(k * run_share)
+        start = int(rng.integers(0, SLICE_COLS - run))
+        p = set(range(start, start + run))
+        while len(p) < k:
+            p.update(rng.integers(0, SLICE_COLS, k - len(p)).tolist())
+        pos.append(np.sort(np.fromiter(p, np.int64, len(p))[:k]))
+        rows.append(np.full(k, r))
+    return (np.concatenate(rows).astype(np.int32),
+            np.concatenate(pos).astype(np.int32), len(lengths))
+
+
+def classify_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "empty":
+        return np.zeros(0, np.int32), np.zeros(0, np.int32), 3
+    if name == "one":
+        return np.zeros(1, np.int32), np.array([5], np.int32), 1
+    if name == "edges":  # bits 31/32 of a word, the slice's last bit
+        return (np.array([0, 0, 0, 0, 0, 1, 1], np.int32),
+                np.array([0, 31, 32, 33, SLICE_COLS - 1, 31, 32], np.int32),
+                2)
+    if name == "whole_row":
+        return (np.zeros(SLICE_COLS, np.int32),
+                np.arange(SLICE_COLS, dtype=np.int32), 1)
+    if name == "4096_4097":
+        return classify_stream([4096, 4097], rng, run_share=0.0)
+    if name.startswith("rows_"):
+        n = int(name[5:])
+        return classify_stream(rng.integers(1, 3000, n).tolist(), rng)
+    if name == "chunk_edges":  # rows ending on and inside 23-entry chunks
+        return classify_stream([23, 22, 24, 46, 5888, 5889, 1, 23 * 256],
+                               rng, run_share=0.9)
+    raise KeyError(name)
+
+
+def classify_shape(nnz, n_rows, seed):
+    """A sorted, deduplicated stream of about ``nnz`` uniform entries
+    over ``n_rows`` rows of one slice (phase 11's shapes)."""
+    rng = np.random.default_rng(seed)
+    key = np.unique((rng.integers(0, n_rows, nnz, dtype=np.int64) << 20)
+                    | rng.integers(0, SLICE_COLS, nnz, dtype=np.int64))
+    return ((key >> 20).astype(np.int32),
+            (key & (SLICE_COLS - 1)).astype(np.int32))
+
+
+def classify_bound_ms(nnz, n_rows):
+    """Least time of a classify pass: each entry's row and position read
+    once, each row's two counts written once (the compares and adds,
+    about 8 integer operations an entry, are far under the bytes)."""
+    nbytes = 8 * nnz + 8 * n_rows
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ms(0, 8 * nnz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def ingest_checks(card):
+    """Phase 3's ingest_classify: against its plain version on the same
+    device tensors at CLASSIFY_CASES, exactly; then timed at phase 11's
+    shapes (a slice group of its wide batches, INGEST_GROUP_BITS entries
+    over INGEST_ROWS rows, and a whole INGEST_BATCH in one slice): the
+    kernel on cold inputs (dev) and as a call, its plain version, the
+    host-to-device copy of the stream and the whole classify cell as the
+    pipeline calls it (upload, kernel, download). Returns the slice
+    group's stats."""
+    import torch
+
+    from pilosa_tpu_torch.ops import ingest, kernels
+
+    t_start = time.perf_counter()
+    err = 0
+    for name in CLASSIFY_CASES:
+        rowidx, pos, n_rows = classify_case(name)
+        r = torch.from_numpy(rowidx).to(DEVICE)
+        p = torch.from_numpy(pos).to(DEVICE)
+        got = kernels.ingest_classify(r, p, n_rows)
+        want = kernels.ingest_classify_plain(r, p, n_rows)
+        for g, w in zip(got, want):
+            check(g.device == r.device and torch.equal(g, w),
+                  f"ingest_classify {name} != plain")
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+    stats = {}
+    for label, nnz in (("slice group of (a)", INGEST_GROUP_BITS),
+                       ("a whole batch in one slice", INGEST_BATCH)):
+        rowidx, pos = classify_shape(nnz, INGEST_ROWS, nnz)
+        n = len(rowidx)
+        r = torch.from_numpy(rowidx).to(DEVICE)
+        p = torch.from_numpy(pos).to(DEVICE)
+        got = kernels.ingest_classify(r, p, INGEST_ROWS)
+        want = kernels.ingest_classify_plain(r, p, INGEST_ROWS)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"ingest_classify at {n} entries != plain")
+
+        def upload(rowidx=rowidx, pos=pos):
+            return (torch.from_numpy(rowidx).to(DEVICE),
+                    torch.from_numpy(pos).to(DEVICE))
+
+        bound, by, nbytes = classify_bound_ms(n, INGEST_ROWS)
+        st = stats[label] = {
+            "ms": timed_ms(lambda: kernels.ingest_classify(
+                r, p, INGEST_ROWS), reps=20),
+            "dev_ms": cold_ms(lambda x, y: kernels.ingest_classify(
+                x, y, INGEST_ROWS), r, p),
+            "plain_ms": timed_ms(lambda: kernels.ingest_classify_plain(
+                r, p, INGEST_ROWS), reps=3),
+            "h2d_ms": p50_ms(upload, 5)[0],
+            "cell_ms": p50_ms(lambda: ingest.classify_stats_device(
+                rowidx, pos, INGEST_ROWS, device=DEVICE), 5)[0],
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "max_abs_err": err}
+        print(f"ingest_classify, {label} ({n} entries over {INGEST_ROWS} "
+              f"rows): call {st['ms']:.4f} ms, dev {st['dev_ms']:.4f} ms, "
+              f"plain version {st['plain_ms']:.4f} ms; the stream's copy "
+              f"to the card {st['h2d_ms']:.3f} ms, the classify cell "
+              f"(copy, kernel, counts back) {st['cell_ms']:.3f} ms; "
+              f"{nbytes} bytes, bound {bound:.4f} ms ({by}), "
+              f"{bound / st['dev_ms']:.1%} of bound; library call: none "
+              f"(no one PyTorch call gives both counts and run starts) "
+              f"{card}")
+        del r, p, got, want
+    print(f"ingest_classify: {len(CLASSIFY_CASES)} cases exact "
+          f"({', '.join(CLASSIFY_CASES)}); max_abs_err {err}; "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return stats["slice group of (a)"]
 
 
 def cont_block(kind, device, rng):
@@ -3649,6 +3812,495 @@ def sparse_path(slices, seed, datadir, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+
+INGEST_CT = "application/x-pilosa-ingest"
+INGEST_ROWS = 1024            # benchmarks/ingest.py's wide shape
+INGEST_SLICES = 32            # columns uniform over 32 slices (not its 2)
+INGEST_BATCH = 8_000_000      # bits a request: [ingest] max-batch-bits
+INGEST_REQUESTS = 4           # 32,000,000 bits, 8 slices a request
+INGEST_GROUP_BITS = INGEST_BATCH * INGEST_REQUESTS // INGEST_SLICES
+INGEST_SEED_BITS = 30_000     # the benchmark's seed before its loaded run
+# reduced: requests of (a) under the Count client, 2 (16M bits), not 4.
+INGEST_LOAD_REQUESTS = 2
+INGEST_SPARSE_SLICES = 1024   # (b)
+# reduced: (c)'s slices, 256, not 1,024 (its values took 22.05 s there).
+INGEST_VALUE_SLICES = 256
+INGEST_VALUES = 1000          # (c): values a slice
+INGEST_TIME_BITS = 1_000_000  # (d): over 14 days of June 2017
+INGEST_TIME_SLICES = 32
+KEYED_PAIRS = 100_000         # (e): JSON /import
+KEYED_ROWS = 200              # (e): row keys ("term-<i>")
+KEYED_COLS = 50_000           # (e): column keys ("user-<j>")
+KEYED_CLI_LINES = 10_000
+INPUT_RECORDS = 10_000        # (f)
+INGEST_HOST_BYTES = 6 << 30   # the server's host-memory budget
+TS_JUNE = 1496275200          # 2017-06-01T00:00 UTC
+# docs/input-definition.md's definition, its frame options in the
+# FrameOptions keyword names both packages read (its camelCase example
+# answers 500 in pilosa_tpu and in the port alike).
+INPUT_DEF = {
+    "frames": [{"name": "event", "options": {"cache_type": "ranked"}}],
+    "fields": [
+        {"name": "user_id", "primaryKey": True, "actions": []},
+        {"name": "kind", "actions": [
+            {"frame": "event", "valueDestination": "mapping",
+             "valueMap": {"click": 0, "view": 1, "buy": 2}}]},
+        {"name": "active", "actions": [
+            {"frame": "event", "valueDestination": "single-row-boolean",
+             "rowID": 10}]},
+        {"name": "score", "actions": [
+            {"frame": "event", "valueDestination": "value-to-row"}]},
+    ],
+}
+
+
+def wide_batch(seed, k, n):
+    """Request k of (a): n (row, column) bits, rows uniform over
+    INGEST_ROWS, columns uniform over its run of slices."""
+    per = INGEST_SLICES // INGEST_REQUESTS * SLICE_COLS
+    rng = np.random.default_rng([seed, 11, k])
+    return (rng.integers(0, INGEST_ROWS, n, dtype=np.uint64),
+            rng.integers(k * per, (k + 1) * per, n, dtype=np.uint64))
+
+
+def topn_two_phase(c, n):
+    """Two-phase TopN over int64[S, R] per-(slice, row) counts of rows
+    0..R-1 (every non-empty row in its slice's cache): per-slice top n by
+    (-count, id), merge, exact totals of the merged rows, trim to n."""
+    c = np.where(c >= 1, c, 0)
+    rank = np.argsort(np.argsort(-c, axis=1, kind="stable"), axis=1)
+    cand = np.flatnonzero(np.where(rank < n, c, 0).sum(axis=0))
+    tot = c.sum(axis=0)
+    return sorted(((int(r), int(tot[r])) for r in cand if tot[r]),
+                  key=lambda rc: (-rc[1], rc[0]))[:n]
+
+
+def wide_oracle_part(seed, k, n):
+    """Worker: request k's (a request's own slices) per-row counts,
+    |row 1 ∩ row 2| and per-(row, slice) |row ∩ row 0|."""
+    r, c = wide_batch(seed, k, n)
+    keys = np.unique((r << np.uint64(25)) | c)
+    row = (keys >> np.uint64(25)).astype(np.int64)
+    col = (keys & np.uint64((1 << 25) - 1)).astype(np.int64)
+    of = {k: col[row == k] for k in (0, 1, 2)}
+    m = np.isin(col, of[0])
+    return (np.bincount(row, minlength=INGEST_ROWS),
+            len(np.intersect1d(of[1], of[2], assume_unique=True)),
+            np.bincount(row[m] * INGEST_SLICES + (col[m] >> 20),
+                        minlength=INGEST_ROWS * INGEST_SLICES))
+
+
+def wide_oracle(parts):
+    """(a)'s per-row counts, |row 1 ∩ row 2| and TopN(Bitmap(rowID=0),
+    n=10) from the parts of its requests (their slices are disjoint)."""
+    per_slice = sum(p[2] for p in parts)
+    return {"rows": sum(p[0] for p in parts),
+            "and12": sum(p[1] for p in parts),
+            "topn": topn_two_phase(
+                per_slice.reshape(INGEST_ROWS, INGEST_SLICES).T, 10)}
+
+
+def post_ingest(conn, index, body, ctype=INGEST_CT):
+    status, _, data = http_request(conn, "POST", f"/index/{index}/ingest",
+                                   body, {"Content-Type": ctype})
+    check(status == 200, f"ingest into {index}: {status} {data[:300]!r}")
+    return json.loads(data)
+
+
+def index_query(conn, index, pql):
+    return http_json(conn, "POST", f"/index/{index}/query",
+                     pql.encode())["results"]
+
+
+def count_loop(host, port, index, stop, out):
+    """Closed-loop Count(Intersect(row 1, row 2)) client on one keep-alive
+    connection until ``stop``; appends its answered count (or error)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    q = f"Count(Intersect({R1}, {R2}))".encode()
+    n = 0
+    try:
+        while not stop.is_set():
+            status, _, data = http_request(
+                conn, "POST", f"/index/{index}/query", q)
+            if status != 200:
+                out.append(f"{status} {data[:200]!r}")
+                return
+            n += 1
+        out.append(n)
+    finally:
+        conn.close()
+
+
+def wide_ingest(conn, index, batches):
+    """(a)'s requests in order; -> (seconds, the summaries)."""
+    http_json(conn, "POST", f"/index/{index}", b"{}")
+    http_json(conn, "POST", f"/index/{index}/frame/f", b"{}")
+    from pilosa_tpu_torch.ingest import codec
+
+    bodies = [codec.encode_bits("f", r, c) for r, c in batches]
+    t = time.perf_counter()
+    outs = [post_ingest(conn, index, b) for b in bodies]
+    return time.perf_counter() - t, outs
+
+
+def ingest_path(seed, datadir, card):
+    """Phase 11: bulk ingest through ``POST /index/{i}/ingest`` of a
+    ``Server`` on the card (host budget INGEST_HOST_BYTES), over one
+    keep-alive connection, then keyed import and an input definition;
+    every answer against numpy. (a) benchmarks/ingest.py's wide shape:
+    INGEST_REQUESTS binary requests of INGEST_BATCH bits over INGEST_ROWS
+    rows, columns uniform over INGEST_SLICES slices (about 977 bits a row
+    a slice: array containers), bits/s alone and, into a second index
+    seeded with INGEST_SEED_BITS bits, INGEST_LOAD_REQUESTS of them under
+    a closed-loop Count client, as the benchmark runs it; one JSON
+    request; containersSeeded, the
+    conversions (0), Counts, Count(Intersect) and TopN, and a pinned
+    serial Count over the seeded containers. (b) count100b's sparse shape
+    over INGEST_SPARSE_SLICES slices in one request: rows 1 and 2 of 500
+    and 300 spread bits a slice, row 3 one 2,000-bit run; the first
+    query's seconds and route, Intersect(1, 2) and Intersect(1, 3). (c) a
+    BSI values batch, INGEST_VALUES a slice over INGEST_VALUE_SLICES
+    slices, into field v (0..1,000): Sum and Max. (d) INGEST_TIME_BITS timestamped
+    bits into a YMD frame over 14 days and INGEST_TIME_SLICES slices:
+    Count(Range) over 14 days and over 1. (e) KEYED_PAIRS keyed pairs
+    through JSON /import, ``cli import -k`` of KEYED_CLI_LINES lines,
+    counts by translated ids, and the same ids after the server reopens
+    the directory. (f) docs/input-definition.md's definition and
+    INPUT_RECORDS records through /input. Every classify pass launches
+    ingest_classify on the card; the fragments' host bytes end within
+    the budget. Returns the launches of the run.
+
+    reduced: (a) under the Count client, 2 requests (16M bits), not 4;
+    (c), 256 slices, not 1,024: the whole script took 1,162.7 s of its
+    1,200 s limit on a slower H100 host with both uncut (PERF.md §4)."""
+    import http.client
+    import threading
+    from datetime import datetime
+
+    from pilosa_tpu_torch.ingest import codec
+    from pilosa_tpu_torch.ops import containers, kernels
+    from pilosa_tpu_torch.server.server import Server
+
+    t_phase = time.perf_counter()
+    server = Server(datadir, bind="127.0.0.1:0", device=DEVICE,
+                    host_bytes=INGEST_HOST_BYTES).open()
+    host, port = server.host.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    kernels.reset_launches()
+    conv0 = containers.conversions_total()
+
+    # (a) the wide shape, alone.
+    # The oracle runs in worker processes while the server ingests.
+    pool = multiprocessing.get_context("spawn").Pool(INGEST_REQUESTS)
+    try:
+        parts = pool.starmap_async(wide_oracle_part, [
+            (seed, k, INGEST_BATCH) for k in range(INGEST_REQUESTS)])
+        t = time.perf_counter()
+        batches = [wide_batch(seed, k, INGEST_BATCH)
+                   for k in range(INGEST_REQUESTS)]
+        gen_s = time.perf_counter() - t
+        n_bits = INGEST_BATCH * INGEST_REQUESTS
+        alone_s, outs = wide_ingest(conn, "wa", batches)
+        t = time.perf_counter()
+        parts = parts.get(timeout=600)
+        want = wide_oracle(parts)
+        oracle_s = time.perf_counter() - t
+    finally:
+        pool.terminate()
+        pool.join()
+    check(all(o == {"accepted": INGEST_BATCH,
+                    "slices": INGEST_SLICES // INGEST_REQUESTS}
+              for o in outs), f"(a) ingest summaries {outs}")
+    jrow, jcol = 5, [7, 8, 2**21]  # one JSON request, row 5 (new bits)
+    got = post_ingest(conn, "wa", json.dumps(
+        {"frame": "f", "rows": [jrow] * 3, "columns": jcol}).encode(),
+        "application/json")
+    check(got == {"accepted": 3, "slices": 2}, f"(a) JSON ingest {got}")
+    added = len({c for c in jcol} - set(
+        batches[0][1][batches[0][0] == jrow].tolist()))
+    want["rows"][jrow] += added
+    vars_ = http_json(conn, "GET", "/debug/vars")["ingest"]
+    t = time.perf_counter()
+    rows_q = [0, 1, 2, jrow, INGEST_ROWS - 1]
+    got = index_query(conn, "wa", " ".join(
+        f"Count({ROW.format(r)})" for r in rows_q))
+    first_s = time.perf_counter() - t
+    check(got == [int(want["rows"][r]) for r in rows_q],
+          f"(a) counts {got} != {[int(want['rows'][r]) for r in rows_q]}")
+    q12 = f"Count(Intersect({R1}, {R2}))"
+    route = count_route(server.executor, "wa", q12, range(INGEST_SLICES))
+    got = index_query(conn, "wa", q12)[0]
+    check(got == want["and12"], f"(a) {q12}: {got} != {want['and12']}")
+    t = time.perf_counter()
+    got = index_query(conn, "wa", f'TopN({R0}, frame="f", n=10)')[0]
+    topn_s = time.perf_counter() - t
+    got = [(p["id"], p["count"]) for p in got]
+    check(got == want["topn"], f"(a) TopN {got} != {want['topn']}")
+    server.executor._force_path = "serial"
+    try:
+        t = time.perf_counter()
+        got = server.executor.execute("wa", q12)[0]
+        serial_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        server.executor._force_path = None
+    check(got == want["and12"], f"(a) serial {q12}: {got}")
+    conv = containers.conversions_total() - conv0
+    check(conv == 0, f"(a) {conv} container conversions after ingest")
+    check(vars_["containersSeeded"]["array"] >= INGEST_ROWS * INGEST_SLICES,
+          f"(a) seeded {vars_['containersSeeded']}")
+    print(f"ingest (a) {card}: {n_bits} bits ({INGEST_REQUESTS} binary "
+          f"requests of {INGEST_BATCH}, {INGEST_ROWS} rows x "
+          f"{INGEST_SLICES} slices) in {alone_s:.2f} s alone: "
+          f"{n_bits / alone_s:.0f} bits/s (report only; made in "
+          f"{gen_s:.1f} s; the oracle's workers done {oracle_s:.1f} s "
+          f"after it); containersSeeded "
+          f"{vars_['containersSeeded']}, conversions {conv}; first Counts "
+          f"{first_s:.2f} s; {q12} route {route}; TopN n=10 {topn_s:.2f} s;"
+          f" pinned serial {q12} over the seeded containers "
+          f"{serial_ms:.1f} ms; every answer equal to numpy")
+
+    # (a) under a closed-loop Count client on the index being written.
+    http_json(conn, "POST", "/index/wl", b"{}")
+    http_json(conn, "POST", "/index/wl/frame/f", b"{}")
+    r0, c0 = batches[0]
+    post_ingest(conn, "wl", codec.encode_bits(
+        "f", r0[:INGEST_SEED_BITS], c0[:INGEST_SEED_BITS]))
+    stop, done = threading.Event(), []
+    client = threading.Thread(target=count_loop, args=(
+        host, int(port), "wl", stop, done), daemon=True)
+    bodies = [codec.encode_bits("f", r, c)
+              for r, c in batches[:INGEST_LOAD_REQUESTS]]
+    client.start()
+    t = time.perf_counter()
+    for body in bodies:
+        post_ingest(conn, "wl", body)
+    load_s = time.perf_counter() - t
+    stop.set()
+    client.join(timeout=600)
+    check(len(done) == 1 and isinstance(done[0], int),
+          f"(a) the Count client: {done}")
+    del bodies
+    got = index_query(conn, "wl", q12)[0]
+    w = wide_oracle(parts[:INGEST_LOAD_REQUESTS])["and12"]
+    check(got == w, f"(a) under load {q12}: {got} != {w}")
+    n_load = INGEST_BATCH * INGEST_LOAD_REQUESTS
+    print(f"ingest (a) under load {card}: {n_load} bits in {load_s:.2f} s: "
+          f"{n_load / load_s:.0f} bits/s against {done[0] / load_s:.1f} "
+          f"Count(Intersect) q/s of one closed-loop client (report only); "
+          f"{q12} after it equal to numpy")
+    del batches
+
+    # (b) count100b's sparse shape in one request.
+    t = time.perf_counter()
+    s_n = INGEST_SPARSE_SLICES
+    rng = np.random.default_rng([seed, 12])
+    base = (np.arange(s_n, dtype=np.int64) * SLICE_COLS)[:, None]
+    sparse = {1: (base + rng.integers(0, SLICE_COLS, (s_n, 500))).ravel(),
+              2: (base + rng.integers(0, SLICE_COLS, (s_n, 300))).ravel(),
+              3: (base + rng.integers(0, SLICE_COLS - 2000, (s_n, 1))
+                  + np.arange(2000)).ravel()}
+    rows = np.concatenate([np.full(len(c), r) for r, c in sparse.items()])
+    cols = np.concatenate(list(sparse.values()))
+    uniq = {r: np.unique(c) for r, c in sparse.items()}
+    http_json(conn, "POST", "/index/sp", b"{}")
+    http_json(conn, "POST", "/index/sp/frame/f", b"{}")
+    t_in = time.perf_counter()
+    got = post_ingest(conn, "sp", codec.encode_bits("f", rows, cols))
+    in_s = time.perf_counter() - t_in
+    check(got == {"accepted": len(rows), "slices": s_n}, f"(b) {got}")
+    answers = []
+    for a, b in ((1, 2), (1, 3)):
+        q = f"Count(Intersect({ROW.format(a)}, {ROW.format(b)}))"
+        route_b = count_route(server.executor, "sp", q, range(s_n))
+        tq = time.perf_counter()
+        got = index_query(conn, "sp", q)[0]
+        answers.append((q, route_b, time.perf_counter() - tq))
+        w = len(np.intersect1d(uniq[a], uniq[b], assume_unique=True))
+        check(got == w, f"(b) {q}: {got} != {w}")
+    print(f"ingest (b) {card}: {len(rows)} bits over {s_n} slices in one "
+          f"request in {in_s:.2f} s ({len(rows) / in_s:.0f} bits/s); "
+          + "; ".join(f"{q} route {r}, first {s:.2f} s"
+                      for q, r, s in answers)
+          + f"; equal to numpy; (b) {time.perf_counter() - t:.1f} s")
+
+    # (c) a BSI values batch.
+    t = time.perf_counter()
+    s_n = INGEST_VALUE_SLICES
+    vcols = (base[:s_n] + np.arange(INGEST_VALUES) * 1031
+             + rng.integers(0, 1031, (s_n, INGEST_VALUES))).ravel()
+    vals = rng.integers(0, 1001, len(vcols))
+    http_json(conn, "POST", "/index/sp/frame/b", json.dumps(
+        {"options": {"rangeEnabled": True, "fields": [
+            {"name": "v", "type": "int", "min": 0, "max": 1000}]}}).encode())
+    got = post_ingest(conn, "sp", codec.encode_values("b", "v", vcols,
+                                                      vals))
+    in_s = time.perf_counter() - t
+    check(got == {"accepted": len(vcols), "slices": s_n}, f"(c) {got}")
+    tq = time.perf_counter()
+    got = index_query(conn, "sp", 'Sum(frame="b", field="v") '
+                                  'Max(frame="b", field="v")')
+    sum_s = time.perf_counter() - tq
+    top = int(vals.max())
+    w = [{"sum": int(vals.sum()), "count": len(vals)},
+         {"sum": top, "count": int((vals == top).sum())}]
+    check(got == w, f"(c) Sum, Max {got} != {w}")
+    print(f"ingest (c) {card}: {len(vcols)} values over {s_n} slices in "
+          f"{in_s:.2f} s; first Sum and Max {sum_s:.2f} s; equal to numpy")
+
+    # (d) timestamped bits into a YMD frame.
+    t = time.perf_counter()
+    rng = np.random.default_rng([seed, 13])
+    n = INGEST_TIME_BITS
+    trow = rng.integers(0, 4, n)
+    tcol = rng.integers(0, INGEST_TIME_SLICES * SLICE_COLS, n)
+    hours = rng.integers(0, 14 * 24, n)
+    ts = TS_JUNE + hours * 3600
+    # The server names a bit's views by its local time, as here.
+    uh, inv = np.unique(hours, return_inverse=True)
+    local = [datetime.fromtimestamp(TS_JUNE + int(h) * 3600) for h in uh]
+    june = np.array([d.year == 2017 and d.month == 6 for d in local])[inv]
+    day = np.array([d.day for d in local])[inv]
+    http_json(conn, "POST", "/index/ev", b"{}")
+    http_json(conn, "POST", "/index/ev/frame/clicks", json.dumps(
+        {"options": {"timeQuantum": "YMD"}}).encode())
+    got = post_ingest(conn, "ev", codec.encode_bits("clicks", trow, tcol,
+                                                    ts))
+    in_s = time.perf_counter() - t
+    check(got["accepted"] == n, f"(d) {got}")
+    for label, lo, hi in (("14 days", 1, 15), ("1 day", 5, 6)):
+        start, end = f"2017-06-{lo:02d}T00:00", f"2017-06-{hi:02d}T00:00"
+        for r in (0, 3):
+            keep = (trow == r) & june & (day >= lo) & (day < hi)
+            w = len(np.unique(tcol[keep]))
+            got = index_query(conn, "ev", (
+                f'Count(Range(frame="clicks", rowID={r}, start="{start}", '
+                f'end="{end}"))'))[0]
+            check(got == w, f"(d) {label} row {r}: {got} != {w}")
+    print(f"ingest (d) {card}: {n} timestamped bits (YMD, 14 days, "
+          f"{INGEST_TIME_SLICES} slices) in {in_s:.2f} s; Count(Range) over "
+          f"14 days and 1 day equal to numpy; "
+          f"{time.perf_counter() - t:.1f} s")
+    vars_ = http_json(conn, "GET", "/debug/vars")["ingest"]
+    launched = kernels.launches["ingest_classify"]
+    check(DEVICE != "cuda" or launched == vars_["packPassesTotal"] > 0,
+          f"ingest_classify launched {launched} times for "
+          f"{vars_['packPassesTotal']} classify passes")
+    resident = server.holder.governor.resident_bytes()
+    check(resident <= INGEST_HOST_BYTES,
+          f"resident host bytes {resident} over {INGEST_HOST_BYTES}")
+
+    # (e) keyed import: JSON /import, then cli import -k.
+    t = time.perf_counter()
+    rng = np.random.default_rng([seed, 14])
+    rk = [f"term-{i}" for i in rng.integers(0, KEYED_ROWS, KEYED_PAIRS)]
+    ck = [f"user-{j}" for j in rng.integers(0, KEYED_COLS, KEYED_PAIRS)]
+    http_json(conn, "POST", "/index/keyed", b"{}")
+    http_json(conn, "POST", "/index/keyed/frame/k", b"{}")
+    http_json(conn, "POST", "/import", json.dumps(
+        {"index": "keyed", "frame": "k", "rowKeys": rk,
+         "columnKeys": ck}).encode())
+    json_s = time.perf_counter() - t
+    crk = [f"term-{i}" for i in rng.integers(0, KEYED_ROWS + 20,
+                                              KEYED_CLI_LINES)]
+    cck = [f"user-{j}" for j in rng.integers(0, 2 * KEYED_COLS,
+                                              KEYED_CLI_LINES)]
+    csv_path = os.path.join(datadir, ".keyed.csv")  # not an index
+    with open(csv_path, "w") as fh:
+        fh.write("".join(f"{a},{b}\n" for a, b in zip(crk, cck)))
+    t_cli = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "import", "--host",
+         server.host, "-i", "keyed", "-f", "k", "-k", csv_path], cwd=HERE,
+        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t_cli
+    check(out.returncode == 0 and out.stdout.strip()
+          == f"imported {KEYED_CLI_LINES} keyed bits",
+          f"cli import -k: {out.returncode} {out.stdout} {out.stderr}")
+    row_id = {k: i for i, k in enumerate(dict.fromkeys(rk + crk))}
+    col_id = {k: i for i, k in enumerate(dict.fromkeys(ck + cck))}
+    bits = {(row_id[a], col_id[b]) for a, b in zip(rk + crk, ck + cck)}
+    per_row = np.bincount([r for r, _ in bits], minlength=len(row_id))
+    counts_q = " ".join(f'Count(Bitmap(frame="k", rowID={i}))'
+                        for i in range(len(row_id)))
+    got = index_query(conn, "keyed", counts_q)
+    check(got == per_row.tolist(), "(e) keyed counts != numpy")
+    # The directory reopened: the same keys are the same ids.
+    vars_b = http_json(conn, "GET", "/debug/vars")["ingest"]
+    conn.close()
+    server.close()
+    t_re = time.perf_counter()
+    server = Server(datadir, bind="127.0.0.1:0", device=DEVICE,
+                    host_bytes=INGEST_HOST_BYTES).open()
+    reopen_s = time.perf_counter() - t_re
+    host, port = server.host.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    late_r = [f"term-{i}" for i in range(10)]
+    late_c = [f"late-{i}" for i in range(10)]
+    http_json(conn, "POST", "/import", json.dumps(
+        {"index": "keyed", "frame": "k", "rowKeys": late_r,
+         "columnKeys": late_c}).encode())
+    for k in late_r:
+        per_row[row_id[k]] += 1
+    got = index_query(conn, "keyed", counts_q)
+    check(got == per_row.tolist(), "(e) keyed counts after reopen")
+    print(f"ingest (e) {card}: {KEYED_PAIRS} keyed pairs by JSON /import "
+          f"in {json_s:.2f} s; cli import -k of {KEYED_CLI_LINES} lines "
+          f"{cli_s:.2f} s; {len(row_id)} rows' counts by translated ids "
+          f"equal to numpy, again after a reopen ({reopen_s:.2f} s) and a "
+          f"keyed import of known row keys")
+
+    # (f) docs/input-definition.md's definition and INPUT_RECORDS records.
+    t = time.perf_counter()
+    rng = np.random.default_rng([seed, 15])
+    kinds = ("click", "view", "buy")
+    users = rng.integers(0, 4 * SLICE_COLS, INPUT_RECORDS)
+    kind = rng.integers(0, 3, INPUT_RECORDS)
+    active = rng.integers(0, 2, INPUT_RECORDS).astype(bool)
+    score = rng.integers(20, 40, INPUT_RECORDS)
+    records = [{"user_id": int(u), "kind": kinds[k], "active": bool(a),
+                "score": int(s)}
+               for u, k, a, s in zip(users, kind, active, score)]
+    http_json(conn, "POST", "/index/users", json.dumps(
+        {"options": {"columnLabel": "user_id"}}).encode())
+    http_json(conn, "POST", "/index/users/input-definition/events",
+              json.dumps(INPUT_DEF).encode())
+    got = http_json(conn, "GET", "/index/users/input-definition/events")
+    check(got["frames"] == INPUT_DEF["frames"], f"(f) definition {got}")
+    http_json(conn, "POST", "/index/users/input/events",
+              json.dumps(records).encode())
+    want_rows = {r: set() for r in (0, 1, 2, 10, *range(20, 40))}
+    for u, k, a, s in zip(users.tolist(), kind.tolist(), active.tolist(),
+                          score.tolist()):
+        want_rows[k].add(u)
+        want_rows[s].add(u)
+        if a:
+            want_rows[10].add(u)
+    got = index_query(conn, "users", " ".join(
+        f'Count(Bitmap(frame="event", rowID={r}))' for r in want_rows))
+    check(got == [len(v) for v in want_rows.values()],
+          f"(f) counts {got}")
+    print(f"ingest (f) {card}: {INPUT_RECORDS} records through "
+          f"docs/input-definition.md's definition in "
+          f"{time.perf_counter() - t:.2f} s; {len(want_rows)} rows' counts "
+          f"equal to numpy")
+    resident = server.holder.governor.resident_bytes()
+    check(resident <= INGEST_HOST_BYTES,
+          f"resident host bytes {resident} over {INGEST_HOST_BYTES}")
+    conn.close()
+    server.close()
+    launches = launch_counts()
+    check(DEVICE != "cuda" or launches["ingest_classify"] > 0,
+          f"ingest_classify never launched in phase 11: {launches}")
+    print(f"ingest {card}: /debug/vars ingest {json.dumps(vars_b)}; "
+          f"ingest_classify launches {launches['ingest_classify']}; host "
+          f"bytes {resident} within {INGEST_HOST_BYTES}; phase 11 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slices", type=int, default=MAIN_SLICES,
@@ -3660,7 +4312,7 @@ def main():
                     help="phase 10's slices (a measurement option)")
     ap.add_argument("--only", default="",
                     help="comma-separated phases of 4, 4g, 5, 6, 8a, 8b, "
-                         "7, 9 and 10 to run, without phase 3 and the "
+                         "7, 9, 10 and 11 to run, without phase 3 and the "
                          "result lines (a measurement option)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
@@ -3705,12 +4357,14 @@ def main():
     stats = None if only else kernel_checks(args.slices, card)
     if stats is not None:
         stats["container_and_counts"] = container_checks(card)
+        stats["ingest_classify"] = ingest_checks(card)
 
-    # Phases 4-9: the main path, Count and bitmap results (then under a
+    # Phases 4-11: the main path, Count and bitmap results (then under a
     # host budget), TopN, BSI, the HTTP server over their data directory
-    # and the CLI, then time windows and the chemical-similarity shape,
-    # each read with the launch counts reset just before it. Phases 7
-    # and 9 have data directories of their own.
+    # and the CLI, then time windows, the chemical-similarity shape, the
+    # sparse index and bulk ingest, each read with the launch counts
+    # reset just before it. Phases 7, 9, 10 and 11 have data
+    # directories of their own.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
     oracle = {}
@@ -3755,13 +4409,15 @@ def main():
         shutil.rmtree(datadir, ignore_errors=True)
         phase("10", "10", sparse_path, min(args.sparse_slices, args.slices),
               args.seed, datadir, card)
+        shutil.rmtree(datadir, ignore_errors=True)
+        phase("11", "11", ingest_path, args.seed, datadir, card)
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
     if phase_launches:
         total = phase_launches[0]
         for counts in phase_launches[1:]:
             total = add_counts(total, counts)
-        print(f"launches by regime, phases {sorted(only) if only else '4-10'}"
+        print(f"launches by regime, phases {sorted(only) if only else '4-11'}"
               f" (8b's subprocess not counted): "
               f"{json.dumps(total['regimes'])}; container_and_counts by "
               f"form {json.dumps(total['container_forms'])} {card}")
@@ -3777,7 +4433,8 @@ def main():
                "count_op_pairs": "pilosa_tpu_torch/csrc/popcount.cu",
                "count_and_rows_multi":
                    "pilosa_tpu_torch/csrc/count_and_rows.cu",
-               "container_and_counts": "pilosa_tpu_torch/csrc/containers.cu"}
+               "container_and_counts": "pilosa_tpu_torch/csrc/containers.cu",
+               "ingest_classify": "pilosa_tpu_torch/csrc/ingest.cu"}
     replaces = {"count_op_rows": "pilosa_tpu/ops/pallas_kernels.py:126",
                 "count_rows": "pilosa_tpu/ops/pallas_kernels.py:195",
                 "count_and_rows": "pilosa_tpu/ops/pallas_kernels.py:173",
@@ -3785,7 +4442,9 @@ def main():
                 "count_op_pairs": "pilosa_tpu/executor.py:3552",
                 "count_and_rows_multi": "pilosa_tpu/executor.py:3520",
                 # XLA count cells of the container tier and their lanes
-                "container_and_counts": "pilosa_tpu/ops/containers.py:395"}
+                "container_and_counts": "pilosa_tpu/ops/containers.py:395",
+                # the XLA classify fusion of the bulk-ingest pipeline
+                "ingest_classify": "pilosa_tpu/ops/ingest.py:136"}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all {card}")
     print(f"gpu: {smi}")
     print(json.dumps({"kernels": [

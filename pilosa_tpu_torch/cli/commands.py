@@ -1,5 +1,6 @@
 """CLI command implementations (ref: ctl/; counterpart of
-pilosa_tpu/cli/commands.py for ``server``, ``import`` and ``export``).
+pilosa_tpu/cli/commands.py for ``server``, ``import`` (with ``-k``) and
+``export``).
 
 Each command takes an argv list and writes to stdout, so tests drive it
 directly.
@@ -73,16 +74,73 @@ def _read_csv(path):
     return np.asarray(recs, dtype=np.int64).reshape(-1, 3)
 
 
+def _parse_ts(raw):
+    """A keyed line's timestamp: epoch seconds or the PQL time format
+    (%Y-%m-%dT%H:%M; ref: pilosa_tpu cli/commands.py _parse_ts)."""
+    try:
+        return int(raw)
+    except ValueError:
+        from datetime import datetime
+
+        try:
+            return int(datetime.strptime(raw, "%Y-%m-%dT%H:%M").timestamp())
+        except ValueError:
+            raise SystemExit(
+                f"error: bad timestamp {raw!r}: expected epoch seconds "
+                "or YYYY-MM-DDTHH:MM") from None
+
+
+def _import_keyed(client, opts):
+    """``rowKey,columnKey[,timestamp]`` lines, posted in batches of about
+    ``--buffer-size`` bytes (40 a line) to one node, which translates the
+    keys (ref: pilosa_tpu cli/commands.py:164-206)."""
+    batch = max(1, opts.buffer_size // 40)
+    n = 0
+    row_keys, col_keys, tss = [], [], []
+
+    def flush():
+        nonlocal n
+        if row_keys:
+            client.import_k(opts.host, opts.index, opts.frame, row_keys,
+                            col_keys, tss if any(tss) else None)
+            n += len(row_keys)
+            row_keys.clear()
+            col_keys.clear()
+            tss.clear()
+
+    for path in opts.paths:
+        fh = sys.stdin if path == "-" else open(path, newline="")
+        try:
+            for rec in csv.reader(fh):
+                if len(rec) >= 2:
+                    row_keys.append(rec[0])
+                    col_keys.append(rec[1])
+                    tss.append(_parse_ts(rec[2])
+                               if len(rec) >= 3 and rec[2] else 0)
+                    if len(row_keys) >= batch:
+                        flush()
+        finally:
+            if fh is not sys.stdin:
+                fh.close()
+    flush()
+    return n
+
+
 def cmd_import(args):
     """CSV import: ``row,col[,timestamp]`` lines (epoch seconds), or
     ``col,value`` lines into the BSI field ``--field``, posted one slice
-    per request (ref: ctl/import.go:33-252)."""
+    per request; with ``-k``, ``rowKey,columnKey[,timestamp]`` lines of
+    string keys (ref: ctl/import.go:33-252)."""
     p = argparse.ArgumentParser(prog="import")
     p.add_argument("--host", default=DEFAULT_HOST)
     p.add_argument("-i", "--index", required=True)
     p.add_argument("-f", "--frame", required=True)
     p.add_argument("-e", "--field", default=None,
                    help="import into a BSI field (col,value rows)")
+    p.add_argument("-k", "--keys", action="store_true",
+                   help="rows of rowKey,columnKey strings, translated to "
+                        "ids by the server")
+    p.add_argument("--buffer-size", type=int, default=10_000_000)
     p.add_argument("paths", nargs="+")
     opts = p.parse_args(args)
 
@@ -91,6 +149,13 @@ def cmd_import(args):
         client.ensure_index(opts.host, opts.index)
         client.ensure_frame(opts.host, opts.index, opts.frame,
                             {"rangeEnabled": True} if opts.field else {})
+        if opts.keys:
+            if opts.field:
+                print("error: -k and -e are mutually exclusive "
+                      "(keyed BSI import is not supported)", file=sys.stderr)
+                return 1
+            print(f"imported {_import_keyed(client, opts)} keyed bits")
+            return 0
         rows = np.concatenate([_read_csv(path) for path in opts.paths])
 
         # One stable argsort on the owning slice, then a request per run.

@@ -132,6 +132,15 @@ class InternalClient:
         self._post_pb(node, "/import", wireproto.encode_import_request(
             index, frame, slice_num, row_ids, column_ids, timestamps))
 
+    def import_k(self, node, index, frame, row_keys, column_keys,
+                 timestamps=None):
+        """Keyed import: string keys, translated by the server (ref:
+        ImportK client.go:307-330); one request to one node, since a
+        key's slice is unknown before its translation."""
+        self._post_pb(node, "/import", wireproto.encode_import_request(
+            index, frame, 0, [], [], timestamps, row_keys=row_keys,
+            column_keys=column_keys))
+
     def import_values(self, node, index, frame, slice_num, field,
                       column_ids, values):
         self._post_pb(node, "/import-value",

@@ -48,6 +48,18 @@ ErrLabel = _err("invalid row or column label, must match [A-Za-z0-9_-]")
 ErrFragmentNotFound = _err("fragment not found")
 ErrFragmentLocked = _err("fragment file locked by another process")
 
+ErrInputDefinitionExists = _err("input-definition already exists")
+ErrInputDefinitionNotFound = _err("input-definition not found")
+ErrInputDefinitionHasPrimaryKey = _err(
+    "input-definition must contain one PrimaryKey")
+ErrInputDefinitionDupePrimaryKey = _err(
+    "input-definition can only contain one PrimaryKey")
+ErrInputDefinitionColumnLabel = _err(
+    "PrimaryKey field name does not match columnLabel")
+ErrInputDefinitionNameRequired = _err("input-definition name required")
+ErrInputDefinitionAttrsRequired = _err("frames and fields are required")
+ErrInputDefinitionValueMap = _err("valueMap required for map")
+
 
 class ErrFragmentFailStop(PilosaError):
     """A storage fault (ENOSPC/EIO mid-append or mid-snapshot)

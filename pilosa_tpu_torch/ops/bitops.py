@@ -163,3 +163,25 @@ def dispatch_pair(op, a, b):
     """a OP b as dense words: compressed operands densify first (results
     feed dense Bitmap segments)."""
     return PAIR_OPS[op](densify(a), densify(b))
+
+
+# ---------------------------------------------------------------------------
+# Ingest registry (ref: pilosa_tpu ops/bitops.py:528-540): the bulk-ingest
+# pipeline (ingest/pipeline.py) resolves its classify pass and its
+# per-format container builders through named cells, and ops/ingest.py
+# registers them at import: ``classify`` (with ``classify.host`` and
+# ``classify.device``), ``pack_classify`` and ``build.<fmt>``.
+# ---------------------------------------------------------------------------
+
+_INGEST_KERNELS = {}
+
+
+def register_ingest_kernel(name, fn):
+    """Install one ingest cell; the last registration wins (tests swap in
+    probes)."""
+    _INGEST_KERNELS[name] = fn
+
+
+def ingest_kernel(name):
+    """The registered ingest cell, or None."""
+    return _INGEST_KERNELS.get(name)

@@ -26,6 +26,9 @@ and its design:
   a member table (the lane table); replaces the count cells of the
   compressed container tier and their lane twins
   (``csrc/containers.cu``).
+- :func:`ingest_classify` — per-row cardinality and run starts of a
+  sorted (row, position) stream; replaces the bulk-ingest pipeline's XLA
+  classify fusion (``csrc/ingest.cu``).
 
 Words are ``int32`` views of the 32-bit device words, shape
 ``[..., W]``; results are ``int32[...]``. A wrapper takes the plain
@@ -56,7 +59,7 @@ MAX_WIDTH = (1 << 26) - 1
 
 launches = {"count_op_rows": 0, "count_rows": 0, "count_and_rows": 0,
             "count_op_pairs": 0, "count_and_rows_multi": 0,
-            "container_and_counts": 0}
+            "container_and_counts": 0, "ingest_classify": 0}
 # The kernels' regime codes (REGIME_* in the CUDA sources), by value.
 REGIMES = ("full", "narrow", "split")
 regime_launches = {name: dict.fromkeys(REGIMES, 0)
@@ -78,6 +81,7 @@ _car_strided_fn = None
 _pairs_fn = None
 _multi_fn = None
 _cont_fn = None
+_ingest_fn = None
 
 
 def reset_launches():
@@ -889,3 +893,72 @@ def container_and_counts(cell, a, b, members=None):
             host = table.cpu().numpy()
         _launch_split(cell, sides_a, sides_b, host, width, out)
     return out
+
+
+# ------------------------------------------------------------------ ingest
+
+def ingest_classify_plain(rowidx, positions, n_rows):
+    """Plain version of :func:`ingest_classify`: two bincounts and one
+    adjacency compare (pilosa_tpu ops/ingest.py classify_stats_host)."""
+    rows = rowidx.long()
+    counts = torch.bincount(rows, minlength=n_rows)[:n_rows]
+    start = torch.ones(len(rows), dtype=torch.bool, device=rows.device)
+    if len(rows) > 1:
+        start[1:] = ~((rows[1:] == rows[:-1])
+                      & (positions[1:] == positions[:-1] + 1))
+    runs = torch.bincount(rows[start], minlength=n_rows)[:n_rows]
+    return counts.to(torch.int32), runs.to(torch.int32)
+
+
+def _ingest_kernel():
+    global _ingest_fn
+    if _ingest_fn is None:
+        lib = loader.library("ingest")
+        fn = lib.pilosa_ingest_classify
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.pilosa_ingest_error_string.argtypes = [ctypes.c_int]
+        lib.pilosa_ingest_error_string.restype = ctypes.c_char_p
+        _ingest_fn = (fn, lib.pilosa_ingest_error_string)
+    return _ingest_fn
+
+
+def ingest_classify(rowidx, positions, n_rows):
+    """Per-row (counts, run starts), int32[n_rows] each, of a stream
+    sorted by (row, position) and deduplicated: ``rowidx`` int32[nnz] in
+    0..n_rows-1, ``positions`` int32[nnz]. An entry starts a run when it
+    is its row's first or its position is not the previous one plus
+    one."""
+    name = "ingest_classify"
+    for t in (rowidx, positions):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name}: rowidx and positions must be int32 "
+                            f"[nnz], got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if rowidx.shape != positions.shape or rowidx.device != positions.device:
+        raise ValueError(f"{name}: rowidx {tuple(rowidx.shape)} on "
+                         f"{rowidx.device}, positions "
+                         f"{tuple(positions.shape)} on {positions.device}")
+    n_rows = int(n_rows)
+    if n_rows < 0 or n_rows >= 1 << 31:
+        raise ValueError(f"{name}: n_rows {n_rows} out of range")
+    dev = rowidx.device
+    if dev.type == "cpu":
+        return ingest_classify_plain(rowidx, positions, n_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    both = torch.zeros(2, n_rows, dtype=torch.int32, device=dev)
+    if len(rowidx) and n_rows:
+        fn, err_str = _ingest_kernel()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(rowidx.data_ptr(), positions.data_ptr(), len(rowidx),
+                    n_rows, both[0].data_ptr(), both[1].data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
+                               f"{rc} ({err_str(rc).decode()})")
+        _count_launch(name)
+    return both[0], both[1]

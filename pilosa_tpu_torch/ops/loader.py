@@ -23,7 +23,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # name -> source file under csrc/
 SOURCES = {"popcount": "popcount.cu",
            "count_and_rows": "count_and_rows.cu",
-           "containers": "containers.cu"}
+           "containers": "containers.cu",
+           "ingest": "ingest.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

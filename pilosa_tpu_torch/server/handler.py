@@ -15,8 +15,15 @@ errors become JSON ``{"error": ...}`` bodies with their status.
 bytes of an identical read query while its index's epoch stands
 (``respcache.py``); it stays off when the executor's result memos are
 off, and ``PILOSA_TPU_RESPONSE_CACHE=0`` turns it off alone.
-``GET /debug/vars`` serves the coalescer's, the plan cache's and the
-response cache's counters.
+``GET /debug/vars`` serves the coalescer's, the plan cache's, the
+response cache's and the ingest pipeline's counters.
+
+Writes: ``/import`` (by ids, or by string keys translated through the
+frame's and the index's key stores), ``/import-value``, the bulk-ingest
+route ``POST /index/{i}/ingest`` (binary columnar or JSON bodies through
+``ingest/pipeline.py``; its body may exceed the request cap, up to a
+2 GiB ceiling) and ``POST /index/{i}/input/{def}`` through a stored
+input definition.
 """
 import io
 import json
@@ -35,6 +42,8 @@ from pilosa_tpu_torch import SLICE_WIDTH, __version__
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.executor import ExecOptions, SumCount
+from pilosa_tpu_torch.ingest import codec as ingest_codec
+from pilosa_tpu_torch.ingest.pipeline import IngestError
 from pilosa_tpu_torch.pql.parser import ParseError
 from pilosa_tpu_torch.server import wireproto
 from pilosa_tpu_torch.server.respcache import ResponseCache
@@ -43,6 +52,10 @@ from pilosa_tpu_torch.storage.frame import Field, FrameOptions
 # Request bodies above this many bytes are refused with 413 before any
 # of their bytes is read (pilosa_tpu's config.DEFAULT_MAX_BODY_SIZE).
 DEFAULT_MAX_BODY_SIZE = 8 << 20
+# The bulk-ingest route's body cap instead: a ceiling far above any
+# configured batch bound (max-batch-bits answers 413 first in practice).
+INGEST_HARD_CAP = 2 << 30
+_INGEST_PATH = re.compile(r"^/index/[^/]+/ingest$")
 
 PROTOBUF = wireproto.CONTENT_TYPE
 
@@ -79,11 +92,13 @@ class Handler:
     ``(status, content_type, payload)``."""
 
     def __init__(self, holder, executor, local_host=None,
-                 version=__version__):
+                 version=__version__, ingest=None):
         self.holder = holder
         self.executor = executor
         self.local_host = local_host
         self.version = version
+        # The bulk-ingest pipeline; None: the ingest route answers 501.
+        self.ingest = ingest
         self._resp_cache = None  # enable_response_cache
         idx, fr = r"^/index/(?P<index>[^/]+)", "/frame/(?P<frame>[^/]+)"
         self.routes = [(m, re.compile(p), fn) for m, p, fn in [
@@ -116,6 +131,14 @@ class Handler:
             ("GET", idx + fr + r"/views$", self.get_views),
             ("DELETE", idx + fr + r"/view/(?P<view>[^/]+)$",
              self.delete_view),
+            ("POST", idx + r"/input-definition/(?P<def>[^/]+)$",
+             self.post_input_definition),
+            ("GET", idx + r"/input-definition/(?P<def>[^/]+)$",
+             self.get_input_definition),
+            ("DELETE", idx + r"/input-definition/(?P<def>[^/]+)$",
+             self.delete_input_definition),
+            ("POST", idx + r"/input/(?P<def>[^/]+)$", self.post_input),
+            ("POST", idx + r"/ingest$", self.post_ingest),
             ("POST", r"^/import$", self.post_import),
             ("POST", r"^/import-value$", self.post_import_value),
             ("GET", r"^/export$", self.get_export),
@@ -230,10 +253,12 @@ class Handler:
 
     def get_debug_vars(self, params, qp, body, headers):
         """The serving tiers' counters (ref: pilosa_tpu handler
-        get_debug_vars: countCoalescer, responseCache), with the plan
-        cache's snapshot."""
+        get_debug_vars: countCoalescer, responseCache, ingest), with the
+        plan cache's snapshot."""
         doc = {"countCoalescer": self.executor.coalesce_snapshot(),
-               "planCache": self.executor.plans.snapshot()}
+               "planCache": self.executor.plans.snapshot(),
+               "ingest": (self.ingest.snapshot() if self.ingest is not None
+                          else {"enabled": False})}
         if self._resp_cache is not None:
             doc["responseCache"] = self._resp_cache.stats()
         return _json(200, doc)
@@ -367,22 +392,42 @@ class Handler:
     def post_import(self, params, qp, body, headers):
         """Bulk bit import (ref: handlePostImport handler.go:1164-1243).
         Body: protobuf ImportRequest or JSON {index, frame, slice,
-        rowIDs, columnIDs, timestamps?}; a timestamp of 0 is none."""
+        rowIDs, columnIDs, timestamps?}, or rowKeys and columnKeys in
+        place of the ids; a timestamp of 0 is none."""
         if headers.get("Content-Type") == PROTOBUF:
             req = wireproto.decode_import_request(body)
         else:
             req = json.loads(body)
         self._require(req, "index", "frame")
         fr = self._frame(req["index"], req["frame"])
-        if req.get("rowKeys") or req.get("columnKeys"):
-            raise HTTPError(501, "keyed import is not supported")
         timestamps = req.get("timestamps")
         ts = None
         if timestamps and any(timestamps):
             ts = [datetime.fromtimestamp(t) if t else None
                   for t in timestamps]
+        if req.get("rowKeys") or req.get("columnKeys"):
+            return self._post_import_keyed(req["index"], fr, req, ts)
         self._require(req, "rowIDs", "columnIDs")
         fr.import_bits(req["rowIDs"], req["columnIDs"], ts)
+        return _OK
+
+    def _post_import_keyed(self, index, fr, req, ts):
+        """Keyed import, one node (ref: pilosa_tpu handler.py:1172-1260):
+        row keys become ids in the frame's key store, column keys in the
+        index's (dense ids from 0, allocated in first-seen order), and
+        the bits go through ``Frame.import_bits``."""
+        row_keys = req.get("rowKeys") or []
+        col_keys = req.get("columnKeys") or []
+        if len(row_keys) != len(col_keys):
+            raise HTTPError(400, "row/column key length mismatch")
+        if ts is not None and len(ts) != len(row_keys):
+            raise HTTPError(400, "timestamp length mismatch")
+        idx = self._index(index)
+        row_ids = np.asarray(fr.row_key_store.translate(row_keys),
+                             dtype=np.int64)
+        col_ids = np.asarray(idx.column_key_store.translate(col_keys),
+                             dtype=np.int64)
+        fr.import_bits(row_ids, col_ids, ts)
         return _OK
 
     def post_import_value(self, params, qp, body, headers):
@@ -396,6 +441,80 @@ class Handler:
                       "values")
         fr = self._frame(req["index"], req["frame"])
         fr.import_value(req["field"], req["columnIDs"], req["values"])
+        return _OK
+
+    # ------------------------------------------------------------ ingest
+
+    def post_ingest(self, params, qp, body, headers):
+        """Bulk ingest (ref: pilosa_tpu handler.py:1314-1350): one
+        (row, column[, timestamp]) or (column, value) batch in a binary
+        columnar body (``application/x-pilosa-ingest``, ingest/codec.py)
+        or in JSON; ``?slice=`` (a coordinator's slice-targeted leg) is
+        checked and installs as any batch on one node."""
+        if self.ingest is None:
+            raise HTTPError(
+                501, "ingest pipeline disabled ([ingest] enabled)")
+        index = params["index"]
+        if headers.get("Content-Type") == ingest_codec.CONTENT_TYPE:
+            try:
+                req = ingest_codec.decode(body)
+            except ingest_codec.CodecError as e:
+                raise HTTPError(400, str(e))
+        else:
+            req = json.loads(body or b"{}")
+        self._require(req, "frame")
+        self._frame(index, req["frame"])  # 404 like /import
+        if "slice" in qp:
+            int(qp["slice"][0])  # a malformed slice is the caller's 400
+        try:
+            if req.get("values") is not None:
+                self._require(req, "field", "columns", "values")
+                out = self.ingest.ingest_values(
+                    index, req["frame"], req["field"], req["columns"],
+                    req["values"])
+            else:
+                self._require(req, "rows", "columns")
+                ts = req.get("timestamps")
+                if ts is not None and isinstance(ts, list):
+                    # JSON: null is no timestamp (0 in the binary frame).
+                    ts = [int(t) if t else 0 for t in ts]
+                out = self.ingest.ingest_bits(
+                    index, req["frame"], req["rows"], req["columns"],
+                    ts)
+        except IngestError as e:
+            raise HTTPError(e.status, str(e))
+        return _json(200, out)
+
+    # -------------------------------------------------- input definitions
+
+    def post_input_definition(self, params, qp, body, headers):
+        """(ref: pilosa_tpu handler.py:1102-1112)."""
+        req = json.loads(body or b"{}")
+        for fr in req.get("frames", []):
+            self._require(fr, "name")
+        self._index(params["index"]).create_input_definition(
+            params["def"], req.get("frames", []), req.get("fields", []))
+        return _OK
+
+    def get_input_definition(self, params, qp, body, headers):
+        idef = self._index(params["index"]).input_definition(params["def"])
+        return _json(200, idef.to_dict())
+
+    def delete_input_definition(self, params, qp, body, headers):
+        self._index(params["index"]).delete_input_definition(params["def"])
+        return _OK
+
+    def post_input(self, params, qp, body, headers):
+        """JSON records through an input definition (ref: handler.go:
+        1907-2014; pilosa_tpu handler.py:1125-1138)."""
+        idx = self._index(params["index"])
+        idef = idx.input_definition(params["def"])
+        records = json.loads(body or b"[]")
+        for frame, bits in idef.parse_records(records).items():
+            idx.input_bits(frame, [
+                (row, col,
+                 datetime.fromtimestamp(t) if t is not None else None)
+                for row, col, t in bits])
         return _OK
 
     def get_export(self, params, qp, body, headers):
@@ -438,7 +557,8 @@ def make_http_server(handler, bind="localhost:0",
     connection, HTTP/1.1 keep-alive, TCP_NODELAY). A request whose body
     is larger than ``max_body_size`` is answered 413 before any byte of
     the body is read (0 disables the check); chunked bodies are counted
-    as they arrive."""
+    as they arrive. The bulk-ingest route's cap is ``INGEST_HARD_CAP``
+    instead: its batches are far beyond the default cap."""
     host, _, port = bind.rpartition(":")
 
     class _Req(BaseHTTPRequestHandler):
@@ -529,7 +649,14 @@ def make_http_server(handler, bind="localhost:0",
                 return None
             return None if length < 0 else length
 
-        def _read_chunked(self):
+        def _body_cap(self, path):
+            """The byte cap of this route's body, 0 for none (ref:
+            pilosa_tpu handler.py:2602-2624)."""
+            if _INGEST_PATH.match(path):
+                return INGEST_HARD_CAP
+            return max_body_size
+
+        def _read_chunked(self, cap):
             """RFC 7230 §4.1 chunked body with the cap enforced as the
             chunks arrive. Returns (body, None) or (None, "bad" for
             malformed framing | "too_large")."""
@@ -552,7 +679,7 @@ def make_http_server(handler, bind="localhost:0",
                             break
                     return b"".join(parts), None
                 total += size
-                if max_body_size and total > max_body_size:
+                if cap and total > cap:
                     return None, "too_large"
                 data = self.rfile.read(size)
                 if len(data) < size:
@@ -568,7 +695,8 @@ def make_http_server(handler, bind="localhost:0",
             if length is None:
                 self.send_error(400, "bad Content-Length")
                 return False
-            if max_body_size and length > max_body_size:
+            cap = self._body_cap(urlparse(self.path).path)
+            if cap and length > cap:
                 self.send_error(413, "request body too large")
                 return False
             return super().handle_expect_100()
@@ -578,7 +706,7 @@ def make_http_server(handler, bind="localhost:0",
             qp = parse_qs(parsed.query)
             te = (self.headers.get("Transfer-Encoding") or "").lower()
             if "chunked" in te:
-                body, err = self._read_chunked()
+                body, err = self._read_chunked(self._body_cap(parsed.path))
                 if err is not None:
                     # The peer may still be sending: the connection
                     # cannot be reused either way.
@@ -594,7 +722,8 @@ def make_http_server(handler, bind="localhost:0",
                     self.close_connection = True
                     self.send_error(400, "bad Content-Length")
                     return
-                if max_body_size and length > max_body_size:
+                cap = self._body_cap(parsed.path)
+                if cap and length > cap:
                     # Refused before a byte of it is buffered; the body
                     # is never read, so the connection closes.
                     self.close_connection = True

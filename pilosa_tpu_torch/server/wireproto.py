@@ -400,15 +400,20 @@ def decode_query_response(data):
 
 
 def encode_import_request(index, frame, slice_num, row_ids, column_ids,
-                          timestamps=None):
-    """ImportRequest (public.proto:70-80) by ids. The keyed variant's
-    RowKeys/ColumnKeys (fields 7/8) are decoded, so that the server can
-    refuse them, but never encoded: the port has no key stores yet."""
+                          timestamps=None, row_keys=None, column_keys=None):
+    """ImportRequest (public.proto:70-80); RowKeys/ColumnKeys (fields
+    7/8) carry a keyed import's string keys, paired by position."""
     out = _tag_string(1, index) + _tag_string(2, frame)
     out += _tag_varint(3, slice_num or None)
     out += _tag_packed_varints(4, row_ids)
     out += _tag_packed_varints(5, column_ids)
     out += _tag_packed_varints(6, timestamps or [])
+    # Each key is written, empty ones too: _tag_string would drop an
+    # empty string and misalign every pair after it.
+    for key in row_keys or []:
+        out += _tag_bytes(7, key.encode())
+    for key in column_keys or []:
+        out += _tag_bytes(8, key.encode())
     return out
 
 

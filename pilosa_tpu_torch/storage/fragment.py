@@ -1543,6 +1543,119 @@ class Fragment:
                                      int(self._row_counts[p]))
             self._cache.invalidate()
 
+    def install_batch(self, row_ids, column_ids, containers_by_row=None,
+                      counts_by_row=None, positions=None):
+        """The bulk-ingest install (ref: pilosa_tpu fragment.py:2240-2367)
+        of a batch SORTED by (row, column) and DEDUPLICATED: one op-log
+        append (fsync'd, before memory changes) while ``op_n + n <=
+        OPLOG_MAX_OPS``, else one snapshot; one reduceat OR-fold into the
+        matrix; one version and epoch bump. Rows the batch created take
+        their counts from ``counts_by_row`` (the classify pass) and are
+        seeded with their pre-built containers (``containers_by_row``:
+        row -> (fmt, Container or None), None for a dense row); rows that
+        held bits before recount and are left to the read path. Input
+        that is not sorted goes through ``import_bits``. ``positions``
+        are the batch's row·2^20 + column keys when the caller has them.
+        Returns {format: rows seeded}."""
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if len(row_ids) != len(column_ids):
+            raise ValueError("row/column id length mismatch")
+        if len(row_ids) == 0:
+            return None
+        with self.mu:
+            bad = column_ids // SLICE_WIDTH != self.slice
+            if bad.any():
+                raise ValueError(
+                    f"column:{int(column_ids[bad][0])} out of bounds for "
+                    f"slice {self.slice}")
+            cols = column_ids % SLICE_WIDTH
+            if positions is None:
+                positions = row_ids * np.uint64(SLICE_WIDTH) + cols
+            if len(positions) > 1 and not (
+                    positions[1:] > positions[:-1]).all():
+                self.import_bits(row_ids, column_ids)
+                return self._seed_containers_locked(containers_by_row)
+            if self._opened:
+                self._op_handle_locked()  # the descriptor before any change
+            use_oplog = (self._opened
+                         and self.op_n + len(positions) <= OPLOG_MAX_OPS)
+            if use_oplog:
+                self._append_ops_locked(codec.op_records(
+                    np.full(len(positions), codec.OP_ADD, dtype=np.uint8),
+                    positions), fsync=True)
+                self.op_n += len(positions)
+            row_bounds = np.flatnonzero(
+                np.concatenate(([True], row_ids[1:] != row_ids[:-1])))
+            uniq_rows = row_ids[row_bounds]
+            # Grow the capacity once for every new row of the batch.
+            n_new = sum(1 for r in uniq_rows.tolist()
+                        if r not in self._row_index)
+            self._grow_rows_locked(len(self._phys_rows) + n_new)
+            fresh = []
+            phys_u = np.empty(len(uniq_rows), dtype=np.int64)
+            for i, r in enumerate(uniq_rows.tolist()):
+                phys = self._row_index.get(r)
+                if phys is None or self._row_counts[phys] == 0:
+                    fresh.append(i)
+                phys_u[i] = self._ensure_row_locked(r)
+            self._ensure_window(int(cols.min()) >> 6, int(cols.max()) >> 6)
+            lcols = cols - np.uint64(self._w64_base * 64)
+            counts_per_row = np.diff(np.append(row_bounds, len(row_ids)))
+            phys = np.repeat(phys_u, counts_per_row)
+            words = (lcols >> np.uint64(6)).astype(np.int64)
+            masks = np.uint64(1) << (lcols & np.uint64(63))
+            # Sorted input: (row, word) groups are contiguous and unique.
+            key = phys * np.int64(self._w64) + words
+            starts = np.flatnonzero(
+                np.concatenate(([True], key[1:] != key[:-1])))
+            folded = key[starts]
+            self._matrix[folded // self._w64, folded % self._w64] |= \
+                np.bitwise_or.reduceat(masks, starts)
+            fresh_set = set(fresh)
+            for i in fresh:
+                cnt = (counts_by_row or {}).get(int(uniq_rows[i]))
+                self._row_counts[phys_u[i]] = (
+                    int(counts_per_row[i]) if cnt is None else cnt)
+            self._recount_rows_locked(
+                int(phys_u[i]) for i in range(len(uniq_rows))
+                if i not in fresh_set)
+            touched = sorted(phys_u.tolist())
+            if not use_oplog:
+                self.snapshot()
+            self._touch_locked(touched)
+            for p in touched:
+                self._cache.bulk_add(self._phys_rows[p],
+                                     int(self._row_counts[p]))
+            self._cache.invalidate()
+            return self._seed_containers_locked(
+                containers_by_row,
+                fresh={int(uniq_rows[i]) for i in fresh})
+
+    def _seed_containers_locked(self, containers_by_row, fresh=None):
+        """Seed pre-built containers into the serving memos for rows the
+        batch created (ref: pilosa_tpu fragment.py:2369-2394); -> {format:
+        rows seeded}. ``fresh`` None (the re-sorting path) seeds a row
+        whose count equals its container's. Caller holds ``self.mu``."""
+        seeded = {}
+        if not containers_by_row or not containers.enabled():
+            return seeded
+        ver = self._version
+        for row_id, (fmt, cont) in containers_by_row.items():
+            phys = self._row_index.get(row_id)
+            if phys is None:
+                continue
+            if fresh is not None:
+                if row_id not in fresh:
+                    continue
+            elif cont is None or int(self._row_counts[phys]) != cont.count:
+                continue
+            self._cont_fmt[phys] = (ver, fmt)
+            if cont is not None and fmt != bitops.FMT_DENSE:
+                self._memo_container(phys, cont)
+            seeded[fmt] = seeded.get(fmt, 0) + 1
+        return seeded
+
     def import_value_bits(self, column_ids, base_values, bit_depth):
         """Bulk BSI import: vectorized plane writes (ref: ImportValue
         fragment.go:1335-1367; pilosa_tpu fragment.py:2400). Overwrites

@@ -12,7 +12,8 @@ bit i) and marks the column in the not-null row ``depth``
 A frame with a time quantum (``"YMD"``, …) also writes each timestamped
 bit into one view per unit (``standard_2017``, ``standard_201706``,
 ``standard_20170601``; ``time_quantum.py``). Row attributes live in the
-sqlite store ``<frame>/.data``, shared with pilosa_tpu."""
+sqlite store ``<frame>/.data``, shared with pilosa_tpu, and the row keys
+of keyed imports in ``<frame>/.keys`` (``translate.py``)."""
 import json
 import os
 import shutil
@@ -25,6 +26,7 @@ from pilosa_tpu_torch import SLICE_WIDTH
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch import time_quantum as tq
 from pilosa_tpu_torch.storage.attrs import AttrStore
+from pilosa_tpu_torch.storage.translate import TranslateStore
 from pilosa_tpu_torch.storage.view import (
     VIEW_INVERSE,
     VIEW_STANDARD,
@@ -132,6 +134,8 @@ class Frame:
         self.views = {}
         self.row_attr_store = AttrStore(os.path.join(path, ".data"),
                                         epoch=epoch)
+        # Row key -> ID translation of keyed imports (translate.py).
+        self.row_key_store = TranslateStore(os.path.join(path, ".keys"))
 
     @property
     def meta_path(self):
@@ -176,6 +180,7 @@ class Frame:
                 if os.path.isdir(os.path.join(views_dir, entry)):
                     self._open_view(entry)
             self.row_attr_store.open()
+            self.row_key_store.open()
         return self
 
     def close(self):
@@ -184,6 +189,7 @@ class Frame:
                 v.close()
             self.views = {}
             self.row_attr_store.close()
+            self.row_key_store.close()
 
     def _open_view(self, name):
         """Caller holds self.mu."""

@@ -1,6 +1,8 @@
 """Index — a database of frames (ref: index.go; counterpart of
 pilosa_tpu/storage/index.py). ``.meta`` keys match pilosa_tpu's; column
-attributes live in the sqlite store ``<index>/.data``."""
+attributes live in the sqlite store ``<index>/.data``, the column keys of
+keyed imports in ``<index>/.keys`` and the input definitions as JSON
+files under ``<index>/.input-definitions/``, as pilosa_tpu keeps them."""
 import json
 import os
 import shutil
@@ -11,6 +13,8 @@ from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch import time_quantum as tq
 from pilosa_tpu_torch.storage.attrs import AttrStore
 from pilosa_tpu_torch.storage.fragment import MutationEpoch
+from pilosa_tpu_torch.storage.inputdef import InputDefinition
+from pilosa_tpu_torch.storage.translate import TranslateStore
 from pilosa_tpu_torch.storage.frame import (
     CACHE_TYPES,
     DEFAULT_CACHE_TYPE,
@@ -40,6 +44,9 @@ class Index:
         self.frames = {}
         self.column_attr_store = AttrStore(os.path.join(path, ".data"),
                                            epoch=self.epoch)
+        # Column key -> ID translation of keyed imports (translate.py).
+        self.column_key_store = TranslateStore(os.path.join(path, ".keys"))
+        self.input_definitions = {}
 
     @property
     def meta_path(self):
@@ -73,6 +80,8 @@ class Index:
                 if os.path.isdir(full) and not entry.startswith("."):
                     self.frames[entry] = self._new_frame(entry).open()
             self.column_attr_store.open()
+            self.column_key_store.open()
+            self._load_input_definitions()
         return self
 
     def close(self):
@@ -81,6 +90,7 @@ class Index:
                 f.close()
             self.frames = {}
             self.column_attr_store.close()
+            self.column_key_store.close()
 
     def set_time_quantum(self, q):
         """The quantum new frames inherit (ref: index.go SetTimeQuantum)."""
@@ -113,13 +123,23 @@ class Index:
             return self.frames.get(name)
 
     def create_frame(self, name, opt=None):
+        with self.mu:
+            if name in self.frames:
+                raise perr.ErrFrameExists()
+            return self._create_frame(name, opt or FrameOptions())
+
+    def create_frame_if_not_exists(self, name, opt=None):
+        with self.mu:
+            frame = self.frames.get(name)
+            if frame is not None:
+                return frame
+            return self._create_frame(name, opt or FrameOptions())
+
+    def _create_frame(self, name, opt):
         """Validations per createFrame (ref: index.go:427-517)."""
-        opt = opt or FrameOptions()
         with self.mu:
             if not name:
                 raise perr.ErrFrameRequired()
-            if name in self.frames:
-                raise perr.ErrFrameExists()
             if opt.cache_type and opt.cache_type not in CACHE_TYPES:
                 raise perr.ErrInvalidCacheType()
             if (self.column_label == opt.row_label
@@ -164,3 +184,65 @@ class Index:
             frame.close()
             shutil.rmtree(frame.path, ignore_errors=True)
             self.epoch.bump()
+
+    # -------------------------------------------------- input definitions
+
+    def input_definition_path(self):
+        return os.path.join(self.path, ".input-definitions")
+
+    def _load_input_definitions(self):
+        """Caller holds self.mu (open)."""
+        path = self.input_definition_path()
+        if not os.path.isdir(path):
+            return
+        for entry in sorted(os.listdir(path)):
+            with open(os.path.join(path, entry)) as f:
+                self.input_definitions[entry] = InputDefinition.from_dict(
+                    entry, json.load(f))
+
+    def create_input_definition(self, name, frames, fields):
+        """Validate, create the definition's frames, then store it (ref:
+        pilosa_tpu index.py:352-389): a definition that can be read
+        always has its frames. Frame options are the FrameOptions
+        keyword names, as the reference reads them."""
+        with self.mu:
+            if not name:
+                raise perr.ErrInputDefinitionNameRequired()
+            if name in self.input_definitions:
+                raise perr.ErrInputDefinitionExists()
+            idef = InputDefinition(name, frames, fields)
+            idef.validate(self.column_label)
+        for fr in idef.frames:
+            self.create_frame_if_not_exists(
+                fr["name"], FrameOptions(**fr.get("options", {})))
+        with self.mu:
+            if name in self.input_definitions:  # raced a duplicate
+                raise perr.ErrInputDefinitionExists()
+            os.makedirs(self.input_definition_path(), exist_ok=True)
+            with open(os.path.join(self.input_definition_path(), name),
+                      "w") as f:
+                json.dump(idef.to_dict(), f)
+            self.input_definitions[name] = idef
+            return idef
+
+    def input_definition(self, name):
+        with self.mu:
+            idef = self.input_definitions.get(name)
+            if idef is None:
+                raise perr.ErrInputDefinitionNotFound()
+            return idef
+
+    def delete_input_definition(self, name):
+        with self.mu:
+            self.input_definition(name)
+            del self.input_definitions[name]
+            os.remove(os.path.join(self.input_definition_path(), name))
+
+    def input_bits(self, frame, bits):
+        """Apply mapped (row, column, timestamp) bits (ref: Index.InputBits
+        index.go:785-806)."""
+        fr = self.frame(frame)
+        if fr is None:
+            raise perr.ErrFrameNotFound()
+        for row_id, col_id, t in bits:
+            fr.set_bit("standard", row_id, col_id, t)

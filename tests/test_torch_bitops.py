@@ -136,7 +136,8 @@ def test_cpu_wrappers_take_plain_versions_and_count_no_launch():
     assert kernels.launches == {"count_op_rows": 0, "count_rows": 0,
                                 "count_and_rows": 0, "count_op_pairs": 0,
                                 "count_and_rows_multi": 0,
-                                "container_and_counts": 0}
+                                "container_and_counts": 0,
+                                "ingest_classify": 0}
 
 
 def test_cpu_wrappers_count_no_regime():

@@ -12,8 +12,12 @@ against a host unpacking of the same words. Marked
 fixture, never at import). Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. The container
 tier's lane kernel ``container_and_counts`` is held against its plain
-version in every cell at its boundary shapes (N = 1 to 76,296 members)."""
+version in every cell at its boundary shapes (N = 1 to 76,296 members).
+The ingest classify kernel ``ingest_classify`` is held against its plain
+version on phase 3's streams, and one small ingest through a GPU holder
+gives the files of the same ingest on the CPU."""
 import json
+import os
 import re
 from collections import Counter
 from datetime import datetime
@@ -160,7 +164,8 @@ def test_launch_counters_count_launches_only(gen):
     assert kernels.launches == {"count_op_rows": 1, "count_rows": 1,
                                 "count_and_rows": 1, "count_op_pairs": 0,
                                 "count_and_rows_multi": 0,
-                                "container_and_counts": 1}
+                                "container_and_counts": 1,
+                                "ingest_classify": 0}
 
 
 def test_regime_launches_split_the_launch_counts(gen):
@@ -1029,3 +1034,107 @@ def test_lane_round_reads_rows_in_place_on_card(gen):
                        for s in c.a_sides + c.b_sides)
         totals[device] = C.lane_and_counts(pairs)[0].tolist()
     assert totals["cuda"] == totals["cpu"]
+
+
+# ---------------------------------------------------------------- ingest
+# ingest_classify's cases (chip_smoke.py phase 3 has the same): sorted,
+# deduplicated (row, position) streams as (rowidx, positions, n_rows).
+
+def _classify_stream(lengths, rng, run_share=0.5):
+    """Rows of the given lengths, each a mix of runs and spread bits."""
+    rows, pos = [], []
+    for r, k in enumerate(lengths):
+        run = int(k * run_share)
+        start = int(rng.integers(0, SLICE_WIDTH - run))
+        p = set(range(start, start + run))
+        while len(p) < k:
+            p.update(rng.integers(0, SLICE_WIDTH, k - len(p)).tolist())
+        pos.append(np.sort(np.fromiter(p, np.int64, len(p))[:k]))
+        rows.append(np.full(k, r))
+    if not lengths:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32), 0
+    return (np.concatenate(rows).astype(np.int32),
+            np.concatenate(pos).astype(np.int32), len(lengths))
+
+
+def _classify_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "empty":
+        return np.zeros(0, np.int32), np.zeros(0, np.int32), 3
+    if name == "one":
+        return np.zeros(1, np.int32), np.array([5], np.int32), 1
+    if name == "edges":  # bit 31/32 of a word, the slice's last bit
+        return (np.array([0, 0, 0, 0, 0, 1, 1], np.int32),
+                np.array([0, 31, 32, 33, SLICE_WIDTH - 1, 31, 32], np.int32),
+                2)
+    if name == "whole_row":
+        return (np.zeros(SLICE_WIDTH, np.int32),
+                np.arange(SLICE_WIDTH, dtype=np.int32), 1)
+    if name == "4096_4097":
+        return _classify_stream([4096, 4097], rng, run_share=0.0)
+    if name.startswith("rows_"):
+        n = int(name[5:])
+        return _classify_stream(rng.integers(1, 3000, n).tolist(), rng)
+    if name == "chunk_edges":  # rows ending on and inside 23-entry chunks
+        return _classify_stream([23, 22, 24, 46, 5888, 5889, 1, 23 * 256],
+                                rng, run_share=0.9)
+    raise KeyError(name)
+
+
+CLASSIFY_CASES = ("empty", "one", "edges", "whole_row", "4096_4097",
+                  "rows_1", "rows_3", "rows_1024", "chunk_edges")
+
+
+@pytest.mark.parametrize("case", CLASSIFY_CASES)
+def test_ingest_classify_equals_plain(gen, case):
+    rowidx, pos, n_rows = _classify_case(case)
+    r = torch.from_numpy(rowidx).cuda()
+    p = torch.from_numpy(pos).cuda()
+    kernels.reset_launches()
+    got = kernels.ingest_classify(r, p, n_rows)
+    assert kernels.launches["ingest_classify"] == (1 if len(rowidx) else 0)
+    want = kernels.ingest_classify_plain(r, p, n_rows)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+
+
+def test_ingest_on_card_gives_the_cpu_files(gen, tmp_path):
+    """One small ingest (bits with timestamps into an inverse, YMD frame,
+    then values) through a cuda Holder and a cpu Holder: the fragment
+    files and sidecars are equal, and the cuda classify launched."""
+    from pilosa_tpu_torch.ingest.pipeline import IngestPipeline
+    from pilosa_tpu_torch.storage.frame import Field
+
+    rng = np.random.default_rng(12)
+    n = 30_000
+    rows = rng.integers(0, 40, n)
+    cols = rng.integers(0, 3 * SLICE_WIDTH, n)
+    rows[:6000], cols[:6000] = 3, np.arange(6000) + 77
+    ts = rng.integers(1496275200, 1496275200 + 5 * 86400, n)
+    ts[::4] = 0
+    vcols = rng.choice(2 * SLICE_WIDTH, 2000, replace=False)
+    vals = rng.integers(0, 1001, 2000)
+    files = {}
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        h = Holder(str(d), device=device).open()
+        idx = h.create_index("i")
+        idx.create_frame("f", FrameOptions(inverse_enabled=True,
+                                           time_quantum="YMD"))
+        idx.create_frame("b", FrameOptions(range_enabled=True, fields=[
+            Field("v", min=0, max=1000)]))
+        pipe = IngestPipeline(h)
+        kernels.reset_launches()
+        pipe.ingest_bits("i", "f", rows, cols, ts)
+        pipe.ingest_values("i", "b", "v", vcols, vals)
+        if device == "cuda":
+            assert kernels.launches["ingest_classify"] == \
+                pipe.snapshot()["packPassesTotal"] > 0
+        h.close()
+        files[device] = {
+            os.path.relpath(os.path.join(p, f), d): open(
+                os.path.join(p, f), "rb").read()
+            for p, _, fs in os.walk(d) for f in fs
+            if os.path.basename(p) == "fragments"}
+    assert files["cuda"] == files["cpu"]

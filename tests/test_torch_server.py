@@ -343,21 +343,32 @@ def test_reads_agree_after_each_package_reopens_the_other(scripted, swap):
 
 
 def test_keyed_import_is_refused(tmp_path):
-    """The port has no key stores yet: an import by row and column keys
-    answers 501 and writes nothing (pilosa_tpu translates the keys)."""
-    h = THolder(str(tmp_path / "d"), device="cpu").open()
+    """A keyed import whose row and column keys differ in number is
+    refused (400) and writes nothing; once they pair up, the keys are
+    translated as pilosa_tpu translates them (tests/test_torch_keys.py
+    holds keyed imports against pilosa_tpu at length)."""
+    ja, tb, jh, th = _pair(str(tmp_path / "a"), str(tmp_path / "b"))
     try:
-        th = THandler(h, TExecutor(h))
-        _dispatch(th, _r("POST", "/index/i", {}))
-        _dispatch(th, _r("POST", "/index/i/frame/f", {}))
-        body = jwp.encode_import_request("i", "f", 0, [], [],
+        for h in (jh, th):
+            _dispatch(h, _r("POST", "/index/i", {}))
+            _dispatch(h, _r("POST", "/index/i/frame/f", {}))
+        bad = jwp.encode_import_request("i", "f", 0, [], [],
+                                        row_keys=["a", "c"],
+                                        column_keys=["b"])
+        got = _dispatch(th, _r("POST", "/import", bad, ctype=PB))
+        assert got == _dispatch(jh, _r("POST", "/import", bad, ctype=PB))
+        assert got == (400, "application/json",
+                       b'{"error": "row/column key length mismatch"}')
+        assert tb.index("i").frame("f").views == {}
+        good = jwp.encode_import_request("i", "f", 0, [], [],
                                          row_keys=["a"], column_keys=["b"])
-        assert _dispatch(th, _r("POST", "/import", body, ctype=PB)) == (
-            501, "application/json",
-            b'{"error": "keyed import is not supported"}')
-        assert h.index("i").frame("f").views == {}
+        got = _dispatch(th, _r("POST", "/import", good, ctype=PB))
+        assert got == _dispatch(jh, _r("POST", "/import", good, ctype=PB))
+        assert got[0] == 200
+        assert tb.index("i").frame("f").row_key_store.translate(["a"]) == [0]
     finally:
-        h.close()
+        ja.close()
+        tb.close()
 
 
 def test_deleted_index_is_gone_for_both_packages(tmp_path):
