@@ -92,7 +92,7 @@ Phases, each of which fails the run (exit code != 0, no result line):
 7. main path, time windows — Pilosa's event-analytics example
    (``docs/examples.md:61-70``): a data directory of its own with index
    ``events`` and frame ``clicks`` (``timeQuantum="YMD"``), four rows
-   over 512 slices (reduced from 9,537: EVENT_SLICES), each (row,
+   over 256 slices (reduced from 9,537: EVENT_SLICES), each (row,
    column) clicked with probability 1/64
    on one day of 2017-06-01 … 14, so 17 views (``standard``,
    ``standard_2017``, ``standard_201706``, one per day) written in
@@ -126,7 +126,7 @@ Phases, each of which fails the run (exit code != 0, no result line):
    and pilosa_tpu's mixed mix (~80% those, ~15% ``TopN(Bitmap(frame=
    "f", rowID=0), frame="t", n=5)``, ~5% SetBit of row 9, which no query
    reads) at 1, 8 and 32 clients, and 32 with the coalescer off, each
-   2 s of warm-up and 3 s measured: q/s, p50, p99, the coalescer's
+   1 s of warm-up and 2 s measured: q/s, p50, p99, the coalescer's
    rounds, fused queries and largest group, launches per query; then
    eight differently filtered Sums and eight Maxes, each released by a
    Barrier into one group, against the same served one after another;
@@ -183,7 +183,29 @@ Phases, each of which fails the run (exit code != 0, no result line):
    -k`` of 10,000 lines, the same ids after a reopen; (f)
    docs/input-definition.md's definition and 10,000 records through
    ``/input``. Every answer against numpy; every classify pass launches
-   ``ingest_classify``, and the host bytes end within the budget.
+   ``ingest_classify``, and the host bytes end within the budget;
+12. the static cluster (``cluster_path``) — three nodes on the card in
+   one process, replicas 2, each ``Server(cluster_hosts=…)`` over a
+   directory of its own holding the slices placement gives it (frame f
+   as phase 4 writes it, 512 slices: CLUSTER_SLICES), membership
+   rounds driven by the phase (the first one's heartbeats carry each
+   node's max slice to its peers): the Counts of phase 4's queries
+   through every node as coordinator, TopN with and without a Src, row
+   3's bitmap with its attributes id by id, SetBit and ClearBit through
+   a node that holds no copy of the slice read back through every node,
+   DDL through node 2 seen by all; each node's local leg alone (its
+   primary slices as a ``remote=true`` subquery) must launch
+   ``count_op_rows``, ``count_rows`` and ``count_and_rows``. Failover:
+   node 3 closes, the Counts through nodes 1 and 2 stay exact, a round
+   holds it DOWN, a write to one of its slices is hinted, and after it
+   reopens the next round replays the write into its copy. Then node 3
+   runs as a ``cli server`` process on the card: a write through it to
+   a slice node 1 holds no copy of is counted through node 1, whose
+   memos and response cache are in their default state (off on a
+   cluster). Report only: first-query seconds and the warm
+   Count(Intersect) p50/p90 over HTTP through node 1 against one node
+   holding every slice, the failover and rejoin seconds. Every
+   answer against numpy.
 
 The result memos and the response cache are off
 (``PILOSA_TPU_RESULT_MEMO=0``) but in phase 8c's warm repeats, so the
@@ -199,15 +221,15 @@ Count(Intersect(row 3, row 3)).
 
 Every open is lazy (no fragment file is read until a query touches
 it); each phase prints its open and first-query seconds. The serial
-path of phases 4-7 runs over the first 256 slices (the batched path
+path of phases 4-7 runs over the first 128 slices (the batched path
 and the top-level bare ``Bitmap`` over all of them), so that the script
 stays inside its 1,200 s limit (PERF.md §5 has the measured total).
 ``--event-slices`` and ``--sparse-slices`` set phase 7's and phase
-10's slice counts and ``--only`` runs a subset of phases 4-11 (no phase
+10's slice counts and ``--only`` runs a subset of phases 4-12 (no phase
 3 and no result lines): all are for measurements, and the contract run
 takes none.
 
-Each of phases 4-11 prints its launches per kernel and, for
+Each of phases 4-12 prints its launches per kernel and, for
 ``count_op_rows``, ``count_rows`` and ``count_and_rows``, per regime; a
 line after them sums the regimes over the phases. The second-to-last
 line is a JSON object describing every kernel; the last is ``{"ok":
@@ -240,10 +262,11 @@ POPC_PER_S = 132 * 16 * 1.98e9       # popcount
 OPS = ("and", "or", "xor", "andnot")
 DEVICE = "cuda"
 TOPN_CANDIDATES = 8         # rows of frame t, the candidates of every TopN
-# Slices of the serial loops of phases 4-7. reduced: 256, not 1,024 (nor
+# Slices of the serial loops of phases 4-7. reduced: 128, not 1,024 (nor
 # every slice): at 512 the script with phase 11 took 1,162.7 s of its
-# 1,200 s limit on a slower H100 host (PERF.md §4).
-SERIAL_SLICES = 256
+# 1,200 s limit on a slower H100 host, and at 256 with phase 12 1,090.4 s
+# on another (PERF.md §4).
+SERIAL_SLICES = 128
 WINDOW_BUCKETS = (128, 512, 2048, 8192, 32768)  # batched stack widths
 GOVERNOR_BYTES = 256 << 20  # phase 4's host budget on its reopen
 GOVERNED_SLICES = 512       # slices of its serial TopN and bitmap read
@@ -253,9 +276,10 @@ GOVERNED_BATCH = 2048       # slices of its batched Count and TopN
 # (writes 191.2 s, the first 14-view Count 240.4 s), and at 4,096 slices
 # it carried the whole script past its 1,200 s limit on a slower host,
 # and at 1,024 slices (107.4 s of the phase) the script with phase 11
-# took 1,162.7 s on a slower host, so the event-analytics example runs
-# at 512 slices (0.54B columns; PERF.md §4).
-EVENT_SLICES = 512
+# took 1,162.7 s on a slower host, and at 512 (52.0 s) the script with
+# phase 12 1,090.4 s on another, so the event-analytics example runs at
+# 256 slices (0.27B columns; PERF.md §4).
+EVENT_SLICES = 256
 # Slices of phase 10. reduced: count100b's shape is 95,368 slices (100B
 # columns); at 9,537 the phase took 82.4 s and the whole script 942.7 s
 # on a slower H100 host (PERF.md §4), too near the 1,200 s limit.
@@ -2763,10 +2787,11 @@ def server_path(slices, seed, datadir, card, oracle):
 # ----------------------------------------------------------- phase 8c
 
 CONC_CLIENTS = (1, 8, 32)     # concurrent clients per point
-CONC_WARM_S = 2.0             # warm-up before each point's window
-# Each point's measured window. reduced: 3 s, not 5, to keep the script
-# under 1,000 s of its 1,200 s limit (PERF.md §4).
-CONC_MEASURE_S = 3.0
+CONC_WARM_S = 1.0             # warm-up before each point's window
+# Each point's measured window. reduced: 2 s, not 5 (3 s, with 2 s of
+# warm-up, until the script took 1,090.4 s of its 1,200 s limit on a
+# slower host; PERF.md §4).
+CONC_MEASURE_S = 2.0
 CONC_GROUP_REPS = 3           # timed rounds of each BSI group
 CONC_PROCS = 8                # client processes (threads share them)
 CONC_ROW = 9                  # the row the mixed mix writes; none reads it
@@ -4301,6 +4326,370 @@ def ingest_path(seed, datadir, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 12
+
+# Phase 12's cluster: three nodes, replicas 2 (pilosa_tpu's own test
+# topology, tests/test_server.py:199-205, and docs/administration.md's
+# documented three-host shape), in one process on the card. reduced:
+# 512 slices, not 9,537 (nor 1,024: at 1,024 the phase took 40.5-51.6 s
+# and the script 1,090.4 s of its 1,200 s limit on a slower host; PERF.md
+# §4); the data is written twice (once a slice per owner) plus once more
+# for the one-node comparison.
+CLUSTER_SLICES = 512
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+# Each in-process node's device stack budget: a share of the card's
+# 80 GB with room for the comparison node's default budget.
+CLUSTER_STACK_BYTES = 12 << 30
+CLUSTER_FRAGS = os.path.join("i", "f", "views", "standard", "fragments")
+CLUSTER_WARM = 50           # warm Count(Intersect)s timed through HTTP
+
+
+def _write_cluster_slices(root, seed, lo, hi):
+    """Worker: frame f's fragment files of slices [lo, hi) and their
+    ``.cache`` sidecars, phase 4's rows written by the port's codec (the
+    bytes ``Fragment.read_from`` would write), into the directory of
+    each owner that placement gives the slice (``root/n<k>``) and into
+    ``root/all``; returns the per-query counts, each row's count and
+    |row r & row 0| per slice, and row 3's ascending column ids."""
+    from pilosa_tpu_torch.cluster.cluster import Cluster, Node
+    from pilosa_tpu_torch.roaring import codec
+
+    cl = Cluster(nodes=[Node(f"n{k}") for k in range(CLUSTER_NODES)],
+                 replica_n=CLUSTER_REPLICAS)
+    keys = np.arange(4 * 16, dtype=np.uint64)  # rows 0-3 × 16 containers
+    counts = np.zeros((len(QUERIES), hi - lo), dtype=np.int64)
+    rows = np.zeros((4, hi - lo), dtype=np.int64)
+    and_f0 = np.zeros((4, hi - lo), dtype=np.int64)
+    r3 = []
+    for i, s in enumerate(range(lo, hi)):
+        words = slice_words(seed, s)
+        counts[:, i] = slice_counts(words)
+        rows[:, i] = np.bitwise_count(words).sum(axis=1)
+        and_f0[:, i] = np.bitwise_count(words & words[0]).sum(axis=1)
+        r3.append(positions(words[3]) + np.uint64(s * SLICE_COLS))
+        data = codec.serialize_arrays(keys, words.reshape(64, 1024))
+        for d in [n.host for n in cl.fragment_nodes("i", s)] + ["all"]:
+            path = os.path.join(root, d, CLUSTER_FRAGS, str(s))
+            with open(path, "wb") as fh:
+                fh.write(data)
+            with open(path + ".cache", "w") as fh:
+                fh.write("[0, 1, 2, 3]")
+    return lo, counts, rows, and_f0, np.concatenate(r3)
+
+
+def _free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def cluster_path(seed, datadir, card):
+    """Phase 12: three nodes of a static cluster (replicas 2) on the card
+    in one process, each over its own directory of the slices placement
+    gives it, plus one ``cli server`` process as a node; see the module
+    docstring."""
+    import http.client
+    import signal
+
+    from pilosa_tpu_torch import SLICE_WIDTH
+    from pilosa_tpu_torch.cluster.client import InternalClient
+    from pilosa_tpu_torch.executor import ExecOptions
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server.server import Server
+    from pilosa_tpu_torch.storage.holder import Holder
+
+    slices = CLUSTER_SLICES
+    root = os.path.join(datadir, "cluster")
+    names = [f"n{k}" for k in range(CLUSTER_NODES)]
+    for d in names + ["all"]:
+        h = Holder(os.path.join(root, d), device=DEVICE).open()
+        h.create_index("i").create_frame("f").create_view_if_not_exists(
+            "standard")
+        h.close()
+    t0 = time.perf_counter()
+    procs, parts = in_processes(_write_cluster_slices, root, seed, slices)
+    per_slice = np.concatenate([p[1] for p in parts], axis=1)
+    row_n = np.concatenate([p[2] for p in parts], axis=1)
+    and_f0 = np.concatenate([p[3] for p in parts], axis=1).sum(axis=1)
+    r3_ids = np.concatenate([p[4] for p in parts])
+    del parts
+    want = [int(c) for c in per_slice.sum(axis=1)]
+    print(f"cluster: wrote {slices} slices to their {CLUSTER_REPLICAS} "
+          f"owners of {CLUSTER_NODES} nodes and to one node holding all, "
+          f"in {procs} processes in {time.perf_counter() - t0:.1f} s")
+
+    def conn_of(host):
+        h, p = host.rsplit(":", 1)
+        return http.client.HTTPConnection(h, int(p), timeout=300)
+
+    def counts_through(conn, tag):
+        for (q, _), w in zip(QUERIES, want):
+            got = http_query(conn, q)
+            check(got == [w], f"{tag} {q}: {got} != oracle {w}")
+
+    def warm_ms(conn, q, n):
+        lat = []
+        for _ in range(n):
+            t = time.perf_counter()
+            http_query(conn, q)
+            lat.append((time.perf_counter() - t) * 1e3)
+        return np.percentile(lat, 50), np.percentile(lat, 90)
+
+    q_and = QUERIES[2][0]
+    # The same query on one node holding every slice (memos off, as in
+    # every phase that times execution).
+    one = Server(os.path.join(root, "all"), bind="127.0.0.1:0",
+                 device=DEVICE).open()
+    try:
+        conn = conn_of(one.host)
+        t = time.perf_counter()
+        check(http_query(conn, q_and) == [want[2]], "one node: Count")
+        one_first_s = time.perf_counter() - t
+        one_p50, one_p90 = warm_ms(conn, q_and, CLUSTER_WARM)
+        conn.close()
+    finally:
+        one.close()
+
+    hosts = [f"127.0.0.1:{p}" for p in _free_ports(CLUSTER_NODES)]
+    memo_env = os.environ.pop("PILOSA_TPU_RESULT_MEMO", None)
+    servers = [None] * CLUSTER_NODES
+
+    def open_node(k):
+        # Memos and the response cache in their default state; the
+        # membership rounds are driven by this phase.
+        s = Server(os.path.join(root, names[k]), bind=hosts[k],
+                   cluster_hosts=hosts, replica_n=CLUSTER_REPLICAS,
+                   polling_interval=0, device=DEVICE,
+                   stack_bytes=CLUSTER_STACK_BYTES).open()
+        s.cluster.node_set.close()
+        servers[k] = s
+        return s
+
+    proc = None
+    client = InternalClient()
+    reset_peak()
+    kernels.reset_launches()
+    try:
+        t = time.perf_counter()
+        for k in range(CLUSTER_NODES):
+            open_node(k)
+        for s in servers:
+            s.cluster.node_set.probe_once()  # heartbeats: peers' maxima
+        open_s = time.perf_counter() - t
+        conns = [conn_of(h) for h in hosts]
+        for k, c in enumerate(conns):
+            got = http_json(c, "GET", "/slices/max")
+            check(got == {"maxSlices": {"i": slices - 1}},
+                  f"node {k} /slices/max {got}")
+        t = time.perf_counter()
+        check(http_query(conns[0], q_and) == [want[2]], "first Count")
+        first_s = time.perf_counter() - t
+        for k, c in enumerate(conns):
+            counts_through(c, f"node {k}")
+        p50, p90 = warm_ms(conns[0], q_and, CLUSTER_WARM)
+        # Where a fanned-out Count's time goes: node 3's leg alone as the
+        # coordinator sends it (protobuf over HTTP), and node 1's own leg
+        # in process.
+        cl = servers[0].cluster
+        prim = [[s for s in range(slices)
+                 if cl.fragment_nodes("i", s)[0].host == h] for h in hosts]
+        leg_ms, _ = p50_ms(lambda: client.execute_query(
+            hosts[2], "i", q_and, slices=prim[2], remote=True),
+            CLUSTER_WARM)
+        local_ms, _ = p50_ms(lambda: servers[0].executor.execute(
+            "i", q_and, slices=prim[0], opt=ExecOptions(remote=True)),
+            CLUSTER_WARM)
+
+        # TopN with and without a Src, and a bitmap with attributes,
+        # through every node.
+        topn_src = topn_pairs(and_f0)
+        topn_all = topn_pairs(row_n.sum(axis=1))
+        r3 = 'Bitmap(frame="f", rowID=3)'
+        got = http_query(conns[0], 'SetRowAttrs(frame="f", rowID=3, '
+                                   'name="stargazer")')
+        check(got == [None], f"SetRowAttrs {got}")
+        for k, c in enumerate(conns):
+            for q, w in (('TopN(Bitmap(frame="f", rowID=0), frame="f", '
+                          'n=4)', topn_src), ('TopN(frame="f", n=4)',
+                                              topn_all)):
+                got = [(p["id"], p["count"]) for p in http_query(c, q)[0]]
+                check(got == w, f"node {k} {q}: {got} != oracle {w}")
+            got = http_query(c, r3)[0]
+            check(got["attrs"] == {"name": "stargazer"}
+                  and np.array_equal(np.asarray(got["bits"], np.uint64),
+                                     r3_ids),
+                  f"node {k} {r3}: attrs {got['attrs']}, "
+                  f"{len(got['bits'])} ids != {len(r3_ids)}")
+
+        # SetBit and ClearBit through a node that owns no copy of the
+        # slice, each read from every node.
+        s_w = next(s for s in range(slices)
+                   if hosts[0] not in [n.host for n in
+                                       cl.fragment_nodes("i", s)])
+        col = s_w * SLICE_WIDTH + int(np.flatnonzero(
+            np.unpackbits((~slice_words(seed, s_w)[3]).view(np.uint8),
+                          bitorder="little"))[0])
+        n3 = len(r3_ids)
+        for verb, n in (("SetBit", n3 + 1), ("ClearBit", n3)):
+            got = http_query(conns[0],
+                             f'{verb}(frame="f", rowID=3, columnID={col})')
+            check(got == [True], f"{verb} through a non-owner: {got}")
+            for k, c in enumerate(conns):
+                got = http_query(c, f"Count({r3})")
+                check(got == [n], f"node {k} after {verb}: {got} != {n}")
+        # DDL through node 2 reaches every node.
+        http_json(conns[1], "POST", "/index/i/frame/g", b"{}")
+        for k, c in enumerate(conns):
+            got = [f["name"] for f in http_json(c, "GET", "/schema")[
+                "indexes"][0]["frames"]]
+            check(got == ["f", "g"], f"node {k} frames {got}")
+        launches = launch_counts()
+
+        # Each node's local leg alone: the three kernels, per node.
+        per_node = {}
+        for k in range(CLUSTER_NODES):
+            kernels.reset_launches()
+            for q in (q_and, QUERIES[0][0], 'TopN(Bitmap(frame="f", '
+                                            'rowID=0), frame="f", n=4)'):
+                client.execute_query(hosts[k], "i", q, slices=prim[k],
+                                     remote=True)
+            per_node[names[k]] = {n: kernels.launches[n]
+                                  for n in QUERY_KERNELS}
+            check(DEVICE != "cuda" or all(per_node[names[k]].values()),
+                  f"node {k}'s local leg launched {per_node[names[k]]}")
+        kernels.reset_launches()
+
+        # Failover: node 3 closes; Counts through nodes 1 and 2 stay exact
+        # (its legs fail and remap to replicas), then a membership round
+        # holds it DOWN and a write to one of its slices is hinted.
+        servers[2].close()
+        servers[2] = None
+        t = time.perf_counter()
+        counts_through(conns[0], "failover node 0")
+        failover_s = time.perf_counter() - t
+        counts_through(conns[1], "failover node 1")
+        for s in servers[:2]:
+            s.cluster.node_set.suspect_after = 1
+            s.cluster.node_set.probe_once()
+            check(s.cluster.node_set.is_down(hosts[2]), "node 3 not DOWN")
+        s_h = next(s for s in range(slices)
+                   if hosts[2] in [n.host for n in cl.fragment_nodes("i", s)])
+        col = s_h * SLICE_WIDTH + int(np.flatnonzero(
+            np.unpackbits((~slice_words(seed, s_h)[3]).view(np.uint8),
+                          bitorder="little"))[0])
+        got = http_query(conns[0], f'SetBit(frame="f", rowID=3, '
+                                   f'columnID={col})')
+        check(got == [True], f"SetBit with node 3 DOWN: {got}")
+        check(servers[0].executor.pending_hint_hosts() == [hosts[2]],
+              "no write hinted for node 3")
+        for k in (0, 1):
+            got = http_query(conns[k], f"Count({r3})")
+            check(got == [n3 + 1], f"node {k} with node 3 DOWN: {got}")
+        # Rejoin: a round sees node 3 again, pushes the schema and
+        # replays the hinted write.
+        t = time.perf_counter()
+        open_node(2)
+        for s in servers[:2]:
+            s.cluster.node_set.probe_once()
+            check(not s.cluster.node_set.is_down(hosts[2]),
+                  "node 3 still DOWN")
+        rejoin_s = time.perf_counter() - t
+        check(not servers[0].executor.pending_hint_hosts(),
+              "hints left after the rejoin")
+        conns[2].close()
+        conns[2] = conn_of(hosts[2])
+        got = client.execute_query(hosts[2], "i", f"Count({r3})",
+                                   slices=[s_h], remote=True)
+        w = int(np.count_nonzero(r3_ids // SLICE_WIDTH == s_h)) + 1
+        check(got == [w], f"node 3's copy of slice {s_h}: {got} != {w}")
+        for k, c in enumerate(conns):
+            got = http_query(c, f"Count({r3})")
+            check(got == [n3 + 1], f"node {k} after the rejoin: {got}")
+        launches = add_counts(launches, launch_counts())
+
+        # Node 3 as a process of its own on the card: a write through it
+        # to a slice node 1 holds no copy of, read through node 1 with
+        # memos and the response cache in their default state.
+        servers[2].close()
+        servers[2] = None
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PILOSA_TPU_RESULT_MEMO",
+                            "PILOSA_TPU_RESPONSE_CACHE")}
+        device = [] if DEVICE == "cuda" else ["--device", DEVICE]
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-d",
+             os.path.join(root, names[2]), "-b", hosts[2], *device,
+             "--cluster-hosts", ",".join(hosts), "--replicas",
+             str(CLUSTER_REPLICAS)], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        _listening_line(proc, 180)
+        proc_s = time.perf_counter() - t
+        reader = servers[0]
+        check(not reader.executor._result_memo_off
+              and reader.executor.memos_off(),
+              "node 1's memos are not in their default state on a cluster")
+        s_p = next(s for s in range(slices) if hosts[0] not in
+                   [n.host for n in cl.fragment_nodes("i", s)])
+        col = s_p * SLICE_WIDTH + int(np.flatnonzero(
+            np.unpackbits((~slice_words(seed, s_p)[2]).view(np.uint8),
+                          bitorder="little"))[0])
+        q2 = QUERIES[1][0]
+        for _ in range(2):
+            check(http_query(conns[0], q2) == [want[1]], "before the write")
+        pconn = conn_of(hosts[2])
+        got = http_query(pconn, f'SetBit(frame="f", rowID=2, '
+                                f'columnID={col})')
+        check(got == [True], f"SetBit through the process node: {got}")
+        pconn.close()
+        for _ in range(2):
+            got = http_query(conns[0], q2)
+            check(got == [want[1] + 1], f"node 1 after the process node's "
+                  f"write: {got} != {want[1] + 1}")
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=60) == 0, "the process node's exit code")
+        proc = None
+        for c in conns:
+            c.close()
+    finally:
+        if memo_env is not None:
+            os.environ["PILOSA_TPU_RESULT_MEMO"] = memo_env
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        client.close()
+        for s in servers:
+            if s is not None:
+                s.close()
+    peak = peak_bytes()
+    check(DEVICE != "cuda" or all(launches[n] for n in QUERY_KERNELS),
+          f"a kernel never launched in the cluster phase: {launches}")
+    print(f"cluster {card}: {CLUSTER_NODES} nodes, replicas "
+          f"{CLUSTER_REPLICAS}, {slices} slices, one process: open and "
+          f"first round {open_s:.2f} s; first Count(Intersect) through "
+          f"node 1 {first_s:.2f} s (one node holding every slice: "
+          f"{one_first_s:.2f} s); warm Count(Intersect) over HTTP through "
+          f"node 1 p50 {p50:.3f} ms, p90 {p90:.3f} ms (one node: p50 "
+          f"{one_p50:.3f} ms, p90 {one_p90:.3f} ms; n={CLUSTER_WARM} each, "
+          f"host clock); of it, node 3's leg alone (protobuf over HTTP, "
+          f"{len(prim[2])} slices) p50 {leg_ms:.3f} ms and node 1's own "
+          f"leg in process ({len(prim[0])} slices) p50 {local_ms:.3f} ms "
+          f"(host clock to torch.cuda.synchronize()); failover: the first 8 Counts after node 3 closed "
+          f"{failover_s:.2f} s; rejoin (open, round, schema push, replay) "
+          f"{rejoin_s:.2f} s; process node listening in {proc_s:.1f} s; "
+          f"local-leg launches by node {json.dumps(per_node)}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--slices", type=int, default=MAIN_SLICES,
@@ -4312,8 +4701,8 @@ def main():
                     help="phase 10's slices (a measurement option)")
     ap.add_argument("--only", default="",
                     help="comma-separated phases of 4, 4g, 5, 6, 8a, 8b, "
-                         "7, 9, 10 and 11 to run, without phase 3 and the "
-                         "result lines (a measurement option)")
+                         "7, 9, 10, 11 and 12 to run, without phase 3 and "
+                         "the result lines (a measurement option)")
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     t_start = time.perf_counter()
@@ -4359,12 +4748,12 @@ def main():
         stats["container_and_counts"] = container_checks(card)
         stats["ingest_classify"] = ingest_checks(card)
 
-    # Phases 4-11: the main path, Count and bitmap results (then under a
+    # Phases 4-12: the main path, Count and bitmap results (then under a
     # host budget), TopN, BSI, the HTTP server over their data directory
     # and the CLI, then time windows, the chemical-similarity shape, the
-    # sparse index and bulk ingest, each read with the launch counts
-    # reset just before it. Phases 7, 9, 10 and 11 have data
-    # directories of their own.
+    # sparse index, bulk ingest and the cluster, each read with the
+    # launch counts reset just before it. Phases 7, 9, 10, 11 and 12
+    # have data directories of their own.
     datadir = os.path.join(HERE, ".smoke_data")
     shutil.rmtree(datadir, ignore_errors=True)
     oracle = {}
@@ -4411,13 +4800,15 @@ def main():
               args.seed, datadir, card)
         shutil.rmtree(datadir, ignore_errors=True)
         phase("11", "11", ingest_path, args.seed, datadir, card)
+        shutil.rmtree(datadir, ignore_errors=True)
+        phase("12", "12", cluster_path, args.seed, datadir, card)
     finally:
         shutil.rmtree(datadir, ignore_errors=True)
     if phase_launches:
         total = phase_launches[0]
         for counts in phase_launches[1:]:
             total = add_counts(total, counts)
-        print(f"launches by regime, phases {sorted(only) if only else '4-11'}"
+        print(f"launches by regime, phases {sorted(only) if only else '4-12'}"
               f" (8b's subprocess not counted): "
               f"{json.dumps(total['regimes'])}; container_and_counts by "
               f"form {json.dumps(total['container_forms'])} {card}")

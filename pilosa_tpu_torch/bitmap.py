@@ -139,14 +139,20 @@ class Bitmap:
         internal/public.proto Bitmap.Bits), segments on ``device``."""
         bm = cls()
         columns = np.asarray(columns, dtype=np.uint64)
-        slices = columns // np.uint64(SLICE_WIDTH)
-        for s in np.unique(slices).tolist():
-            cols = (columns[slices == s] % np.uint64(SLICE_WIDTH)).astype(
-                np.int64)
-            bits = np.zeros(SLICE_WIDTH, dtype=np.uint8)
-            bits[cols] = 1
-            words = np.packbits(bits, bitorder="little").view(np.int32)
-            bm.segments[int(s)] = torch.from_numpy(words).to(device)
+        if len(columns) == 0:
+            return bm
+        # One scatter into uint64 words of every slice present and one
+        # upload; a slice's segment is its row of the upload (a
+        # coordinator merges a peer's million ids this way).
+        ids, pos = np.unique(columns // np.uint64(SLICE_WIDTH),
+                             return_inverse=True)
+        off = columns % np.uint64(SLICE_WIDTH)
+        words = np.zeros((len(ids), WORDS_PER_SLICE // 2), dtype=np.uint64)
+        np.bitwise_or.at(words, (pos, (off >> np.uint64(6)).astype(np.intp)),
+                         np.uint64(1) << (off & np.uint64(63)))
+        rows = torch.from_numpy(words.view(np.int32)).to(device)
+        for i, s in enumerate(ids.tolist()):
+            bm.segments[int(s)] = rows[i]
         return bm
 
     # ------------------------------------------------------------- algebra

@@ -32,12 +32,19 @@ def cmd_server(args):
     p.add_argument("-b", "--bind", default=DEFAULT_HOST)
     p.add_argument("--device", default="cuda",
                    help="torch device of the holder (default cuda)")
+    p.add_argument("--cluster-hosts", default=None,
+                   help="every node's host:port, comma-separated, this "
+                        "node's bind among them")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="owners of each slice (default 1)")
     opts = p.parse_args(args)
 
     from pilosa_tpu_torch.server.server import Server
 
+    hosts = [h for h in (opts.cluster_hosts or "").split(",") if h]
     server = Server(os.path.expanduser(opts.data_dir), bind=opts.bind,
-                    device=opts.device).open()
+                    device=opts.device, cluster_hosts=hosts or None,
+                    replica_n=opts.replicas).open()
     print(f"pilosa-tpu listening as {server.scheme}://{server.host}",
           flush=True)
     stop = threading.Event()
@@ -129,8 +136,10 @@ def _import_keyed(client, opts):
 def cmd_import(args):
     """CSV import: ``row,col[,timestamp]`` lines (epoch seconds), or
     ``col,value`` lines into the BSI field ``--field``, posted one slice
-    per request; with ``-k``, ``rowKey,columnKey[,timestamp]`` lines of
-    string keys (ref: ctl/import.go:33-252)."""
+    per request to each owner of the slice that ``--host`` names (GET
+    /fragment/nodes; ref: ctl/import.go:33-252, client.go:278-428);
+    with ``-k``, ``rowKey,columnKey[,timestamp]`` lines of string keys
+    to ``--host``."""
     p = argparse.ArgumentParser(prog="import")
     p.add_argument("--host", default=DEFAULT_HOST)
     p.add_argument("-i", "--index", required=True)
@@ -166,6 +175,14 @@ def cmd_import(args):
         groups = np.split(np.arange(len(rows)),
                           np.flatnonzero(np.diff(slices)) + 1)
         n = 0
+        cluster = len(client.hosts(opts.host)) > 1
+
+        def owners(slice_num):
+            if not cluster:
+                return [opts.host]
+            return [f"{o['scheme']}://{o['host']}" for o in
+                    client.fragment_nodes(opts.host, opts.index, slice_num)]
+
         if opts.field and len(rows):
             # The field is created if absent, sized to the values.
             vals = rows[:, 1]
@@ -176,17 +193,18 @@ def cmd_import(args):
             if not len(g):
                 continue
             slice_num = int(slices[g[0]])
-            if opts.field:
-                client.import_values(opts.host, opts.index, opts.frame,
-                                     slice_num, opts.field,
-                                     rows[g, 0].tolist(),
-                                     rows[g, 1].tolist())
-            else:
-                tss = rows[g, 2]
-                client.import_bits(opts.host, opts.index, opts.frame,
-                                   slice_num, rows[g, 0].tolist(),
-                                   rows[g, 1].tolist(),
-                                   tss.tolist() if tss.any() else None)
+            for node in owners(slice_num):
+                if opts.field:
+                    client.import_values(node, opts.index, opts.frame,
+                                         slice_num, opts.field,
+                                         rows[g, 0].tolist(),
+                                         rows[g, 1].tolist())
+                else:
+                    tss = rows[g, 2]
+                    client.import_bits(node, opts.index, opts.frame,
+                                       slice_num, rows[g, 0].tolist(),
+                                       rows[g, 1].tolist(),
+                                       tss.tolist() if tss.any() else None)
             n += len(g)
     finally:
         client.close()

@@ -1,2 +1,3 @@
-"""Node-to-node plumbing (counterpart of pilosa_tpu/cluster); only the
-HTTP client of one node's public API so far."""
+"""Node-to-node plumbing (counterpart of pilosa_tpu/cluster): static
+topology and slice placement, the internal HTTP client, the metadata
+broadcast plane and heartbeat membership."""

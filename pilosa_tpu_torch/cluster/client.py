@@ -1,13 +1,19 @@
-"""HTTP client of one node's public API: the calls the CLI makes (ref:
-client.go; counterpart of the single-node subset of
-pilosa_tpu/cluster/client.py ``InternalClient``).
+"""Internal HTTP client — the node-to-node query plane and the calls the
+CLI makes (ref: client.go; counterpart of the part of
+pilosa_tpu/cluster/client.py ``InternalClient`` that the static cluster
+and the CLI use).
 
-A node is ``host:port`` or an ``http://host:port`` URL. One keep-alive
-connection per node is reused across requests; a connection the server
-closed between two requests is replaced once.
+A node is a ``cluster.Node``, ``host:port`` or an ``http://host:port``
+URL. Keep-alive connections are pooled per node (TCP_NODELAY: the
+internal plane is request/response ping-pong); a pooled connection the
+peer closed between two requests is replaced once. A timeout never
+retries — the peer may still be executing the request — and raises
+``ClientError`` with ``timed_out`` set, as every transport failure
+raises ``ClientError``.
 """
 import http.client
 import json
+import socket
 import threading
 import urllib.parse
 
@@ -16,19 +22,25 @@ from pilosa_tpu_torch.server import wireproto
 
 
 class ClientError(Exception):
-    """``status`` is the HTTP status when one was received."""
+    """``status`` is the HTTP status when one was received; ``timed_out``
+    marks a socket timeout."""
 
-    def __init__(self, msg, status=None):
+    def __init__(self, msg, status=None, timed_out=False):
         super().__init__(msg)
         self.status = status
+        self.timed_out = timed_out
 
 
 def _netloc(node):
-    """``host:port`` of ``host:port`` or an ``http://`` URL."""
-    u = urllib.parse.urlsplit(node if "://" in node else f"http://{node}")
-    if u.scheme != "http":
-        raise ValueError(f"unsupported scheme: {u.scheme}")
-    return u.netloc
+    """``host:port`` of a Node, ``host:port`` or an ``http://`` URL."""
+    if hasattr(node, "host"):
+        scheme, loc = getattr(node, "scheme", "http"), node.host
+    else:
+        u = urllib.parse.urlsplit(node if "://" in node else f"http://{node}")
+        scheme, loc = u.scheme, u.netloc
+    if scheme != "http":
+        raise ValueError(f"unsupported scheme: {scheme}")
+    return loc
 
 
 def _path(path, **params):
@@ -38,71 +50,135 @@ def _path(path, **params):
 
 
 class InternalClient:
+    # Idle connections kept per node: the replica fan-out plus the
+    # membership probes, without hoarding descriptors.
+    POOL_PER_HOST = 8
+
     def __init__(self, timeout=30):
         self.timeout = timeout
         self._mu = threading.Lock()
-        self._conns = {}  # netloc -> idle HTTPConnection
+        self._conns = {}  # netloc -> [idle HTTPConnection]
 
     def close(self):
         with self._mu:
-            conns, self._conns = list(self._conns.values()), {}
-        for c in conns:
+            pools, self._conns = list(self._conns.values()), {}
+        for idle in pools:
+            for c in idle:
+                c.close()
+
+    def _checkout(self, netloc, timeout, fresh):
+        """A pooled connection to ``netloc``, or a new one; ``fresh``
+        (the retry after a stale keep-alive) drops the node's idle list,
+        every connection of which a restarted peer closed."""
+        with self._mu:
+            idle = self._conns.get(netloc)
+            if fresh:
+                stale, self._conns[netloc] = idle or [], []
+                conn = None
+            else:
+                stale = []
+                conn = idle.pop() if idle else None
+        for c in stale:
             c.close()
+        if conn is None:
+            return http.client.HTTPConnection(netloc, timeout=timeout)
+        conn.timeout = timeout
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        return conn
+
+    def _checkin(self, netloc, conn):
+        with self._mu:
+            idle = self._conns.setdefault(netloc, [])
+            if len(idle) < self.POOL_PER_HOST:
+                idle.append(conn)
+                return
+        conn.close()
 
     def _do(self, method, node, path, body=None,
-            content_type="application/json"):
-        """-> (status, body bytes). A request on a reused connection
-        that the server has closed is sent again on a fresh one."""
+            content_type="application/json", accept=None, timeout=None):
+        """-> (status, body bytes, content type)."""
         netloc = _netloc(node)
         headers = {"Content-Type": content_type} if body is not None else {}
+        if accept:
+            headers["Accept"] = accept
+        t = timeout or self.timeout
         for attempt in (0, 1):
-            with self._mu:
-                conn = self._conns.pop(netloc, None)
-            reused = conn is not None
-            if conn is None:
-                conn = http.client.HTTPConnection(netloc,
-                                                  timeout=self.timeout)
+            conn = self._checkout(netloc, t, fresh=attempt > 0)
+            reused = conn.sock is not None
             try:
+                if not reused:
+                    conn.connect()
+                    conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                         socket.TCP_NODELAY, 1)
                 conn.request(method, path, body=body, headers=headers)
                 resp = conn.getresponse()
                 data = resp.read()
-            except (http.client.RemoteDisconnected, BrokenPipeError,
-                    ConnectionResetError):
+            except socket.timeout as e:
+                conn.close()
+                raise ClientError(f"{method} {netloc}{path}: {e}",
+                                  timed_out=True) from e
+            except (http.client.HTTPException, OSError) as e:
                 conn.close()
                 if reused and attempt == 0:
-                    continue
-                raise
+                    continue  # stale keep-alive: once more, fresh
+                raise ClientError(f"{method} {netloc}{path}: {e}") from e
             except BaseException:
                 conn.close()
                 raise
             if resp.will_close:
                 conn.close()
             else:
-                with self._mu:
-                    self._conns.setdefault(netloc, conn)
-            return resp.status, data
+                self._checkin(netloc, conn)
+            return resp.status, data, resp.getheader("Content-Type", "")
 
-    def _json(self, method, node, path, payload=None):
+    def _json(self, method, node, path, payload=None, timeout=None):
         body = json.dumps(payload).encode() if payload is not None else None
-        status, data = self._do(method, node, path, body)
+        status, data, _ = self._do(method, node, path, body, timeout=timeout)
         if status >= 400:
             raise ClientError(f"{method} {path}: {status}: {data!r}",
                               status=status)
         return json.loads(data) if data else {}
 
-    # --------------------------------------------------------------- DDL
+    # ------------------------------------------------------------ queries
+
+    def execute_query(self, node, index, query, slices=None, remote=False,
+                      exclude_attrs=False, exclude_bits=False, timeout=None):
+        """POST /index/{i}/query as a protobuf QueryRequest (ref:
+        client.go:227-276) -> the decoded results: ints, bools, pairs,
+        ``SumCount``s, None, and ``{"bits", "attrs"}`` dicts for bitmaps.
+        A query error the peer reports raises ClientError."""
+        body = wireproto.encode_query_request(
+            str(query), slices=slices, remote=remote,
+            exclude_attrs=exclude_attrs, exclude_bits=exclude_bits)
+        path = f"/index/{index}/query"
+        status, data, ctype = self._do(
+            "POST", node, path, body, content_type=wireproto.CONTENT_TYPE,
+            accept=wireproto.CONTENT_TYPE, timeout=timeout)
+        if ctype != wireproto.CONTENT_TYPE:
+            raise ClientError(f"POST {path}: {status}: {data[:200]!r}",
+                              status=status)
+        resp = wireproto.decode_query_response(data)
+        if resp["error"]:
+            raise ClientError(resp["error"], status=status)
+        if status >= 400:
+            raise ClientError(f"POST {path}: {status}", status=status)
+        return resp["results"]
+
+    # ---------------------------------------------------------------- DDL
 
     def ensure_index(self, node, index, opts=None):
-        status, data = self._do("POST", node, f"/index/{index}",
-                                json.dumps({"options": opts or {}}).encode())
+        status, data, _ = self._do(
+            "POST", node, f"/index/{index}",
+            json.dumps({"options": opts or {}}).encode())
         if status >= 400 and status != 409:
             raise ClientError(f"POST /index/{index}: {status}: {data!r}",
                               status=status)
 
     def ensure_frame(self, node, index, frame, opts=None):
         path = f"/index/{index}/frame/{frame}"
-        status, data = self._do("POST", node, path,
-                                json.dumps({"options": opts or {}}).encode())
+        status, data, _ = self._do(
+            "POST", node, path, json.dumps({"options": opts or {}}).encode())
         if status >= 400 and status != 409:
             raise ClientError(f"POST {path}: {status}: {data!r}",
                               status=status)
@@ -110,17 +186,22 @@ class InternalClient:
     def ensure_field(self, node, index, frame, field, min_val=0, max_val=0):
         """Create an int field; one that exists already is no error."""
         path = f"/index/{index}/frame/{frame}/field/{field}"
-        status, data = self._do("POST", node, path, json.dumps(
+        status, data, _ = self._do("POST", node, path, json.dumps(
             {"type": "int", "min": min_val, "max": max_val}).encode())
         if status >= 400 and str(perr.ErrFieldExists()).encode() not in data:
             raise ClientError(f"POST {path}: {status}: {data!r}",
                               status=status)
 
-    # ------------------------------------------------------------ import
+    def post_schema(self, node, indexes):
+        """Merge ``indexes`` (``Holder.schema(include_meta=True)``) into
+        the node's schema: the rejoin push."""
+        self._json("POST", node, "/schema", {"indexes": indexes})
+
+    # ------------------------------------------------------------- import
 
     def _post_pb(self, node, path, body):
-        status, data = self._do("POST", node, path, body,
-                                wireproto.CONTENT_TYPE)
+        status, data, _ = self._do("POST", node, path, body,
+                                   wireproto.CONTENT_TYPE)
         if status >= 400:
             raise ClientError(f"POST {path}: {status}: {data!r}",
                               status=status)
@@ -148,17 +229,66 @@ class InternalClient:
                           index, frame, slice_num, field, column_ids,
                           values))
 
-    # ------------------------------------------------------------- reads
+    # -------------------------------------------------------------- reads
 
-    def max_slices(self, node):
-        """{index: max slice} of the standard views."""
+    def max_slices(self, node, inverse=False):
+        """{index: max slice} of the standard (or inverse) views."""
         return {k: int(v) for k, v in self._json(
-            "GET", node, "/slices/max")["maxSlices"].items()}
+            "GET", node, _path("/slices/max",
+                               inverse="true" if inverse else None)
+        )["maxSlices"].items()}
+
+    def fragment_nodes(self, node, index, slice_num):
+        """[{host, scheme}] of the slice's owners, primary first."""
+        return self._json("GET", node, _path("/fragment/nodes", index=index,
+                                             slice=slice_num))
+
+    def hosts(self, node):
+        """[{host, ...}] of the node's cluster (itself when alone)."""
+        return self._json("GET", node, "/hosts")
+
+    def status(self, node):
+        return self._json("GET", node, "/status")["status"]
 
     def export_csv(self, node, index, frame, view, slice_num):
         path = _path("/export", index=index, frame=frame, view=view,
                      slice=slice_num)
-        status, data = self._do("GET", node, path)
+        status, data, _ = self._do("GET", node, path)
         if status >= 400:
             raise ClientError(f"GET {path}: {status}", status=status)
         return data.decode()
+
+    # ------------------------------------------------ membership, messages
+
+    def probe(self, node, timeout=None):
+        """True iff the node's /id answers 200; any failure is False."""
+        try:
+            return self._do("GET", node, "/id", timeout=timeout)[0] == 200
+        except ClientError:
+            return False
+
+    def heartbeat(self, node, status, timeout=None):
+        """POST our compact node status to /internal/heartbeat and return
+        the peer's; raises ClientError on a transport failure or a
+        non-200 answer."""
+        return self._json("POST", node, "/internal/heartbeat", status,
+                          timeout=timeout)
+
+    def indirect_probe(self, helper, target, timeout=8):
+        """Ask ``helper`` to probe ``target`` (the SWIM indirect ping)."""
+        out = self._json("GET", helper, _path("/internal/probe",
+                                              host=target.host),
+                         timeout=timeout)
+        return bool(out.get("ok"))
+
+    def send_message(self, node, msg, timeout=None):
+        """POST /cluster/message in the reference's envelope: one type
+        byte and a protobuf body (ref: server.go:444-465,
+        broadcast.go:139)."""
+        status, data, _ = self._do(
+            "POST", node, "/cluster/message",
+            wireproto.encode_cluster_message(msg),
+            content_type=wireproto.CONTENT_TYPE, timeout=timeout)
+        if status >= 400:
+            raise ClientError(f"POST /cluster/message: {status}: {data!r}",
+                              status=status)

@@ -105,3 +105,10 @@ class DeadlineExceeded(Exception):
 
     def __init__(self, msg="deadline exceeded"):
         super().__init__(msg)
+
+
+class SliceUnavailableError(Exception):
+    """No live node owns a slice a query must read (ref: pilosa_tpu
+    executor.py:152). Not a PilosaError: the handler's panic recovery
+    answers it with 500, as the reference's does; a query never answers
+    from the slices that remain."""

@@ -115,12 +115,28 @@ deeper Count tree stays batched alone
 and, in a coalesced group, fuses densely within the group's densify
 budget (``CO_DENSIFY_BYTES``); ``CO_COMPRESSED = False`` serves
 all-compressed groups singly.
+
+On a static cluster (``Executor(holder, cluster, client)``; ref:
+pilosa_tpu executor.py:665-910, 5551-5750) a read fans out from the
+node that received it: each slice goes to its first live owner, this
+node's slices run the paths above on its own card, each peer's run as a
+``remote=true`` subquery over HTTP+protobuf on the fan-out pool, and the
+partials reduce here (counts as Python ints). A peer whose leg fails
+leaves the node list and its slices go to a replica; with none left the
+query raises (``SliceUnavailableError`` or the failure), never answering
+from part of the slices. TopN fans out each phase (a peer answers phase
+1 alone). Writes go to every owner of their slice, attribute writes to
+every node; an owner membership holds DOWN is hinted the write and
+replays it on rejoin; a query of SetBit, ClearBit or SetFieldValue calls
+goes to each owner as one query. The result memos, the response cache
+and the universe memo are off there (``memos_off``): a peer's write does
+not move this node's epoch.
 """
 import itertools
 import os
 import threading
 import time
-from collections import namedtuple
+from collections import deque, namedtuple
 from datetime import datetime
 
 import numpy as np
@@ -134,8 +150,13 @@ from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers as containers_mod
 from pilosa_tpu_torch.ops import topn as topn_ops
-from pilosa_tpu_torch.plancache import RANGE_MARK, PlanCache, slice_key
-from pilosa_tpu_torch.pql import Condition, parse
+from pilosa_tpu_torch.plancache import (
+    RANGE_MARK,
+    PlanCache,
+    as_slice_list,
+    slice_key,
+)
+from pilosa_tpu_torch.pql import Condition, Query, parse
 from pilosa_tpu_torch.storage.fragment import TopOptions, residency_generation
 from pilosa_tpu_torch.storage.view import (
     VIEW_FIELD_PREFIX,
@@ -143,6 +164,7 @@ from pilosa_tpu_torch.storage.view import (
     VIEW_STANDARD,
     view_field_name,
 )
+from pilosa_tpu_torch.utils import fanpool
 
 DEFAULT_FRAME = "general"        # ref: executor.go:31
 MIN_THRESHOLD = 1                # ref: executor.go:33-35
@@ -173,10 +195,14 @@ PRIO_INTERACTIVE = 1
 
 
 class ExecOptions:
-    """Per-request options (ref: ExecOptions executor.go): a bitmap
-    result without its attributes or without its bits."""
+    """Per-request options (ref: ExecOptions executor.go): ``remote``
+    marks a coordinator's subquery, run on the given slices of this node
+    alone and never fanned out again; a bitmap result without its
+    attributes or without its bits."""
 
-    def __init__(self, exclude_attrs=False, exclude_bits=False):
+    def __init__(self, remote=False, exclude_attrs=False,
+                 exclude_bits=False):
+        self.remote = remote
         self.exclude_attrs = exclude_attrs
         self.exclude_bits = exclude_bits
 
@@ -278,9 +304,33 @@ class Executor:
 
     _CO_PENDING = object()   # a coalescer request not served yet
 
-    def __init__(self, holder):
+    # Writes hinted for one DOWN peer; beyond it the oldest drop (ref:
+    # pilosa_tpu executor.py HINTS_MAX_PER_PEER).
+    HINTS_MAX_PER_PEER = 10_000
+    SLICES_BY_NODE_MEMO_MAX = 16
+
+    def __init__(self, holder, cluster=None, client=None, stack_bytes=None):
         self.holder = holder
         self.device = holder.device
+        # On a cluster: the topology and the internal client of the
+        # fan-out and of routed writes (None: one node); the server sets
+        # this node's host once it is bound.
+        self.cluster = cluster
+        self.client = client
+        self.host = None
+        # Several executors may share one card (an in-process cluster):
+        # each then gets a share of its memory.
+        if stack_bytes:
+            self.STACK_CACHE_BYTES = stack_bytes
+        # The fan-out's node tasks run on parked threads; none exist
+        # until the first multi-node query.
+        self._fan_pool = fanpool.FanoutPool()
+        self._sbn_memo = {}
+        # Hinted handoff: writes a DOWN owner missed, by host, replayed
+        # when membership sees it again.
+        self._hints = {}
+        self._hints_dropped = 0
+        self._hints_mu = threading.Lock()
         # Operator opt-out of the window economy (one fixed width).
         self._fixed_full_window = os.environ.get(
             "PILOSA_TPU_FULL_WIN", "").lower() in ("1", "true", "yes")
@@ -318,6 +368,10 @@ class Executor:
         # guarded by _co_mu (the leader alone writes _co_stats).
         self._co_expired = 0
 
+    def close(self):
+        """Release the fan-out pool's parked threads."""
+        self._fan_pool.close()
+
     def execute(self, index, query, slices=None, opt=None):
         """(ref: Executor.Execute executor.go:62-151) → one result per
         call. ``slices`` pins the slice list of every read; ``opt`` is an
@@ -334,7 +388,11 @@ class Executor:
                 and all(c.name == "SetRowAttrs" for c in query.calls)):
             # One attribute-store transaction per frame (ref:
             # hasOnlySetRowAttrs executor.go:117-120).
-            return self._execute_bulk_set_row_attrs(index, query.calls)
+            return self._execute_bulk_set_row_attrs(index, query.calls, opt)
+        if len(query.calls) > 1 and self._fans_out(opt):
+            results = self._burst_fanout(index, idx, query.calls)
+            if results is not None:
+                return results
         results = []
         for c in query.calls:
             call_slices = slices
@@ -350,8 +408,14 @@ class Executor:
         index's slice universes, memoized on its epoch."""
         frame = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
         row_label = frame.row_label if frame else "rowID"
+        inverse = call.is_inverse(row_label, idx.column_label)
+        if self._multi_node():
+            # Peers' writes move the universe (create-slice messages)
+            # without moving this node's epoch: read it every query.
+            top = idx.max_inverse_slice() if inverse else idx.max_slice()
+            return as_slice_list(range(top + 1))
         std, inv = self.plans.slice_universe(index, idx)
-        return inv if call.is_inverse(row_label, idx.column_label) else std
+        return inv if inverse else std
 
     def _epoch(self, index):
         """The index's mutation epoch, or None when it does not exist."""
@@ -375,33 +439,41 @@ class Executor:
         if name not in KNOWN_CALLS:
             raise ValueError(f"unknown call: {name}")
         if name == "SetBit":
-            return self._execute_set_bit(index, call, set_value=True)
+            return self._execute_set_bit(index, call, opt, set_value=True)
         if name == "ClearBit":
-            return self._execute_set_bit(index, call, set_value=False)
+            return self._execute_set_bit(index, call, opt, set_value=False)
         if name == "SetFieldValue":
-            return self._execute_set_field_value(index, call)
+            return self._execute_set_field_value(index, call, opt)
         if name == "SetRowAttrs":
-            return self._execute_set_row_attrs(index, call)
+            return self._execute_set_row_attrs(index, call, opt)
         if name == "SetColumnAttrs":
-            return self._execute_set_column_attrs(index, call)
+            return self._execute_set_column_attrs(index, call, opt)
         if name == "Count":
-            return self._execute_count(index, call, slices)
+            return self._execute_count(index, call, slices, opt)
         if name == "TopN":
-            return self._execute_topn(index, call, slices)
+            return self._execute_topn(index, call, slices, opt)
         if name in ("Sum", "Average"):
-            return self._execute_sum(index, call, slices)
+            return self._execute_sum(index, call, slices, opt)
         if name in ("Min", "Max"):
-            return self._execute_min_max(index, call, slices,
+            return self._execute_min_max(index, call, slices, opt,
                                          find_max=name == "Max")
         # every remaining KNOWN_CALLS member returns a bitmap
         return self._execute_bitmap_call(index, call, slices, opt)
 
     # ------------------------------------------------------ map/reduce
 
-    def _map_reduce(self, slices, map_fn, reduce_fn, batch_fn):
-        """Single-node map/reduce (ref: mapReduce executor.go:1444-1535):
-        the batched path unless pinned serial, absent or ineligible
-        (None)."""
+    def _multi_node(self):
+        """A cluster of more than one node this executor can reach."""
+        return (self.cluster is not None and len(self.cluster.nodes) > 1
+                and self.client is not None)
+
+    def _fans_out(self, opt):
+        return not opt.remote and self._multi_node()
+
+    def _local_exec(self, slices, map_fn, reduce_fn, batch_fn):
+        """This node's part of a map/reduce (ref: mapReduce
+        executor.go:1444-1535, mapperLocal): the batched path unless
+        pinned serial, absent or ineligible (None)."""
         if self._force_path != "serial" and batch_fn is not None:
             out = batch_fn(slices)
             if out is not None:
@@ -410,6 +482,174 @@ class Executor:
         for s in slices:
             result = reduce_fn(result, map_fn(s))
         return result
+
+    def _map_reduce(self, index, slices, call, opt, map_fn, reduce_fn,
+                    batch_fn, local_fn=None):
+        """Map ``call`` over ``slices`` and reduce. One node, or a
+        remote subquery: this node's local execution alone (``local_fn``
+        when given, else ``_local_exec``). A coordinator on a cluster
+        fans out: each live owner runs its slices — this node through
+        ``local_fn``, a peer through a ``remote=true`` subquery — and
+        the partials reduce here."""
+        local = local_fn or (lambda ns: self._local_exec(
+            ns, map_fn, reduce_fn, batch_fn))
+        if not self._fans_out(opt):
+            return local(slices)
+        return self._fanout_map_reduce(index, slices, call, local,
+                                       reduce_fn)
+
+    def _fanout_map_reduce(self, index, slices, call, local, reduce_fn):
+        """(ref: pilosa_tpu executor.py _fanout_map_reduce, without the
+        mesh plane, hedging and breakers.) Rounds until every slice is
+        answered: slices map to their first live owner, each node's
+        task runs on the fan-out pool, and a node whose task failed
+        leaves the round's node list, its slices going to a replica in
+        the next round. With no live owner left for them the query
+        raises the failure; it never answers from part of the slices. A
+        query error (the same on every replica) raises at once."""
+        ns = self.cluster.node_set
+        nodes = ns.nodes() if ns is not None else []
+        nodes = nodes or list(self.cluster.nodes)
+        result = None
+        pending = list(slices)
+        while pending:
+            by_node = self._slices_by_node(nodes, index, pending)
+            responses = []
+            lock = threading.Lock()
+
+            def run(node, node_slices):
+                try:
+                    if node.host == self.host:
+                        out = local(node_slices)
+                    else:
+                        out = self._remote_execute(node, index, call,
+                                                   node_slices)
+                    res = (node, node_slices, out, None)
+                except Exception as exc:  # noqa: BLE001 — failover below
+                    res = (node, node_slices, None, exc)
+                with lock:
+                    responses.append(res)
+
+            fanpool.wait_all([
+                self._fan_pool.run(lambda n=node, ns_=node_slices: run(n, ns_))
+                for node, node_slices in by_node.items()])
+            pending = []
+            for node, node_slices, value, exc in responses:
+                if exc is None:
+                    result = reduce_fn(result, value)
+                    continue
+                if isinstance(exc, (perr.PilosaError, ValueError)):
+                    raise exc
+                # Failover (ref: executor.go:1487-1500): drop the node,
+                # remap its slices to the replicas that remain.
+                nodes = [n for n in nodes if n != node]
+                try:
+                    self._slices_by_node(nodes, index, node_slices)
+                except perr.SliceUnavailableError:
+                    raise exc
+                pending.extend(node_slices)
+        return result
+
+    def _slices_by_node(self, nodes, index, slices):
+        """{node: its slices}: each slice to its first owner present in
+        ``nodes`` (ref: slicesByNode executor.go:1424-1441); raises
+        SliceUnavailableError for a slice no node of ``nodes`` owns.
+        The full contiguous range of an index — every query's input —
+        is memoized per (topology, node list, index, range); the
+        slice lists it hands out are shared and never mutated."""
+        key = None
+        if len(slices) > 32 and slice_key(slices)[0] == RANGE_MARK:
+            key = (self.cluster.topology_state(),
+                   tuple(n.host for n in nodes), index,
+                   slices[0], slices[-1])
+            hit = self._sbn_memo.get(key)
+            if hit is not None:
+                return dict(hit)
+        m = {}
+        for s in slices:
+            for node in self.cluster.fragment_nodes(index, s):
+                if node in nodes:
+                    m.setdefault(node, []).append(s)
+                    break
+            else:
+                raise perr.SliceUnavailableError()
+        if key is not None:
+            if len(self._sbn_memo) >= self.SLICES_BY_NODE_MEMO_MAX:
+                self._sbn_memo.clear()
+            self._sbn_memo[key] = m
+            return dict(m)
+        return m
+
+    def _remote_execute(self, node, index, call, node_slices):
+        """One peer's partial: ``call`` as a ``remote=true`` subquery
+        over its slices (ref: executor.go:2236-2242). A bitmap comes
+        back as its columns and lands on this node's device; its
+        attributes are the coordinator's to add. A query error the peer
+        answered with 400 raises as this query's error."""
+        from pilosa_tpu_torch.cluster.client import ClientError
+
+        try:
+            out = self.client.execute_query(
+                node, index, Query([call]), slices=node_slices, remote=True,
+                exclude_attrs=True)[0]
+        except ClientError as e:
+            if e.status == 400:
+                raise perr.PilosaError(str(e)) from e
+            raise
+        if isinstance(out, dict):
+            return Bitmap.from_columns(out["bits"], device=self.device)
+        return out
+
+    def _node_is_down(self, node):
+        ns = self.cluster.node_set if self.cluster else None
+        return ns is not None and hasattr(ns, "is_down") and ns.is_down(
+            node.host)
+
+    # --------------------------------------------------- hinted handoff
+
+    def _hint(self, node, index, call):
+        """Keep a write a DOWN owner missed, for replay on its rejoin
+        (the reference fails such a write; pilosa_tpu hints it)."""
+        with self._hints_mu:
+            q = self._hints.get(node.host)
+            if q is None:
+                q = self._hints[node.host] = deque(
+                    maxlen=self.HINTS_MAX_PER_PEER)
+            if len(q) == q.maxlen:
+                self._hints_dropped += 1
+            q.append((index, call))
+
+    def pending_hint_hosts(self):
+        with self._hints_mu:
+            return sorted(h for h, q in self._hints.items() if q)
+
+    def replay_hints(self, node, client):
+        """Replay the writes hinted for ``node``: consecutive calls of
+        one index as one query of at most MAX_WRITES_PER_REQUEST calls;
+        a batch that fails is retried call by call, and only the calls
+        that fail again are hinted anew (ref: pilosa_tpu
+        executor.py:418-457)."""
+        with self._hints_mu:
+            hints = list(self._hints.pop(node.host, ()))
+        i = 0
+        while i < len(hints):
+            index = hints[i][0]
+            j = i
+            while (j < len(hints) and hints[j][0] == index
+                   and j - i < MAX_WRITES_PER_REQUEST):
+                j += 1
+            try:
+                client.execute_query(
+                    node, index, Query([c for _, c in hints[i:j]]),
+                    remote=True)
+            except Exception:  # noqa: BLE001 — retried call by call
+                for _, call in hints[i:j]:
+                    try:
+                        client.execute_query(node, index, Query([call]),
+                                             remote=True)
+                    except Exception:  # noqa: BLE001 — hinted again
+                        self._hint(node, index, call)
+            i = j
 
     @staticmethod
     def _windowed_batch(batch_fn, reduce_fn):
@@ -434,9 +674,10 @@ class Executor:
 
     # ------------------------------------------------------------ Count
 
-    def _execute_count(self, index, call, slices):
+    def _execute_count(self, index, call, slices, opt):
         """(ref: executeCount executor.go:859-889): the result memo, then
-        the coalescer's tick, then the batched or serial path."""
+        the coalescer's tick, then the batched or serial path; on a
+        cluster the partials are Python ints, so no total wraps."""
         if len(call.children) != 1:
             raise ValueError("Count() only accepts a single bitmap input")
         child = call.children[0]
@@ -446,7 +687,7 @@ class Executor:
 
         def compute():
             return self._map_reduce(
-                slices,
+                index, slices, call, opt,
                 lambda s: self._count_call_slice(index, child, s),
                 reduce_fn,
                 self._windowed_batch(
@@ -515,7 +756,8 @@ class Executor:
             batch_fn = self._windowed_batch(
                 lambda ns: self._batched_bitmap(index, call, ns), reduce_fn)
         bm = self._map_reduce(
-            slices, lambda s: self._bitmap_call_slice(index, call, s),
+            index, slices, call, opt,
+            lambda s: self._bitmap_call_slice(index, call, s),
             reduce_fn, batch_fn)
         if bm is None:
             bm = Bitmap()
@@ -1148,7 +1390,7 @@ class Executor:
         makes the entry stale on arrival, never wrong. Bypassed (read and
         write) under PILOSA_TPU_RESULT_MEMO=0 and a pinned _force_path,
         so that measurements time execution, not dict lookups."""
-        if self._result_memo_off or self._force_path is not None:
+        if self.memos_off():
             return compute()
         pkey = (kind, index, str(call), slice_key(slices))
         hit = self._result_memo_get(pkey)
@@ -1160,12 +1402,21 @@ class Executor:
             self._topn_counts_memoize(pkey, enc(out), epoch)
         return out
 
+    def memos_off(self):
+        """Whether the result memos (and the server's response cache)
+        are off: by PILOSA_TPU_RESULT_MEMO=0, under a pinned _force_path,
+        and on a cluster of more than one node, where a peer's write
+        does not move this node's epoch (ref: pilosa_tpu gates them on
+        the cluster's epoch vector, cluster/epochs.py, not ported yet)."""
+        return (self._result_memo_off or self._force_path is not None
+                or self._multi_node())
+
     def _result_memo_get(self, key):
         """The memoized array of ``key`` (key[1] is its index) while the
         index's epoch equals the stored one, else None; a stale entry is
         dropped when found (epochs never return). The one kill switch of
         the whole-result and TopN count memos."""
-        if self._result_memo_off or self._force_path is not None:
+        if self.memos_off():
             return None
         with self._cache_mu:
             hit = self._result_memo.get(key)
@@ -1201,7 +1452,7 @@ class Executor:
         pilosa_tpu executor.py:4213), least recently used first out of
         RESULT_MEMO_BYTES; an entry over RESULT_MEMO_ENTRY_MAX is not
         kept. Callers treat the kept array as immutable. Returns it."""
-        if self._result_memo_off or self._force_path is not None:
+        if self.memos_off():
             return counts
         cost = counts.nbytes + self._memo_key_cost(key)
         if cost > self.RESULT_MEMO_ENTRY_MAX:
@@ -1241,7 +1492,7 @@ class Executor:
         bm = self._bitmap_call_slice(index, call.children[0], slice_num)
         return bm.device_words(slice_num, self.device)
 
-    def _execute_sum(self, index, call, slices):
+    def _execute_sum(self, index, call, slices, opt):
         """Sum and Average (ref: executeSum executor.go:328-366): the
         SumCount of the field's values, ∩ the filter tree when given."""
         if call.args.get("field") is None:
@@ -1254,7 +1505,7 @@ class Executor:
 
         def compute():
             return self._map_reduce(
-                slices,
+                index, slices, call, opt,
                 lambda s: self._execute_sum_count_slice(index, call, s),
                 reduce_fn,
                 self._windowed_batch(
@@ -1280,7 +1531,7 @@ class Executor:
         vsum, vcount = frag.field_sum(filt, field.bit_depth())
         return SumCount(vsum + vcount * field.min, vcount)
 
-    def _execute_min_max(self, index, call, slices, find_max):
+    def _execute_min_max(self, index, call, slices, opt, find_max):
         """Min/Max over a BSI field (ref: executeMinMax): per-slice
         extrema reduced on the host, empty partials skipped, or one
         global descent on the batched path."""
@@ -1316,7 +1567,7 @@ class Executor:
 
         def compute():
             return self._map_reduce(
-                slices, map_fn, reduce_fn,
+                index, slices, call, opt, map_fn, reduce_fn,
                 self._windowed_batch(
                     lambda ns: self._coalesced_min_max(index, call, ns,
                                                        find_max),
@@ -2001,21 +2252,22 @@ class Executor:
 
     # ------------------------------------------------------------- TopN
 
-    def _execute_topn(self, index, call, slices):
+    def _execute_topn(self, index, call, slices, opt):
         """Two-phase TopN (ref: executeTopN executor.go:369-406):
         approximate per-slice candidates, then an exact re-query of the
         merged ids, trimmed to n. A call with ``ids`` is phase 2 alone
-        and is never trimmed."""
+        and is never trimmed; a remote subquery answers phase 1 alone,
+        and its coordinator re-queries the ids over every node."""
         _, has_ids = call.uint_slice_arg("ids")
         n, _ = call.uint_arg("n")
 
         def compute():
-            pairs = self._topn_map_reduce(index, call, slices, has_ids)
-            if not pairs or has_ids:
+            pairs = self._topn_map_reduce(index, call, slices, has_ids, opt)
+            if not pairs or has_ids or opt.remote:
                 return pairs
             other = call.clone()
             other.args["ids"] = sorted(rid for rid, _ in pairs)
-            trimmed = self._topn_map_reduce(index, other, slices, True)
+            trimmed = self._topn_map_reduce(index, other, slices, True, opt)
             return trimmed[:n] if n else trimmed
 
         if has_ids:
@@ -2027,20 +2279,29 @@ class Executor:
                 -1, 2),
             dec=lambda a: [(int(r), int(c)) for r, c in a])
 
-    def _topn_map_reduce(self, index, call, slices, has_ids):
+    def _topn_map_reduce(self, index, call, slices, has_ids, opt):
+        """One phase over every node: this node's slices through
+        ``_topn_map_reduce_exec``, its src-less discovery memoized."""
         if (not has_ids and not call.children
                 and self._force_path is None):
-            return self._topn_discovery_memoized(index, call, slices)
-        return self._topn_map_reduce_exec(index, call, slices, has_ids)
+            local = lambda ns: self._topn_discovery_memoized(  # noqa: E731
+                index, call, ns)
+        else:
+            local = lambda ns: self._topn_map_reduce_exec(  # noqa: E731
+                index, call, ns, has_ids)
+        return self._map_reduce(index, slices, call, opt, None, pairs_add,
+                                None, local_fn=local) or []
 
     def _topn_discovery_memoized(self, index, call, slices):
         """Src-less discovery (phase 1 without a Src reads host cache
-        metadata fragment by fragment, ~25 µs a fragment) memoized on
-        the index's epoch (ref: pilosa_tpu executor.py:5153). Not a
-        result memo: phase 2's exact re-count still runs per query. The
-        epoch is read before the walk, so a racing write makes the entry
-        stale on arrival, never wrong; more than 100,000 pairs are not
-        kept."""
+        metadata fragment by fragment, ~25 µs a fragment) over this
+        node's slices, memoized on the index's epoch (ref: pilosa_tpu
+        executor.py:5153): every write to a fragment this node holds
+        runs here and moves that epoch, so an entry never spans a peer's
+        data. Not a result memo: phase 2's exact re-count still runs per
+        query. The epoch is read before the walk, so a racing write makes
+        the entry stale on arrival, never wrong; more than 100,000 pairs
+        are not kept."""
         key = ("topn1", index, str(call), slice_key(slices))
         epoch = self._epoch(index)
         with self._cache_mu:
@@ -2059,6 +2320,7 @@ class Executor:
         return out
 
     def _topn_map_reduce_exec(self, index, call, slices, has_ids):
+        """One phase over this node's ``slices``."""
         frame_name = call.args.get("frame") or DEFAULT_FRAME
         allowed = self._topn_attr_allowed(index, call, frame_name)
 
@@ -2067,7 +2329,7 @@ class Executor:
                 return self._batched_topn_ids(index, call, ns, allowed)
             return self._batched_topn_phase1(index, call, ns, allowed)
 
-        return self._map_reduce(
+        return self._local_exec(
             slices,
             lambda s: self._execute_topn_slice(index, call, s, allowed),
             pairs_add, self._windowed_batch(batch_fn, pairs_add)) or []
@@ -2268,10 +2530,11 @@ class Executor:
 
     # ---------------------------------------------------- SetBit/ClearBit
 
-    def _execute_set_bit(self, index, call, set_value):
+    def _execute_set_bit(self, index, call, opt, set_value):
         """(ref: executeSetBit executor.go:985-1056, executeClearBit :891):
         the standard view, plus the inverse view of inverse-enabled
-        frames; with a ``timestamp``, each view's time views too."""
+        frames; with a ``timestamp``, each view's time views too. On a
+        cluster each view's bit goes to every owner of its slice."""
         verb = "SetBit" if set_value else "ClearBit"
         view = call.args.get("view") or ""
         frame_name = call.args.get("frame")
@@ -2307,17 +2570,139 @@ class Executor:
             raise perr.ErrInvalidView()
         changed = False
         for view_name, c, r in views:
-            if set_value:
-                changed |= frame.set_bit(view_name, r, c, timestamp)
-            else:
-                changed |= frame.clear_bit(view_name, r, c, timestamp)
+            def local(v=view_name, c=c, r=r):
+                if set_value:
+                    return frame.set_bit(v, r, c, timestamp)
+                return frame.clear_bit(v, r, c, timestamp)
+
+            changed |= self._route_write(index, call, opt, c // SLICE_WIDTH,
+                                         local)
         return changed
+
+    def _route_write(self, index, call, opt, slice_num, local):
+        """A write to every owner of ``slice_num`` (ref: executeSetBitView
+        executor.go:1059-1088): ``local()`` here when this node owns the
+        slice, ``call`` as a ``remote=true`` query to each other owner —
+        hinted instead when membership holds it DOWN — and the owners'
+        "changed" answers ORed. A remote subquery writes only here."""
+        if not self._multi_node():
+            return bool(local())
+        changed = False
+        for node in self.cluster.fragment_nodes(index, slice_num):
+            if node.host == self.host:
+                changed |= bool(local())
+            elif opt.remote:
+                continue
+            elif self._node_is_down(node):
+                self._hint(node, index, call)
+            else:
+                res = self.client.execute_query(node, index, Query([call]),
+                                                remote=True)
+                changed |= bool(res[0])
+        return changed
+
+    def _burst_fanout(self, index, idx, calls):
+        """A coordinator's query of SetBit calls, of ClearBit calls or of
+        SetFieldValue calls, grouped by owner (ref: pilosa_tpu
+        executor.py _burst_fanout): this node applies its calls in order,
+        each other owner gets its calls as one ``remote=true`` query (a
+        DOWN one has them hinted), the owners run in parallel, and each
+        call's "changed" is ORed over its owners. None when a call is not
+        plain — an inverse-enabled frame, a view or a timestamp, an id or
+        value the per-call path would refuse — so that path answers, with
+        its errors, before anything is written."""
+        kind = calls[0].name
+        if (kind not in ("SetBit", "ClearBit", "SetFieldValue")
+                or any(c.name != kind for c in calls)):
+            return None
+        slices = []
+        for c in calls:
+            frame_name = c.args.get("frame")
+            frame = (idx.frame(frame_name) if isinstance(frame_name, str)
+                     else None)
+            if frame is None:
+                return None
+            try:
+                col, col_ok = c.uint_arg(idx.column_label)
+                if kind == "SetFieldValue":
+                    (fname, value), = [(k, v) for k, v in c.args.items()
+                                       if k not in ("frame",
+                                                    idx.column_label)]
+                    field = frame.field(fname)
+                    ok = (not isinstance(value, bool)
+                          and isinstance(value, int)
+                          and field.min <= value <= field.max)
+                else:
+                    _, ok = c.uint_arg(frame.row_label)
+                    ok = (ok and not frame.inverse_enabled
+                          and len(c.args) == 3)
+            except (ValueError, perr.PilosaError):
+                return None
+            if not (ok and col_ok):
+                return None
+            slices.append(col // SLICE_WIDTH)
+        by_host, nodes = {}, {}
+        for k, s in enumerate(slices):
+            for node in self.cluster.fragment_nodes(index, s):
+                nodes[node.host] = node
+                by_host.setdefault(node.host, []).append(k)
+        bits = kind != "SetFieldValue"
+        results = [False if bits else None] * len(calls)
+        errors = []
+        lock = threading.Lock()
+        local = ExecOptions(remote=True)
+
+        def run(host, ks):
+            node = nodes[host]
+            try:
+                if host == self.host:
+                    out = [self._execute_call(index, calls[k], None, local)
+                           for k in ks]
+                elif self._node_is_down(node):
+                    for k in ks:
+                        self._hint(node, index, calls[k])
+                    return
+                else:
+                    out = self.client.execute_query(
+                        node, index, Query([calls[k] for k in ks]),
+                        remote=True)
+                if bits:
+                    with lock:
+                        for k, changed in zip(ks, out):
+                            results[k] = results[k] or bool(changed)
+            except Exception as exc:  # noqa: BLE001 — raised below
+                with lock:
+                    errors.append(exc)
+
+        fanpool.wait_all([
+            self._fan_pool.run(lambda h=host, ks=ks: run(h, ks))
+            for host, ks in by_host.items()])
+        if errors:
+            raise errors[0]
+        return results
+
+    def _broadcast_write(self, index, calls, opt):
+        """An attribute write to every other node, one query a peer
+        (ref: executeSetRowAttrs executor.go:1164-1220); hinted for a
+        peer membership holds DOWN."""
+        if opt.remote or not self._multi_node():
+            return
+        for node in self.cluster.nodes:
+            if node.host == self.host:
+                continue
+            if self._node_is_down(node):
+                for call in calls:
+                    self._hint(node, index, call)
+                continue
+            self.client.execute_query(node, index, Query(list(calls)),
+                                      remote=True)
 
     # ------------------------------------------------------ SetFieldValue
 
-    def _execute_set_field_value(self, index, call):
-        """(ref: executeSetFieldValue executor.go:1091-1161), one node:
-        each ``field=value`` argument is written; the result is None."""
+    def _execute_set_field_value(self, index, call, opt):
+        """(ref: executeSetFieldValue executor.go:1091-1161): each
+        ``field=value`` argument is written, on every owner of the
+        column's slice; the result is None."""
         frame_name = call.args.get("frame")
         if not isinstance(frame_name, str):
             raise ValueError("SetFieldValue() field required: frame")
@@ -2334,10 +2719,13 @@ class Executor:
         if not fields:
             raise ValueError("SetFieldValue() at least one field "
                              "value is required")
-        for fname, value in fields.items():
-            if isinstance(value, bool) or not isinstance(value, int):
-                raise perr.ErrInvalidFieldValueType()
-            frame.set_field_value(col_id, fname, value)
+        def local():
+            for fname, value in fields.items():
+                if isinstance(value, bool) or not isinstance(value, int):
+                    raise perr.ErrInvalidFieldValueType()
+                frame.set_field_value(col_id, fname, value)
+
+        self._route_write(index, call, opt, col_id // SLICE_WIDTH, local)
         return None
 
     # ------------------------------------------------------ attributes
@@ -2370,16 +2758,19 @@ class Executor:
         return frame, row_id, self._attrs_from_args(
             call, ("frame", frame.row_label))
 
-    def _execute_set_row_attrs(self, index, call):
-        """(ref: executeSetRowAttrs executor.go:1164-1220), one node."""
+    def _execute_set_row_attrs(self, index, call, opt):
+        """(ref: executeSetRowAttrs executor.go:1164-1220): here, then on
+        every other node."""
         frame, row_id, attrs = self._row_attrs_call(
             self.holder.index(index), call)
         frame.row_attr_store.set_attrs(row_id, attrs)
+        self._broadcast_write(index, [call], opt)
         return None
 
-    def _execute_bulk_set_row_attrs(self, index, calls):
+    def _execute_bulk_set_row_attrs(self, index, calls, opt):
         """SetRowAttrs calls grouped into one ``set_bulk_attrs`` per
-        frame (ref: executeBulkSetRowAttrs executor.go:1222-1308)."""
+        frame (ref: executeBulkSetRowAttrs executor.go:1222-1308), the
+        whole query then sent to every other node."""
         idx = self.holder.index(index)
         by_frame = {}
         for call in calls:
@@ -2388,10 +2779,12 @@ class Executor:
                 row_id, {}).update(attrs)
         for frame_name, attr_map in by_frame.items():
             idx.frame(frame_name).row_attr_store.set_bulk_attrs(attr_map)
+        self._broadcast_write(index, calls, opt)
         return [None] * len(calls)
 
-    def _execute_set_column_attrs(self, index, call):
-        """(ref: executeSetColumnAttrs executor.go), one node."""
+    def _execute_set_column_attrs(self, index, call, opt):
+        """(ref: executeSetColumnAttrs executor.go): here, then on every
+        other node."""
         idx = self.holder.index(index)
         col_id, ok = call.uint_arg(idx.column_label)
         if not ok:
@@ -2400,4 +2793,5 @@ class Executor:
                 "required")
         attrs = self._attrs_from_args(call, (idx.column_label, "frame"))
         idx.column_attr_store.set_attrs(col_id, attrs)
+        self._broadcast_write(index, [call], opt)
         return None

@@ -24,6 +24,16 @@ route ``POST /index/{i}/ingest`` (binary columnar or JSON bodies through
 ``ingest/pipeline.py``; its body may exceed the request cap, up to a
 2 GiB ceiling) and ``POST /index/{i}/input/{def}`` through a stored
 input definition.
+
+On a cluster (``cluster`` and ``broadcaster`` given): a query with
+``remote`` set runs on this node's slices alone; schema DDL is sent to
+every live peer; ``POST /cluster/message`` receives peers' DDL and
+create-slice messages; ``POST /internal/heartbeat`` exchanges membership
+status and ``GET /internal/probe`` probes a member for a peer;
+``/status``, ``/hosts`` and ``/fragment/nodes`` describe the cluster,
+and ``/import`` and ``/import-value`` refuse a slice this node does not
+own (412). Keyed imports and bulk ingest wait for their coordinators on
+a cluster of more than one node and answer 501 there.
 """
 import io
 import json
@@ -41,6 +51,7 @@ import numpy as np
 from pilosa_tpu_torch import SLICE_WIDTH, __version__
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.bitmap import Bitmap
+from pilosa_tpu_torch.cluster.broadcast import NopBroadcaster
 from pilosa_tpu_torch.executor import ExecOptions, SumCount
 from pilosa_tpu_torch.ingest import codec as ingest_codec
 from pilosa_tpu_torch.ingest.pipeline import IngestError
@@ -92,11 +103,14 @@ class Handler:
     ``(status, content_type, payload)``."""
 
     def __init__(self, holder, executor, local_host=None,
-                 version=__version__, ingest=None):
+                 version=__version__, ingest=None, cluster=None,
+                 broadcaster=None):
         self.holder = holder
         self.executor = executor
         self.local_host = local_host
         self.version = version
+        self.cluster = cluster
+        self.broadcaster = broadcaster or NopBroadcaster()
         # The bulk-ingest pipeline; None: the ingest route answers 501.
         self.ingest = ingest
         self._resp_cache = None  # enable_response_cache
@@ -106,6 +120,7 @@ class Handler:
             ("GET", idx + r"/query$", self.method_not_allowed),
             ("GET", r"^/index$", self.get_schema),
             ("GET", r"^/schema$", self.get_schema),
+            ("POST", r"^/schema$", self.post_schema),
             ("GET", r"^/status$", self.get_status),
             ("GET", r"^/debug/vars$", self.get_debug_vars),
             ("GET", r"^/version$", self.get_version),
@@ -145,6 +160,10 @@ class Handler:
             ("GET", r"^/fragment/nodes$", self.get_fragment_nodes),
             ("POST", r"^/recalculate-caches$",
              self.post_recalculate_caches),
+            ("POST", r"^/cluster/message$", self.post_cluster_message),
+            ("POST", r"^/internal/heartbeat$",
+             self.post_internal_heartbeat),
+            ("GET", r"^/internal/probe$", self.get_internal_probe),
         ]]
 
     def enable_response_cache(self):
@@ -163,9 +182,7 @@ class Handler:
         """-> (status, content_type, payload bytes)."""
         cache = self._resp_cache
         key = epoch = None
-        if (cache is not None
-                and not self.executor._result_memo_off
-                and self.executor._force_path is None
+        if (cache is not None and not self.executor.memos_off()
                 and cache.cacheable(method, path, body)):
             key = cache.make_key(path, query_params, body, headers)
             hit = cache.get(key)
@@ -211,7 +228,8 @@ class Handler:
                 raise HTTPError(400, "unmarshal body error")
             q_string = req["query"]
             slices = req.get("slices") or None
-            opt = ExecOptions(exclude_attrs=req.get("exclude_attrs", False),
+            opt = ExecOptions(remote=req.get("remote", False),
+                              exclude_attrs=req.get("exclude_attrs", False),
                               exclude_bits=req.get("exclude_bits", False))
         else:
             q_string = body.decode()
@@ -220,6 +238,7 @@ class Handler:
             if sl:
                 slices = [int(s) for s in sl[0].split(",") if s]
             opt = ExecOptions(
+                remote=qp.get("remote", ["false"])[0] == "true",
                 exclude_attrs=qp.get("excludeAttrs", ["false"])[0] == "true",
                 exclude_bits=qp.get("excludeBits", ["false"])[0] == "true")
         if not q_string:
@@ -246,10 +265,40 @@ class Handler:
     def get_schema(self, params, qp, body, headers):
         return _json(200, {"indexes": self.holder.schema()})
 
+    def post_schema(self, params, qp, body, headers):
+        """Merge a peer's schema, create-only (the rejoin push)."""
+        schema = json.loads(body or b"{}")
+        self.holder.apply_schema(schema.get("indexes", []))
+        return _OK
+
     def get_status(self, params, qp, body, headers):
-        """The single-node JSON status (ref: handler.go handleGetStatus)."""
-        return _json(200, {"status": {"state": "NORMAL", "nodes": [],
-                                      "indexes": self.holder.schema()}})
+        """(ref: handler.go handleGetStatus): JSON with the cluster's
+        nodes and their UP/DOWN states, or, asked for protobuf, the
+        reference's NodeStatus bytes (private.proto:127-132)."""
+        if "protobuf" in headers.get("Accept", ""):
+            schema = self.holder.schema(include_meta=True)
+            max_slices = self.holder.max_slices()
+            for idx in schema:
+                idx["maxSlice"] = max_slices.get(idx["name"], 0)
+            me = (self.cluster.node_by_host(self.local_host)
+                  if self.cluster and self.local_host else None)
+            return 200, PROTOBUF, wireproto.encode_node_status({
+                "host": self.local_host or "", "state": "NORMAL",
+                "scheme": me.scheme if me is not None else "http",
+                "indexes": schema})
+        status = {"state": "NORMAL",
+                  "nodes": self.cluster.status()["nodes"] if self.cluster
+                  else [],
+                  "indexes": self.holder.schema()}
+        if self.cluster:
+            states = self.cluster.node_states()
+            status["nodeStates"] = states
+            # The reference's wire shape: Go marshals ClusterStatus with
+            # capitalized keys (docs/getting-started.md:37).
+            status["Nodes"] = [{"Host": n.host,
+                                "State": states.get(n.host, "UP")}
+                               for n in self.cluster.nodes]
+        return _json(200, {"status": status})
 
     def get_debug_vars(self, params, qp, body, headers):
         """The serving tiers' counters (ref: pilosa_tpu handler
@@ -267,6 +316,8 @@ class Handler:
         return _json(200, {"version": self.version})
 
     def get_hosts(self, params, qp, body, headers):
+        if self.cluster:
+            return _json(200, self.cluster.status()["nodes"])
         return _json(200, [{"host": self.local_host or "localhost"}])
 
     def get_id(self, params, qp, body, headers):
@@ -280,9 +331,27 @@ class Handler:
         return _json(200, {"maxSlices": m})
 
     def get_fragment_nodes(self, params, qp, body, headers):
-        """(ref: handler.go:1366): this node owns every slice."""
+        """(ref: handler.go:1366): the slice's owners, primary first."""
+        if self.cluster:
+            index = qp.get("index", [""])[0]
+            slice_num = int(qp.get("slice", ["0"])[0])
+            return _json(200, [{"host": n.host, "scheme": n.scheme}
+                               for n in self.cluster.fragment_nodes(
+                                   index, slice_num)])
         return _json(200, [{"host": self.local_host or "localhost",
                             "scheme": "http"}])
+
+    def _multi_node(self):
+        return self.cluster is not None and len(self.cluster.nodes) > 1
+
+    def _check_slice_ownership(self, index, slice_num):
+        """(ref: handler.go:1199-1203)."""
+        if self.cluster and self.local_host and not \
+                self.cluster.owns_fragment(self.local_host, index, slice_num):
+            raise HTTPError(412, "host does not own slice")
+
+    def _broadcast(self, msg):
+        self.broadcaster.send_sync(msg)
 
     # ----------------------------------------------------------- indexes
 
@@ -307,10 +376,13 @@ class Handler:
                 time_quantum=opts.get("timeQuantum", ""))
         except perr.ErrIndexExists as e:
             raise HTTPError(409, str(e))
+        self._broadcast({"type": "create-index", "index": params["index"],
+                         "options": opts})
         return _OK
 
     def delete_index(self, params, qp, body, headers):
         self.holder.delete_index(params["index"])
+        self._broadcast({"type": "delete-index", "index": params["index"]})
         return _OK
 
     def patch_index_time_quantum(self, params, qp, body, headers):
@@ -333,10 +405,14 @@ class Handler:
                 params["frame"], FrameOptions.from_dict(opts))
         except perr.ErrFrameExists as e:
             raise HTTPError(409, str(e))
+        self._broadcast({"type": "create-frame", "index": params["index"],
+                         "frame": params["frame"], "options": opts})
         return _OK
 
     def delete_frame(self, params, qp, body, headers):
         self._index(params["index"]).delete_frame(params["frame"])
+        self._broadcast({"type": "delete-frame", "index": params["index"],
+                         "frame": params["frame"]})
         return _OK
 
     def patch_frame_time_quantum(self, params, qp, body, headers):
@@ -349,11 +425,15 @@ class Handler:
         field = Field(params["field"], opts.get("type", "int"),
                       opts.get("min", 0), opts.get("max", 0))
         self._frame(params["index"], params["frame"]).create_field(field)
+        self._broadcast({"type": "create-field", "index": params["index"],
+                         "frame": params["frame"], "field": field.to_dict()})
         return _OK
 
     def delete_field(self, params, qp, body, headers):
         self._frame(params["index"], params["frame"]).delete_field(
             params["field"])
+        self._broadcast({"type": "delete-field", "index": params["index"],
+                         "frame": params["frame"], "field": params["field"]})
         return _OK
 
     def get_fields(self, params, qp, body, headers):
@@ -377,6 +457,8 @@ class Handler:
             fr.delete_view(params["view"])
         except perr.ErrInvalidView:
             pass
+        self._broadcast({"type": "delete-view", "index": params["index"],
+                         "frame": params["frame"], "view": params["view"]})
         return _OK
 
     # ------------------------------------------------------------ import
@@ -406,7 +488,11 @@ class Handler:
             ts = [datetime.fromtimestamp(t) if t else None
                   for t in timestamps]
         if req.get("rowKeys") or req.get("columnKeys"):
+            if self._multi_node():
+                raise HTTPError(501, "keyed import on a cluster is not "
+                                     "supported yet")
             return self._post_import_keyed(req["index"], fr, req, ts)
+        self._check_slice_ownership(req["index"], int(req.get("slice", 0)))
         self._require(req, "rowIDs", "columnIDs")
         fr.import_bits(req["rowIDs"], req["columnIDs"], ts)
         return _OK
@@ -439,6 +525,7 @@ class Handler:
             req = json.loads(body)
         self._require(req, "index", "frame", "field", "columnIDs",
                       "values")
+        self._check_slice_ownership(req["index"], int(req.get("slice", 0)))
         fr = self._frame(req["index"], req["frame"])
         fr.import_value(req["field"], req["columnIDs"], req["values"])
         return _OK
@@ -454,6 +541,9 @@ class Handler:
         if self.ingest is None:
             raise HTTPError(
                 501, "ingest pipeline disabled ([ingest] enabled)")
+        if self._multi_node():
+            raise HTTPError(501, "bulk ingest on a cluster is not "
+                                 "supported yet")
         index = params["index"]
         if headers.get("Content-Type") == ingest_codec.CONTENT_TYPE:
             try:
@@ -534,6 +624,104 @@ class Handler:
                     bitorder="little")) + base
                 out.write("".join(f"{row_id},{c}\n" for c in cols.tolist()))
         return 200, "text/csv", out.getvalue().encode()
+
+    # ---------------------------------------------------------- cluster
+
+    def post_cluster_message(self, params, qp, body, headers):
+        """A peer's broadcast (ref: handler.go:2041, Server.ReceiveMessage
+        server.go:359-442) in the reference's envelope: one type byte and
+        a protobuf body."""
+        try:
+            msg = wireproto.decode_cluster_message(body)
+        except (ValueError, IndexError):
+            raise HTTPError(400, "unmarshal body error")
+        self.receive_message(msg)
+        return _OK
+
+    def receive_message(self, msg):
+        """Apply a peer's DDL or create-slice message; one that already
+        holds here is no error."""
+        t = msg.get("type")
+        idx = self.holder.index(msg.get("index", ""))
+        fr = idx.frame(msg.get("frame", "")) if idx is not None else None
+        if t == "create-index":
+            opts = msg.get("options", {})
+            self.holder.create_index_if_not_exists(
+                msg["index"], column_label=opts.get("columnLabel", ""),
+                time_quantum=opts.get("timeQuantum", ""))
+        elif t == "delete-index":
+            if idx is not None:
+                self.holder.delete_index(msg["index"])
+        elif t == "create-frame":
+            if idx is not None:
+                idx.create_frame_if_not_exists(
+                    msg["frame"], FrameOptions.from_dict(
+                        msg.get("options", {})))
+        elif t == "delete-frame":
+            if idx is not None:
+                idx.delete_frame(msg["frame"])
+        elif t == "create-field":
+            if fr is not None:
+                try:
+                    fr.create_field(Field.from_dict(msg["field"]))
+                except perr.ErrFieldExists:
+                    pass
+        elif t == "delete-field":
+            if fr is not None:
+                fr.delete_field(msg["field"])
+        elif t == "delete-view":
+            if fr is not None:
+                try:
+                    fr.delete_view(msg["view"])
+                except perr.ErrInvalidView:
+                    pass
+        elif t == "create-slice":
+            if idx is not None:
+                if msg.get("inverse"):
+                    idx.set_remote_max_inverse_slice(msg["slice"])
+                else:
+                    idx.set_remote_max_slice(msg["slice"])
+        elif t == "create-input-definition":
+            if idx is not None:
+                d = msg["definition"]
+                try:
+                    idx.create_input_definition(
+                        msg["name"], d.get("frames", []),
+                        d.get("fields", []))
+                except perr.ErrInputDefinitionExists:
+                    pass
+        elif t == "delete-input-definition":
+            if idx is not None:
+                idx.delete_input_definition(msg["name"])
+
+    def post_internal_heartbeat(self, params, qp, body, headers):
+        """The membership probe's state exchange (the memberlist
+        push/pull analog): merge the prober's compact status and answer
+        with ours, without the schema when the digests agree."""
+        st = json.loads(body or b"{}")
+        if st:
+            try:
+                self.holder.merge_remote_status(st)
+            except Exception:  # noqa: BLE001 — a malformed peer status
+                traceback.print_exc()  # must not fail the liveness probe
+        local = self.holder.node_status_compact(self.local_host or "")
+        if st.get("schemaDigest") and \
+                st.get("schemaDigest") == local.get("schemaDigest"):
+            local.pop("schema", None)
+        return _json(200, local)
+
+    def get_internal_probe(self, params, qp, body, headers):
+        """Probe a cluster member's /id for a peer (the SWIM indirect
+        ping). Only members are probed: this is no fetch proxy."""
+        host = qp.get("host", [""])[0]
+        if not host:
+            raise HTTPError(400, "host required")
+        node = self.cluster.node_by_host(host) if self.cluster else None
+        if node is None:
+            raise HTTPError(400, "host is not a cluster member")
+        client = self.executor.client
+        ok = client.probe(node, timeout=3) if client is not None else False
+        return _json(200, {"ok": ok})
 
     def post_recalculate_caches(self, params, qp, body, headers):
         """(ref: handler.go:2016): rebuild the TopN caches from storage."""

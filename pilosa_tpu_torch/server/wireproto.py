@@ -7,7 +7,9 @@ Pair, SumCount, Attr:1-6, QueryRequest:1-7, QueryResponse:1-3,
 QueryResult:1-6, ImportRequest:1-8, ImportValueRequest:1-7) so existing
 pilosa protobuf clients interoperate. Implemented from the proto3 wire
 spec (varint / 64-bit / length-delimited); no generated code. The
-cluster messages of private.proto wait for the cluster routes.
+cluster messages of private.proto — the broadcast envelope with its
+schema and input-definition meta, max slices and node status — are
+pilosa_tpu's bytes too.
 """
 import struct
 
@@ -463,3 +465,405 @@ def decode_import_value_request(data):
     req["values"] = [_signed(v) for v in _repeated_uint64(fields, 6)]
     return req
 
+
+
+# ----------------------------------------------- private.proto messages
+# (internal/private.proto:5-153, as pilosa_tpu/server/wireproto.py
+# encodes them: the broadcast envelope, max slices and node status.)
+
+# Broadcast envelope message types (ref: broadcast.go:126-137).
+MSG_CREATE_SLICE = 1
+MSG_CREATE_INDEX = 2
+MSG_DELETE_INDEX = 3
+MSG_CREATE_FRAME = 4
+MSG_DELETE_FRAME = 5
+MSG_CREATE_INPUT_DEFINITION = 6
+MSG_DELETE_INPUT_DEFINITION = 7
+MSG_DELETE_VIEW = 8
+MSG_CREATE_FIELD = 9
+MSG_DELETE_FIELD = 10
+
+
+def _encode_index_meta(opts):
+    """IndexMeta{ColumnLabel:1, TimeQuantum:2}."""
+    return (_tag_string(1, opts.get("columnLabel", ""))
+            + _tag_string(2, opts.get("timeQuantum", "")))
+
+
+def _decode_index_meta(data):
+    out = {"columnLabel": "", "timeQuantum": ""}
+    for field, _, val in _walk(data):
+        if field == 1:
+            out["columnLabel"] = val.decode()
+        elif field == 2:
+            out["timeQuantum"] = val.decode()
+    return out
+
+
+def _encode_schema_field(fd):
+    """Field{Name:1, Type:2, Min:3, Max:4} (private.proto:142-147)."""
+    return (_tag_string(1, fd.get("name", ""))
+            + _tag_string(2, fd.get("type", ""))
+            + _tag_varint(3, fd.get("min", 0) or None)
+            + _tag_varint(4, fd.get("max", 0) or None))
+
+
+def _decode_schema_field(data):
+    out = {"name": "", "type": "", "min": 0, "max": 0}
+    for field, _, val in _walk(data):
+        if field == 1:
+            out["name"] = val.decode()
+        elif field == 2:
+            out["type"] = val.decode()
+        elif field == 3:
+            out["min"] = _signed(val)
+        elif field == 4:
+            out["max"] = _signed(val)
+    return out
+
+
+def _encode_frame_meta(opts):
+    """FrameMeta{RowLabel:1, InverseEnabled:2, CacheType:3,
+    CacheSize:4, TimeQuantum:5, RangeEnabled:6, Fields:7}."""
+    out = _tag_string(1, opts.get("rowLabel", ""))
+    if opts.get("inverseEnabled"):
+        out += _tag_varint(2, 1)
+    out += _tag_string(3, opts.get("cacheType", ""))
+    out += _tag_varint(4, opts.get("cacheSize", 0) or None)
+    out += _tag_string(5, opts.get("timeQuantum", ""))
+    if opts.get("rangeEnabled"):
+        out += _tag_varint(6, 1)
+    for fd in opts.get("fields", []) or []:
+        out += _tag_bytes(7, _encode_schema_field(fd))
+    return out
+
+
+def _decode_frame_meta(data):
+    out = {"rowLabel": "", "inverseEnabled": False, "cacheType": "",
+           "cacheSize": 0, "timeQuantum": "", "rangeEnabled": False,
+           "fields": []}
+    for field, _, val in _walk(data):
+        if field == 1:
+            out["rowLabel"] = val.decode()
+        elif field == 2:
+            out["inverseEnabled"] = bool(val)
+        elif field == 3:
+            out["cacheType"] = val.decode()
+        elif field == 4:
+            out["cacheSize"] = val
+        elif field == 5:
+            out["timeQuantum"] = val.decode()
+        elif field == 6:
+            out["rangeEnabled"] = bool(val)
+        elif field == 7:
+            out["fields"].append(_decode_schema_field(val))
+    return out
+
+
+def _encode_str_u64_map(field_no, mapping):
+    """map<string, uint64> — one length-delimited entry per key, keys
+    sorted for deterministic bytes (Go map order is random; sorting is
+    wire-compatible and testable)."""
+    out = b""
+    for k in sorted(mapping):
+        out += _tag_bytes(field_no,
+                          _tag_string(1, k) + _tag_varint(2, mapping[k]))
+    return out
+
+
+def _decode_str_u64_map(fields, field_no):
+    out = {}
+    for field, _, val in fields:
+        if field != field_no:
+            continue
+        k, v = "", 0
+        for f2, _, v2 in _walk(val):
+            if f2 == 1:
+                k = v2.decode()
+            elif f2 == 2:
+                v = v2
+        out[k] = v
+    return out
+
+
+def _encode_input_action(a):
+    """InputDefinitionAction{Frame:1, ValueDestination:2, ValueMap:3,
+    RowID:4}."""
+    out = _tag_string(1, a.get("frame", ""))
+    out += _tag_string(2, a.get("valueDestination", ""))
+    out += _encode_str_u64_map(3, a.get("valueMap", {}) or {})
+    if a.get("rowID") is not None:
+        out += _tag_varint(4, a["rowID"])
+    return out
+
+
+def _decode_input_action(data):
+    fields = list(_walk(data))
+    out = {"frame": "", "valueDestination": ""}
+    for field, _, val in fields:
+        if field == 1:
+            out["frame"] = val.decode()
+        elif field == 2:
+            out["valueDestination"] = val.decode()
+        elif field == 4:
+            out["rowID"] = val
+    vm = _decode_str_u64_map(fields, 3)
+    if vm:
+        out["valueMap"] = vm
+    return out
+
+
+def _encode_input_field(f):
+    """InputDefinitionField{Name:1, PrimaryKey:2, Actions:3}."""
+    out = _tag_string(1, f.get("name", ""))
+    if f.get("primaryKey"):
+        out += _tag_varint(2, 1)
+    for a in f.get("actions", []) or []:
+        out += _tag_bytes(3, _encode_input_action(a))
+    return out
+
+
+def _decode_input_field(data):
+    out = {"name": "", "primaryKey": False, "actions": []}
+    for field, _, val in _walk(data):
+        if field == 1:
+            out["name"] = val.decode()
+        elif field == 2:
+            out["primaryKey"] = bool(val)
+        elif field == 3:
+            out["actions"].append(_decode_input_action(val))
+    return out
+
+
+def _encode_schema_frame(fr):
+    """Frame{Name:1, Meta:2}."""
+    out = _tag_string(1, fr.get("name", ""))
+    meta = fr.get("options") or fr.get("meta")
+    if meta:
+        out += _tag_bytes(2, _encode_frame_meta(meta))
+    return out
+
+
+def _decode_schema_frame(data):
+    out = {"name": ""}
+    for field, _, val in _walk(data):
+        if field == 1:
+            out["name"] = val.decode()
+        elif field == 2:
+            out["options"] = _decode_frame_meta(val)
+    return out
+
+
+def _encode_input_definition(name, d):
+    """InputDefinition{Name:1, Frames:2, Fields:3}."""
+    out = _tag_string(1, name)
+    for fr in d.get("frames", []) or []:
+        out += _tag_bytes(2, _encode_schema_frame(fr))
+    for f in d.get("fields", []) or []:
+        out += _tag_bytes(3, _encode_input_field(f))
+    return out
+
+
+def _decode_input_definition(data):
+    name = ""
+    d = {"frames": [], "fields": []}
+    for field, _, val in _walk(data):
+        if field == 1:
+            name = val.decode()
+        elif field == 2:
+            d["frames"].append(_decode_schema_frame(val))
+        elif field == 3:
+            d["fields"].append(_decode_input_field(val))
+    return name, d
+
+
+def encode_cluster_message(msg):
+    """JSON-shaped broadcast dict → reference envelope (1 type byte +
+    protobuf; ref: MarshalMessage broadcast.go:139-173)."""
+    t = msg.get("type")
+    if t == "create-slice":
+        body = (_tag_string(1, msg["index"]) + _tag_varint(2, msg["slice"])
+                + (_tag_varint(3, 1) if msg.get("inverse") else b""))
+        typ = MSG_CREATE_SLICE
+    elif t == "create-index":
+        body = _tag_string(1, msg["index"])
+        meta = _encode_index_meta(msg.get("options", {}) or {})
+        if meta:
+            body += _tag_bytes(2, meta)
+        typ = MSG_CREATE_INDEX
+    elif t == "delete-index":
+        body = _tag_string(1, msg["index"])
+        typ = MSG_DELETE_INDEX
+    elif t == "create-frame":
+        body = _tag_string(1, msg["index"]) + _tag_string(2, msg["frame"])
+        meta = _encode_frame_meta(msg.get("options", {}) or {})
+        if meta:
+            body += _tag_bytes(3, meta)
+        typ = MSG_CREATE_FRAME
+    elif t == "delete-frame":
+        body = _tag_string(1, msg["index"]) + _tag_string(2, msg["frame"])
+        typ = MSG_DELETE_FRAME
+    elif t == "create-field":
+        body = (_tag_string(1, msg["index"]) + _tag_string(2, msg["frame"])
+                + _tag_bytes(3, _encode_schema_field(msg["field"])))
+        typ = MSG_CREATE_FIELD
+    elif t == "delete-field":
+        body = (_tag_string(1, msg["index"]) + _tag_string(2, msg["frame"])
+                + _tag_string(3, msg["field"]))
+        typ = MSG_DELETE_FIELD
+    elif t == "delete-view":
+        body = (_tag_string(1, msg["index"]) + _tag_string(2, msg["frame"])
+                + _tag_string(3, msg["view"]))
+        typ = MSG_DELETE_VIEW
+    elif t == "create-input-definition":
+        body = _tag_string(1, msg["index"]) + _tag_bytes(
+            3, _encode_input_definition(msg["name"],
+                                        msg.get("definition", {})))
+        typ = MSG_CREATE_INPUT_DEFINITION
+    elif t == "delete-input-definition":
+        body = _tag_string(1, msg["index"]) + _tag_string(2, msg["name"])
+        typ = MSG_DELETE_INPUT_DEFINITION
+    else:
+        raise ValueError(f"message type not implemented: {t}")
+    return bytes([typ]) + body
+
+
+def decode_cluster_message(data):
+    """Reference envelope → the JSON-shaped dict receive_message eats
+    (ref: UnmarshalMessage broadcast.go:175-196)."""
+    if not data:
+        raise ValueError("empty cluster message")
+    typ, body = data[0], data[1:]
+    fields = list(_walk(body))
+
+    def s(field_no):
+        for f, _, v in fields:
+            if f == field_no:
+                return v.decode()
+        return ""
+
+    def u(field_no):
+        for f, _, v in fields:
+            if f == field_no:
+                return v
+        return 0
+
+    def sub(field_no):
+        for f, _, v in fields:
+            if f == field_no:
+                return v
+        return b""
+
+    if typ == MSG_CREATE_SLICE:
+        return {"type": "create-slice", "index": s(1), "slice": u(2),
+                "inverse": bool(u(3))}
+    if typ == MSG_CREATE_INDEX:
+        return {"type": "create-index", "index": s(1),
+                "options": _decode_index_meta(sub(2))}
+    if typ == MSG_DELETE_INDEX:
+        return {"type": "delete-index", "index": s(1)}
+    if typ == MSG_CREATE_FRAME:
+        return {"type": "create-frame", "index": s(1), "frame": s(2),
+                "options": _decode_frame_meta(sub(3))}
+    if typ == MSG_DELETE_FRAME:
+        return {"type": "delete-frame", "index": s(1), "frame": s(2)}
+    if typ == MSG_CREATE_FIELD:
+        return {"type": "create-field", "index": s(1), "frame": s(2),
+                "field": _decode_schema_field(sub(3))}
+    if typ == MSG_DELETE_FIELD:
+        return {"type": "delete-field", "index": s(1), "frame": s(2),
+                "field": s(3)}
+    if typ == MSG_DELETE_VIEW:
+        return {"type": "delete-view", "index": s(1), "frame": s(2),
+                "view": s(3)}
+    if typ == MSG_CREATE_INPUT_DEFINITION:
+        name, d = _decode_input_definition(sub(3))
+        return {"type": "create-input-definition", "index": s(1),
+                "name": name, "definition": d}
+    if typ == MSG_DELETE_INPUT_DEFINITION:
+        return {"type": "delete-input-definition", "index": s(1),
+                "name": s(2)}
+    raise ValueError(f"unknown cluster message type {typ}")
+
+
+def encode_max_slices_response(max_slices):
+    """MaxSlicesResponse{MaxSlices:1 map<string,uint64>}."""
+    return _encode_str_u64_map(1, max_slices)
+
+
+def decode_max_slices_response(data):
+    return _decode_str_u64_map(list(_walk(data)), 1)
+
+
+# NodeStatus / ClusterStatus (private.proto:127-136) — the gossip
+# state-exchange payload; ours rides the same bytes over HTTP.
+
+def encode_schema_index(idx):
+    """Index{Name:1, Meta:2, MaxSlice:3, Frames:4, Slices:5,
+    InputDefinitions:6}."""
+    out = _tag_string(1, idx.get("name", ""))
+    meta = idx.get("options") or idx.get("meta")
+    if meta:
+        out += _tag_bytes(2, _encode_index_meta(meta))
+    out += _tag_varint(3, idx.get("maxSlice", 0) or None)
+    for fr in idx.get("frames", []) or []:
+        out += _tag_bytes(4, _encode_schema_frame(fr))
+    out += _tag_packed_varints(5, idx.get("slices", []) or [])
+    for name, d in sorted((idx.get("inputDefinitions") or {}).items()):
+        out += _tag_bytes(6, _encode_input_definition(name, d))
+    return out
+
+
+def decode_schema_index(data):
+    fields = list(_walk(data))
+    out = {"name": "", "frames": [], "inputDefinitions": {}}
+    for field, _, val in fields:
+        if field == 1:
+            out["name"] = val.decode()
+        elif field == 2:
+            out["options"] = _decode_index_meta(val)
+        elif field == 3:
+            out["maxSlice"] = val
+        elif field == 4:
+            out["frames"].append(_decode_schema_frame(val))
+        elif field == 6:
+            name, d = _decode_input_definition(val)
+            out["inputDefinitions"][name] = d
+    slices = _repeated_uint64(fields, 5)
+    if slices:
+        out["slices"] = slices
+    return out
+
+
+def encode_node_status(status):
+    """NodeStatus{Host:1, State:2, Indexes:3, Scheme:4}."""
+    out = _tag_string(1, status.get("host", ""))
+    out += _tag_string(2, status.get("state", ""))
+    for idx in status.get("indexes", []) or []:
+        out += _tag_bytes(3, encode_schema_index(idx))
+    out += _tag_string(4, status.get("scheme", ""))
+    return out
+
+
+def decode_node_status(data):
+    out = {"host": "", "state": "", "scheme": "", "indexes": []}
+    for field, _, val in _walk(data):
+        if field == 1:
+            out["host"] = val.decode()
+        elif field == 2:
+            out["state"] = val.decode()
+        elif field == 3:
+            out["indexes"].append(decode_schema_index(val))
+        elif field == 4:
+            out["scheme"] = val.decode()
+    return out
+
+
+def encode_cluster_status(nodes):
+    """ClusterStatus{Nodes:1}."""
+    return b"".join(_tag_bytes(1, encode_node_status(n)) for n in nodes)
+
+
+def decode_cluster_status(data):
+    return [decode_node_status(val) for field, _, val in _walk(data)
+            if field == 1]

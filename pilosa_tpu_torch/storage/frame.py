@@ -136,6 +136,8 @@ class Frame:
                                         epoch=epoch)
         # Row key -> ID translation of keyed imports (translate.py).
         self.row_key_store = TranslateStore(os.path.join(path, ".keys"))
+        # Handed to every view (View.on_new_slice); set by the index.
+        self.on_new_slice = None
 
     @property
     def meta_path(self):
@@ -198,6 +200,7 @@ class Frame:
                  holder_locked=self.holder_locked,
                  cache_type=self.cache_type, cache_size=self.cache_size,
                  governor=self.governor)
+        v.on_new_slice = self.on_new_slice
         v.open()
         self.views[name] = v
         return v

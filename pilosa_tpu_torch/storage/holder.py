@@ -20,6 +20,8 @@ lazily holds its file's descriptor while its reader lives, so opening
 raises the soft descriptor limit toward the hard one, as the reference
 does, and the reader cap follows it (``fragment.reader_cap``).
 """
+import hashlib
+import json
 import os
 import resource
 import shutil
@@ -72,6 +74,9 @@ class Holder:
         # Called with an index's name after its deletion: the executor
         # drops the plan and memo entries a deleted index never reads.
         self.on_index_drop = None
+        # The server's broadcaster on a cluster (set before open): every
+        # index sends its create-slice messages through it.
+        self.broadcaster = None
 
     def open(self):
         """Lock the directory and open every index (ref: holder.go:87-150)."""
@@ -137,9 +142,11 @@ class Holder:
                 f.write(self.local_id)
 
     def _new_index(self, name):
-        return Index(os.path.join(self.path, name), name,
-                     device=self.device, holder_locked=True,
-                     governor=self.governor)
+        idx = Index(os.path.join(self.path, name), name,
+                    device=self.device, holder_locked=True,
+                    governor=self.governor)
+        idx.broadcaster = self.broadcaster
+        return idx
 
     def index(self, name):
         with self.mu:
@@ -160,6 +167,14 @@ class Holder:
             self.indexes[name] = idx
             return idx
 
+    def create_index_if_not_exists(self, name, column_label="",
+                                   time_quantum=""):
+        with self.mu:
+            idx = self.indexes.get(name)
+            if idx is not None:
+                return idx
+            return self.create_index(name, column_label, time_quantum)
+
     def delete_index(self, name):
         """Close the index and remove its directory (ref: holder.go
         DeleteIndex). Its fragments' closes move its epoch, and a new
@@ -175,20 +190,82 @@ class Holder:
         if self.on_index_drop is not None:
             self.on_index_drop(name)
 
-    def schema(self):
+    def schema(self, include_meta=False):
         """[{name, frames: [{name, views: [{name}]}]}], every list
-        sorted by name (ref: holder.go:173)."""
+        sorted by name (ref: holder.go:173). ``include_meta`` adds each
+        index's and frame's options and BSI fields: the schema a
+        rejoining peer is sent, from which ``apply_schema`` recreates
+        frames with their options."""
         with self.mu:
             indexes = [self.indexes[k] for k in sorted(self.indexes)]
         out = []
         for idx in indexes:
             with idx.mu:
                 frames = [idx.frames[k] for k in sorted(idx.frames)]
-            out.append({"name": idx.name, "frames": [
-                {"name": fr.name,
-                 "views": [{"name": v} for v in sorted(list(fr.views))]}
-                for fr in frames]})
+            finfos = []
+            for fr in frames:
+                info = {"name": fr.name,
+                        "views": [{"name": v} for v in sorted(list(fr.views))]}
+                if include_meta:
+                    info["options"] = {
+                        "rowLabel": fr.row_label,
+                        "inverseEnabled": fr.inverse_enabled,
+                        "rangeEnabled": fr.range_enabled,
+                        "cacheType": fr.cache_type,
+                        "cacheSize": fr.cache_size,
+                        "timeQuantum": fr.time_quantum,
+                        "fields": [fd.to_dict() for fd in fr.fields],
+                    }
+                finfos.append(info)
+            info = {"name": idx.name, "frames": finfos}
+            if include_meta:
+                info["options"] = {"columnLabel": idx.column_label,
+                                   "timeQuantum": idx.time_quantum}
+            out.append(info)
         return out
+
+    def apply_schema(self, schema):
+        """Merge a peer's schema, create-only (ref: Index.MergeSchemas
+        index.go:576): missing indexes, frames (with their options) and
+        views are created; nothing is changed or deleted."""
+        from pilosa_tpu_torch.storage.frame import FrameOptions
+
+        for idx_info in schema:
+            opts = idx_info.get("options", {})
+            idx = self.create_index_if_not_exists(
+                idx_info["name"], column_label=opts.get("columnLabel", ""),
+                time_quantum=opts.get("timeQuantum", ""))
+            for f_info in idx_info.get("frames", []):
+                fopts = f_info.get("options")
+                frame = idx.create_frame_if_not_exists(
+                    f_info["name"],
+                    FrameOptions.from_dict(fopts) if fopts else None)
+                for v_info in f_info.get("views", []):
+                    frame.create_view_if_not_exists(v_info["name"])
+
+    def node_status_compact(self, host):
+        """The status a heartbeat carries (ref: pilosa_tpu
+        holder.py:436-460, without deletion tombstones): the schema with
+        its meta, a digest of it, and the max-slice maps."""
+        schema = self.schema(include_meta=True)
+        digest = hashlib.sha1(json.dumps(
+            schema, sort_keys=True).encode()).hexdigest()[:16]
+        return {"host": host, "schema": schema, "schemaDigest": digest,
+                "maxSlices": self.max_slices(),
+                "maxInverseSlices": self.max_inverse_slices()}
+
+    def merge_remote_status(self, st):
+        """Apply a peer's compact status: the create-only schema merge,
+        then its max slices as remote maxima (both idempotent)."""
+        self.apply_schema(st.get("schema") or [])
+        for index, n in (st.get("maxSlices") or {}).items():
+            idx = self.index(index)
+            if idx is not None:
+                idx.set_remote_max_slice(int(n))
+        for index, n in (st.get("maxInverseSlices") or {}).items():
+            idx = self.index(index)
+            if idx is not None:
+                idx.set_remote_max_inverse_slice(int(n))
 
     def recalculate_caches(self):
         """Rebuild every fragment's TopN cache from storage and write

@@ -47,6 +47,13 @@ class Index:
         # Column key -> ID translation of keyed imports (translate.py).
         self.column_key_store = TranslateStore(os.path.join(path, ".keys"))
         self.input_definitions = {}
+        # The largest slices peers reported (create-slice messages,
+        # heartbeats, the max-slice poll): a coordinator plans over
+        # slices only a peer holds.
+        self.remote_max_slice = 0
+        self.remote_max_inverse_slice = 0
+        # Set by the holder on a cluster: sends create-slice messages.
+        self.broadcaster = None
 
     @property
     def meta_path(self):
@@ -100,23 +107,50 @@ class Index:
             self.save_meta()
 
     def _new_frame(self, name):
-        return Frame(os.path.join(self.path, name), self.name, name,
-                     device=self.device, epoch=self.epoch,
-                     holder_locked=self.holder_locked,
-                     governor=self.governor)
+        frame = Frame(os.path.join(self.path, name), self.name, name,
+                      device=self.device, epoch=self.epoch,
+                      holder_locked=self.holder_locked,
+                      governor=self.governor)
+        frame.on_new_slice = self._on_new_slice
+        return frame
+
+    def _on_new_slice(self, view_name, slice_num):
+        """Tell peers of a new standard or inverse slice (ref:
+        view.go:240-255, server.go:361 ReceiveMessage) by the
+        broadcaster's async send, which never raises: a peer it misses
+        gets the message from its retry queue, a DOWN one from the
+        rejoin schema push, and the max-slice poll is the backstop."""
+        if self.broadcaster is None or view_name not in ("standard",
+                                                         "inverse"):
+            return
+        self.broadcaster.send_async({
+            "type": "create-slice", "index": self.name,
+            "slice": slice_num, "inverse": view_name == "inverse"})
 
     def max_slice(self):
-        """(ref: index.go:275-322, single node)."""
+        """Max slice over the frames and what peers reported (ref:
+        index.go:275-322)."""
         with self.mu:
-            return max((f.max_slice() for f in self.frames.values()),
-                       default=0)
+            local = max((f.max_slice() for f in self.frames.values()),
+                        default=0)
+            return max(local, self.remote_max_slice)
 
     def max_inverse_slice(self):
         """The slice range of inverse-view calls (TopN(inverse=true);
         ref: index.go MaxInverseSlice)."""
         with self.mu:
-            return max((f.max_inverse_slice() for f in self.frames.values()),
-                       default=0)
+            local = max((f.max_inverse_slice() for f in self.frames.values()),
+                        default=0)
+            return max(local, self.remote_max_inverse_slice)
+
+    def set_remote_max_slice(self, n):
+        with self.mu:
+            self.remote_max_slice = max(self.remote_max_slice, n)
+
+    def set_remote_max_inverse_slice(self, n):
+        with self.mu:
+            self.remote_max_inverse_slice = max(
+                self.remote_max_inverse_slice, n)
 
     def frame(self, name):
         with self.mu:

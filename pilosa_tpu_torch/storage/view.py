@@ -34,6 +34,10 @@ class View:
         self.governor = governor  # the holder's host-memory governor
         self.mu = threading.RLock()
         self.fragments = {}  # slice -> Fragment
+        # Called with (view name, slice) when a write creates a fragment
+        # (the index's create-slice broadcast); None on one node.
+        self.on_new_slice = None
+        self._slice_notified = set()
 
     def open(self):
         """Open every fragment file of the view (ref: view.go:100-158);
@@ -76,11 +80,21 @@ class View:
             return self.fragments.get(slice_num)
 
     def create_fragment_if_not_exists(self, slice_num):
-        """(ref: view.go:224)."""
+        """(ref: view.go:224); a created fragment is announced through
+        ``on_new_slice``, outside the view's lock (the broadcast waits on
+        the network)."""
+        notify = False
         with self.mu:
             frag = self.fragments.get(slice_num)
-            return frag if frag is not None else self._open_fragment(
-                slice_num)
+            if frag is None:
+                frag = self._open_fragment(slice_num)
+                if (self.on_new_slice is not None
+                        and slice_num not in self._slice_notified):
+                    self._slice_notified.add(slice_num)
+                    notify = True
+        if notify:
+            self.on_new_slice(self.name, slice_num)
+        return frag
 
     def max_slice(self):
         with self.mu:

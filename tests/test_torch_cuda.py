@@ -15,7 +15,8 @@ tier's lane kernel ``container_and_counts`` is held against its plain
 version in every cell at its boundary shapes (N = 1 to 76,296 members).
 The ingest classify kernel ``ingest_classify`` is held against its plain
 version on phase 3's streams, and one small ingest through a GPU holder
-gives the files of the same ingest on the CPU."""
+gives the files of the same ingest on the CPU. A two-node cluster on the
+card answers as the same cluster on the CPU."""
 import json
 import os
 import re
@@ -678,6 +679,62 @@ def test_server_on_gpu_matches_cpu(gen, tmp_path):
             s.close()
     assert answers["cuda"] == answers["cpu"]
     assert json.loads(answers["cpu"][0][1])["results"][0] > 0
+
+
+def test_cluster_on_gpu_matches_cpu(gen, tmp_path):
+    """A two-node cluster (replicas 1) on the card and one on the CPU get
+    the same writes through both nodes; every query through either node
+    answers the same bytes, and the card's local legs launch all three
+    kernels."""
+    import socket
+    import urllib.request
+
+    from pilosa_tpu_torch.server.server import Server
+
+    def http(host, body, path="/index/i/query"):
+        req = urllib.request.Request(f"http://{host}{path}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, resp.read()
+
+    rng = np.random.default_rng(13)
+    writes = [f'SetBit(frame="f", rowID={r}, columnID={c})'
+              for r, c in zip(rng.integers(0, 4, 400),
+                              rng.integers(0, 6 * SLICE_WIDTH, 400))]
+    queries = ['Count(Intersect(Bitmap(frame="f", rowID=0), '
+               'Bitmap(frame="f", rowID=1)))',
+               'Count(Bitmap(frame="f", rowID=2))',
+               'TopN(Bitmap(frame="f", rowID=0), frame="f", n=3)',
+               'TopN(frame="f", n=2)',
+               'Union(Bitmap(frame="f", rowID=3), Bitmap(frame="f", rowID=2))']
+    answers = {}
+    for device in ("cpu", "cuda"):
+        socks = [socket.socket() for _ in range(2)]
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        hosts = [f"127.0.0.1:{sk.getsockname()[1]}" for sk in socks]
+        for sk in socks:
+            sk.close()
+        nodes = [Server(str(tmp_path / f"{device}{k}"), bind=hosts[k],
+                        cluster_hosts=hosts, device=device,
+                        polling_interval=0).open() for k in range(2)]
+        try:
+            for n in nodes:
+                n.cluster.node_set.close()
+            http(hosts[0], b"{}", "/index/i")
+            http(hosts[1], b"{}", "/index/i/frame/f")
+            got = [http(hosts[k % 2], w.encode())
+                   for k, w in enumerate(writes)]
+            kernels.reset_launches()
+            got += [http(h, q.encode()) for q in queries for h in hosts]
+            answers[device] = got
+            if device == "cuda":
+                assert all(kernels.launches[k] for k in QUERY_KERNELS), \
+                    kernels.launches
+        finally:
+            for n in nodes:
+                n.close()
+    assert answers["cuda"] == answers["cpu"]
 
 
 def test_windows_and_cold_reads_on_gpu_match_cpu(gen, tmp_path,

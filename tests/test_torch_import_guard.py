@@ -51,7 +51,9 @@ print(json.dumps(sorted(sys.modules)))
     assert "pilosa_tpu_torch.storage.memgov" in mods
     for name in ("server.wireproto", "server.handler", "server.server",
                  "server.respcache", "plancache", "ops.containers",
-                 "cluster.client", "cli.commands", "cli.__main__"):
+                 "cluster.client", "cluster.cluster", "cluster.broadcast",
+                 "cluster.membership", "utils.fanpool", "cli.commands",
+                 "cli.__main__"):
         assert f"pilosa_tpu_torch.{name}" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -70,7 +72,7 @@ def test_sources_name_no_forbidden_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     dirs = {p.parent.name for p in files}
-    assert {"server", "cli", "cluster", "storage", "ops"} <= dirs
+    assert {"server", "cli", "cluster", "storage", "ops", "utils"} <= dirs
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imports(p) if _forbidden(name)]
     assert bad == []
