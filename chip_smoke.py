@@ -92,7 +92,7 @@ Phases, each of which fails the run (exit code != 0, no result line):
 7. main path, time windows — Pilosa's event-analytics example
    (``docs/examples.md:61-70``): a data directory of its own with index
    ``events`` and frame ``clicks`` (``timeQuantum="YMD"``), four rows
-   over 256 slices (reduced from 9,537: EVENT_SLICES), each (row,
+   over 128 slices (reduced from 9,537: EVENT_SLICES), each (row,
    column) clicked with probability 1/64
    on one day of 2017-06-01 … 14, so 17 views (``standard``,
    ``standard_2017``, ``standard_201706``, one per day) written in
@@ -200,12 +200,28 @@ Phases, each of which fails the run (exit code != 0, no result line):
    holds it DOWN, a write to one of its slices is hinted, and after it
    reopens the next round replays the write into its copy. Then node 3
    runs as a ``cli server`` process on the card: a write through it to
-   a slice node 1 holds no copy of is counted through node 1, whose
-   memos and response cache are in their default state (off on a
-   cluster). Report only: first-query seconds and the warm
-   Count(Intersect) p50/p90 over HTTP through node 1 against one node
-   holding every slice, the failover and rejoin seconds. Every
-   answer against numpy.
+   a slice node 1 holds no copy of is counted through node 1, its memos
+   and response cache on, within one epoch probe ttl
+   (CLUSTER_EPOCH_TTL, 0.5 s for the phase). Before the failover, with
+   the three nodes in process: (g) node 1's memos and response cache on
+   (validated on the epoch vector): warm Count(Intersect) repeats over
+   HTTP replay (hit p50, hits), a SetBit and a ClearBit through node 1
+   to a slice it holds no copy of are read by its very next query; (h)
+   8 and 32 closed-loop clients (8c's count mix, processes without
+   torch) through node 1 for 2 s each, memos off, the remote batch
+   lanes on and then off (q/s, p50, p99, rounds, batched calls; report
+   only); (i) benchmarks/ingest.py's wide shape, 2 requests of
+   8,000,000 bits over 32 slices, through node 2 into a new frame:
+   bits/s, fan-out posts, each node's classify passes and
+   ``ingest_classify``'s launches, Counts through every node and on
+   each owner's own slices, a ``?slice=`` leg to a non-owner answering
+   412; (j) 100,000 keyed pairs by JSON ``/import`` through a node that
+   is not the key authority, every translated row's Count through every
+   node. Steps (g)-(j) must launch ``count_op_rows``, ``count_rows``,
+   ``count_and_rows`` and ``ingest_classify``. Report only:
+   first-query seconds and the warm Count(Intersect) p50/p90 over HTTP
+   through node 1 against one node holding every slice, the failover
+   and rejoin seconds. Every answer against numpy.
 
 The result memos and the response cache are off
 (``PILOSA_TPU_RESULT_MEMO=0``) but in phase 8c's warm repeats, so the
@@ -277,9 +293,10 @@ GOVERNED_BATCH = 2048       # slices of its batched Count and TopN
 # it carried the whole script past its 1,200 s limit on a slower host,
 # and at 1,024 slices (107.4 s of the phase) the script with phase 11
 # took 1,162.7 s on a slower host, and at 512 (52.0 s) the script with
-# phase 12 1,090.4 s on another, so the event-analytics example runs at
-# 256 slices (0.27B columns; PERF.md §4).
-EVENT_SLICES = 256
+# phase 12 1,090.4 s on another, and at 256 (26.6 s) the script 1,084.7 s
+# before phase 12's steps (g)-(j) added ~50 s, so the event-analytics
+# example runs at 128 slices (0.13B columns; PERF.md §4).
+EVENT_SLICES = 128
 # Slices of phase 10. reduced: count100b's shape is 95,368 slices (100B
 # columns); at 9,537 the phase took 82.4 s and the whole script 942.7 s
 # on a slower H100 host (PERF.md §4), too near the 1,200 s limit.
@@ -2787,10 +2804,11 @@ def server_path(slices, seed, datadir, card, oracle):
 # ----------------------------------------------------------- phase 8c
 
 CONC_CLIENTS = (1, 8, 32)     # concurrent clients per point
-CONC_WARM_S = 1.0             # warm-up before each point's window
-# Each point's measured window. reduced: 2 s, not 5 (3 s, with 2 s of
-# warm-up, until the script took 1,090.4 s of its 1,200 s limit on a
-# slower host; PERF.md §4).
+# Each point's warm-up and measured window. reduced: 0.5 s and 2 s, not
+# 5 s (3 s, with 2 s of warm-up, until the script took 1,090.4 s of its
+# 1,200 s limit on a slower host; 1 s of warm-up until phase 12's steps
+# (g)-(j) added ~50 s to 1,084.7 s; PERF.md §4).
+CONC_WARM_S = 0.5
 CONC_MEASURE_S = 2.0
 CONC_GROUP_REPS = 3           # timed rounds of each BSI group
 CONC_PROCS = 8                # client processes (threads share them)
@@ -2961,7 +2979,7 @@ def concurrency_path(server, slices, seed, oracle, card):
                   f"{row['max_group']}, launches/query "
                   f"{row['launches_per_query']:.3f} (count_op_pairs "
                   f"{row['pairs']}) over {CONC_MEASURE_S:.0f} s after "
-                  f"{CONC_WARM_S:.0f} s of warm-up {card}")
+                  f"{CONC_WARM_S:g} s of warm-up {card}")
     ex._co_enabled_memo = True
     top = [r for r in rows if r["mode"] == "count" and r["clients"] == 32
            and r["coalesce"]][0]
@@ -4343,6 +4361,13 @@ CLUSTER_REPLICAS = 2
 CLUSTER_STACK_BYTES = 12 << 30
 CLUSTER_FRAGS = os.path.join("i", "f", "views", "standard", "fragments")
 CLUSTER_WARM = 50           # warm Count(Intersect)s timed through HTTP
+# The nodes' epoch probe ttl for the phase: (g)'s staleness bound.
+CLUSTER_EPOCH_TTL = 0.5
+CLUSTER_CLIENTS = (8, 32)   # (h)'s closed-loop clients through node 1
+CLUSTER_CONC_S = 2.0        # (h)'s window a point, after 0.5 s of warm-up
+CLUSTER_INGEST_REQUESTS = 2  # (i): 8,000,000 bits each over 32 slices
+CLUSTER_INGEST_ROWS = (0, 1, 2, 3, 511, 512, 1022, 1023)  # (i)'s Counts
+CLUSTER_INGEST_OWNER_ROWS = 16  # (i): rows counted on each owner's slices
 
 
 def _write_cluster_slices(root, seed, lo, hi):
@@ -4351,7 +4376,8 @@ def _write_cluster_slices(root, seed, lo, hi):
     bytes ``Fragment.read_from`` would write), into the directory of
     each owner that placement gives the slice (``root/n<k>``) and into
     ``root/all``; returns the per-query counts, each row's count and
-    |row r & row 0| per slice, and row 3's ascending column ids."""
+    |row r & row 0| per slice, row 3's ascending column ids and
+    |row a & row b| over the run."""
     from pilosa_tpu_torch.cluster.cluster import Cluster, Node
     from pilosa_tpu_torch.roaring import codec
 
@@ -4361,12 +4387,16 @@ def _write_cluster_slices(root, seed, lo, hi):
     counts = np.zeros((len(QUERIES), hi - lo), dtype=np.int64)
     rows = np.zeros((4, hi - lo), dtype=np.int64)
     and_f0 = np.zeros((4, hi - lo), dtype=np.int64)
+    pairs = np.zeros((4, 4), dtype=np.int64)
     r3 = []
     for i, s in enumerate(range(lo, hi)):
         words = slice_words(seed, s)
         counts[:, i] = slice_counts(words)
         rows[:, i] = np.bitwise_count(words).sum(axis=1)
         and_f0[:, i] = np.bitwise_count(words & words[0]).sum(axis=1)
+        for a in range(4):
+            pairs[a] += np.bitwise_count(words & words[a]).sum(
+                axis=1, dtype=np.int64)
         r3.append(positions(words[3]) + np.uint64(s * SLICE_COLS))
         data = codec.serialize_arrays(keys, words.reshape(64, 1024))
         for d in [n.host for n in cl.fragment_nodes("i", s)] + ["all"]:
@@ -4375,7 +4405,7 @@ def _write_cluster_slices(root, seed, lo, hi):
                 fh.write(data)
             with open(path + ".cache", "w") as fh:
                 fh.write("[0, 1, 2, 3]")
-    return lo, counts, rows, and_f0, np.concatenate(r3)
+    return lo, counts, rows, and_f0, np.concatenate(r3), pairs
 
 
 def _free_ports(n):
@@ -4388,6 +4418,275 @@ def _free_ports(n):
     for s in socks:
         s.close()
     return ports
+
+
+def _first_zero(seed, s, row):
+    """The column of the first bit of ``row`` not set in slice ``s``."""
+    return s * SLICE_COLS + int(np.flatnonzero(np.unpackbits(
+        (~slice_words(seed, s)[row]).view(np.uint8),
+        bitorder="little"))[0])
+
+
+def cluster_warm_tiers(servers, conns, slices, want, n3, seed, card):
+    """Phase 12 (g): node 1's result memos and response cache on (the
+    other nodes' off). Warm Count(Intersect)s over HTTP through node 1
+    replay; a SetBit and a ClearBit through node 1 to a slice it holds
+    no copy of are read by the very next query through it, the owners'
+    moved counters coming back in the writes' own answers."""
+    node = servers[0]
+    ex, cache = node.executor, node.handler._resp_cache
+    q_and, r3 = QUERIES[2][0], 'Bitmap(frame="f", rowID=3)'
+    cl = node.cluster
+    s_g = next(s for s in reversed(range(slices)) if node.host not in
+               [n.host for n in cl.fragment_nodes("i", s)])
+    col = _first_zero(seed, s_g, 3)
+    t0 = time.perf_counter()
+    ex._result_memo_off = False
+    try:
+        # The first query's answers bring the peers' counters up to date,
+        # so the second one computes and keeps its answer again.
+        for _ in range(2):
+            check(http_query(conns[0], q_and) == [want[2]],
+                  "(g) first Count")
+        h0 = cache.stats()["hits"]
+        hit_ms, got = p50_ms(lambda: http_query(conns[0], q_and),
+                             CLUSTER_WARM)
+        check(got == [want[2]], f"(g) warm Count: {got} != {want[2]}")
+        hits = cache.stats()["hits"] - h0
+        check(hits == CLUSTER_WARM,
+              f"(g) {hits} response-cache hits of {CLUSTER_WARM} repeats")
+        for _ in range(2):
+            got = http_query(conns[0], f"Count({r3})")
+            check(got == [n3], f"(g) Count({r3}): {got} != {n3}")
+        h1 = cache.stats()["hits"]
+        for verb, n in (("SetBit", n3 + 1), ("ClearBit", n3)):
+            got = http_query(conns[0], f'{verb}(frame="f", rowID=3, '
+                                       f'columnID={col})')
+            check(got == [True], f"(g) {verb} through node 1: {got}")
+            for _ in range(2):
+                got = http_query(conns[0], f"Count({r3})")
+                check(got == [n], f"(g) node 1 right after its {verb}: "
+                      f"{got} != {n}")
+        ryw_hits = cache.stats()["hits"] - h1
+    finally:
+        ex._result_memo_off = True
+    ep = node.epochs.snapshot()["counters"]
+    print(f"cluster (g) {card}: {time.perf_counter() - t0:.1f} s; warm "
+          f"Count(Intersect) through node 1 with its memos on: hit p50 {hit_ms:.4f} ms over HTTP (n="
+          f"{CLUSTER_WARM}, host clock; {hits} response-cache hits); "
+          f"SetBit and ClearBit through node 1 to slice {s_g} (not its "
+          f"own) read by its next query, {ryw_hits} hits around them; "
+          f"node 1's epoch probes {ep['probes']} (failed "
+          f"{ep['probe_failures']}), cold tokens {ep['cold']} of "
+          f"{ep['tokens']}")
+
+
+def cluster_batch_lanes(node, slices, seed, pair_counts, card):
+    """Phase 12 (h): CLUSTER_CLIENTS closed-loop clients (8c's count mix,
+    in processes without torch) through node 1 for CLUSTER_CONC_S each,
+    memos off, node 1's remote batch lanes on, then off. Report only."""
+    ex = node.executor
+    host, port = node.host.rsplit(":", 1)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(CONC_PROCS) as pool:
+        pool.map(time.sleep, [0] * CONC_PROCS)   # workers up and imported
+        for batching in (True, False):
+            ex._rb_enabled = batching
+            for n_clients in CLUSTER_CLIENTS:
+                procs = min(n_clients, CONC_PROCS)
+                jobs = [list(range(p, n_clients, procs))
+                        for p in range(procs)]
+                start_ts = time.time() + 0.5
+                res = pool.starmap_async(_conc_client, [
+                    (host, int(port), "count", tids, seed, pair_counts,
+                     slices, start_ts, 0.5, CLUSTER_CONC_S)
+                    for tids in jobs])
+                time.sleep(max(0.0, start_ts + 0.5 - time.time()))
+                rb0 = ex.remote_batch_snapshot()
+                time.sleep(max(0.0, start_ts + 0.5 + CLUSTER_CONC_S
+                               - time.time()))
+                rb1 = ex.remote_batch_snapshot()
+                outs = res.get(timeout=600)
+                bad = [o["bad"] for o in outs if o["bad"]]
+                check(not bad, f"(h) {n_clients} clients: {bad[:3]}")
+                n = sum(o["n"] for o in outs)
+                lat = np.asarray([x for o in outs for x in o["lat"]["count"]])
+                check(n > 0, f"(h) {n_clients} clients: no request")
+                print(f"cluster (h) {card}: {n_clients} clients through node "
+                      f"1, batch lanes {'on ' if batching else 'off'}: "
+                      f"{n / CLUSTER_CONC_S:.1f} q/s, p50 "
+                      f"{np.percentile(lat, 50):.3f} ms, p99 "
+                      f"{np.percentile(lat, 99):.3f} ms; rounds "
+                      f"{rb1['rounds'] - rb0['rounds']}, batched_calls "
+                      f"{rb1['batched_calls'] - rb0['batched_calls']} over "
+                      f"{CLUSTER_CONC_S:.0f} s")
+    ex._rb_enabled = True
+    print(f"cluster (h) {card}: {time.perf_counter() - t0:.1f} s")
+
+
+def _cluster_ingest_batch(seed, k, n):
+    """(i)'s request k: n bits, rows uniform over INGEST_ROWS, columns
+    over INGEST_SLICES slices."""
+    rng = np.random.default_rng([seed, 12, k])
+    return (rng.integers(0, INGEST_ROWS, n, dtype=np.uint64),
+            rng.integers(0, INGEST_SLICES * SLICE_COLS, n, dtype=np.uint64))
+
+
+def _cluster_ingest_oracle(seed, n, requests, lo, hi):
+    """Worker: the distinct bits of (i)'s requests in slices [lo, hi):
+    per-(row, slice) counts and |row 1 ∩ row 2|."""
+    keys = []
+    for k in range(requests):
+        r, c = _cluster_ingest_batch(seed, k, n)
+        s = c >> np.uint64(20)
+        m = (s >= np.uint64(lo)) & (s < np.uint64(hi))
+        keys.append((r[m] << np.uint64(25)) | c[m])
+    keys = np.unique(np.concatenate(keys))
+    row = (keys >> np.uint64(25)).astype(np.int64)
+    cols = (keys & np.uint64((1 << 25) - 1)).astype(np.int64)
+    per_slice = np.bincount(row * INGEST_SLICES + (cols >> 20),
+                            minlength=INGEST_ROWS * INGEST_SLICES)
+    return (per_slice.reshape(INGEST_ROWS, INGEST_SLICES), len(keys),
+            len(np.intersect1d(cols[row == 1], cols[row == 2],
+                               assume_unique=True)))
+
+
+def cluster_ingest(servers, conns, seed, card):
+    """Phase 12 (i): benchmarks/ingest.py's wide shape through node 2,
+    CLUSTER_INGEST_REQUESTS requests of INGEST_BATCH bits, rows uniform
+    over INGEST_ROWS and columns over INGEST_SLICES slices, into frame w:
+    node 2 sends each slice's part to its owners, whose legs classify on
+    the card. Counts through each node and on each owner's own slices
+    against numpy (computed in processes of their own while the requests
+    run); a ``?slice=`` leg to a node that does not own the slice answers
+    412."""
+    from pilosa_tpu_torch.executor import ExecOptions
+    from pilosa_tpu_torch.ingest import codec
+    from pilosa_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    http_json(conns[1], "POST", "/index/i/frame/w", b"{}")
+    # The numpy oracle in processes of its own while the requests run.
+    edges = np.linspace(0, INGEST_SLICES, CONC_PROCS + 1).astype(int)
+    pool = multiprocessing.get_context("spawn").Pool(CONC_PROCS)
+    try:
+        oracle = pool.starmap_async(_cluster_ingest_oracle, [
+            (seed, INGEST_BATCH, CLUSTER_INGEST_REQUESTS, int(lo), int(hi))
+            for lo, hi in zip(edges[:-1], edges[1:])])
+        bodies = [codec.encode_bits("w", *_cluster_ingest_batch(
+            seed, k, INGEST_BATCH)) for k in range(CLUSTER_INGEST_REQUESTS)]
+        split = {"make": time.perf_counter() - t0}
+        vars0 = [http_json(c, "GET", "/debug/vars")["ingest"]
+                 for c in conns]
+        l0 = kernels.launches["ingest_classify"]
+        t = time.perf_counter()
+        outs = [post_ingest(conns[1], "i", b) for b in bodies]
+        secs = time.perf_counter() - t
+        classify = kernels.launches["ingest_classify"] - l0
+        check(outs == [{"accepted": INGEST_BATCH, "slices": INGEST_SLICES}]
+              * len(bodies), f"(i) answers {outs}")
+        vars1 = [http_json(c, "GET", "/debug/vars")["ingest"]
+                 for c in conns]
+        t = time.perf_counter()
+        parts = oracle.get(timeout=600)
+    finally:
+        pool.terminate()
+    per_slice = sum(p[0] for p in parts)   # the parts' slices are disjoint
+    n_keys = sum(p[1] for p in parts)
+    and12 = sum(p[2] for p in parts)
+    # Through each node, rows across every slice; on each owner, rows'
+    # counts over the slices it holds (a count over a freshly ingested
+    # frame builds its stacks from the rows' containers: every row of
+    # every owner would take seconds).
+    rows_q = CLUSTER_INGEST_ROWS
+    counts_q = " ".join(f'Count(Bitmap(frame="w", rowID={r}))'
+                        for r in rows_q) + (
+        ' Count(Intersect(Bitmap(frame="w", rowID=1), '
+        'Bitmap(frame="w", rowID=2)))')
+    want = [int(per_slice[r].sum()) for r in rows_q] + [and12]
+    split["numpy"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for k, c in enumerate(conns):
+        got = http_query(c, counts_q)
+        check(got == want, f"(i) Counts through node {k + 1}: {got} != "
+              f"{want}")
+    split["counts"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cl = servers[0].cluster
+    own_q = " ".join(f'Count(Bitmap(frame="w", rowID={r}))'
+                     for r in range(CLUSTER_INGEST_OWNER_ROWS))
+    for k, srv in enumerate(servers):
+        mine = [s for s in range(INGEST_SLICES)
+                if cl.owns_fragment(srv.host, "i", s)]
+        got = srv.executor.execute("i", own_q, slices=mine,
+                                   opt=ExecOptions(remote=True))
+        check(got == per_slice[:CLUSTER_INGEST_OWNER_ROWS, mine].sum(
+            axis=1).tolist(), f"(i) node {k + 1}'s copy of its slices")
+    split["owners"] = time.perf_counter() - t
+    s_n, k_n = next((s, k) for s in range(INGEST_SLICES)
+                    for k in range(len(servers))
+                    if not cl.owns_fragment(servers[k].host, "i", s))
+    status, _, data = http_request(
+        conns[k_n], "POST", f"/index/i/ingest?slice={s_n}",
+        codec.encode_bits("w", [1], [s_n * SLICE_COLS + 1]),
+        {"Content-Type": INGEST_CT})
+    check((status, data) == (412, b'{"error": "host does not own slice"}'),
+          f"(i) a leg to a non-owner: {status} {data[:200]!r}")
+    passes = [b["packPassesTotal"] - a["packPassesTotal"]
+              for a, b in zip(vars0, vars1)]
+    check(sum(passes) == classify or DEVICE != "cuda",
+          f"(i) classify passes {passes} != launches {classify}")
+    n_bits = INGEST_BATCH * len(bodies)
+    print(f"cluster (i) {card}: {time.perf_counter() - t0:.1f} s (data "
+          f"{split['make']:.1f}, the numpy oracle's wait "
+          f"{split['numpy']:.1f}, Counts "
+          f"through the nodes {split['counts']:.1f}, on the owners "
+          f"{split['owners']:.1f}); {len(bodies)} requests of {INGEST_BATCH} "
+          f"bits over {INGEST_SLICES} slices through node 2 in {secs:.2f} "
+          f"s: {n_bits / secs:.0f} bits/s; fanout_posts "
+          f"{vars1[1]['fanoutPostsTotal'] - vars0[1]['fanoutPostsTotal']};"
+          f" classify passes by node {passes}, ingest_classify launches "
+          f"{classify}; {n_keys} distinct bits; Counts of "
+          f"{len(rows_q)} rows and an Intersect over every slice through "
+          f"each node, and of {CLUSTER_INGEST_OWNER_ROWS} rows on each "
+          f"owner's own slices, equal to numpy; a ?slice={s_n} leg to "
+          f"node {k_n + 1} answered 412")
+
+
+def cluster_keyed(servers, conns, seed, card):
+    """Phase 12 (j): KEYED_PAIRS keyed pairs (phase 11 (e)'s shape) by
+    JSON ``/import`` through a node that is not the key authority (the
+    lowest host); the Counts of every translated row through each node
+    against numpy."""
+    hosts = [s.host for s in servers]
+    auth = min(range(len(hosts)), key=lambda k: hosts[k])
+    via = next(k for k in range(len(hosts)) if k != auth)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([seed, 15])
+    rk = [f"term-{i}" for i in rng.integers(0, KEYED_ROWS, KEYED_PAIRS)]
+    ck = [f"user-{j}" for j in rng.integers(0, KEYED_COLS, KEYED_PAIRS)]
+    http_json(conns[0], "POST", "/index/i/frame/k", b"{}")
+    t = time.perf_counter()
+    http_json(conns[via], "POST", "/import", json.dumps(
+        {"index": "i", "frame": "k", "rowKeys": rk,
+         "columnKeys": ck}).encode())
+    secs = time.perf_counter() - t
+    row_id = {k: i for i, k in enumerate(dict.fromkeys(rk))}
+    col_id = {k: i for i, k in enumerate(dict.fromkeys(ck))}
+    bits = {(row_id[a], col_id[b]) for a, b in zip(rk, ck)}
+    per_row = np.bincount([r for r, _ in bits], minlength=len(row_id))
+    counts_q = " ".join(f'Count(Bitmap(frame="k", rowID={i}))'
+                        for i in range(len(row_id)))
+    for k, c in enumerate(conns):
+        got = http_query(c, counts_q)
+        check(got == per_row.tolist(),
+              f"(j) keyed counts through node {k + 1} != numpy")
+    print(f"cluster (j) {card}: {time.perf_counter() - t0:.1f} s; "
+          f"{KEYED_PAIRS} keyed pairs by JSON /import "
+          f"through node {via + 1} (the key authority is node {auth + 1}) "
+          f"in {secs:.2f} s; {len(row_id)} rows' Counts through each node "
+          f"equal to numpy")
 
 
 def cluster_path(seed, datadir, card):
@@ -4419,6 +4718,7 @@ def cluster_path(seed, datadir, card):
     row_n = np.concatenate([p[2] for p in parts], axis=1)
     and_f0 = np.concatenate([p[3] for p in parts], axis=1).sum(axis=1)
     r3_ids = np.concatenate([p[4] for p in parts])
+    pair_counts = sum(p[5] for p in parts).tolist()
     del parts
     want = [int(c) for c in per_slice.sum(axis=1)]
     print(f"cluster: wrote {slices} slices to their {CLUSTER_REPLICAS} "
@@ -4462,13 +4762,16 @@ def cluster_path(seed, datadir, card):
     servers = [None] * CLUSTER_NODES
 
     def open_node(k):
-        # Memos and the response cache in their default state; the
-        # membership rounds are driven by this phase.
+        # The membership rounds are driven by this phase; the memos (and
+        # the response cache) are off so that the steps time execution,
+        # but in (g) and the process node's step.
         s = Server(os.path.join(root, names[k]), bind=hosts[k],
                    cluster_hosts=hosts, replica_n=CLUSTER_REPLICAS,
                    polling_interval=0, device=DEVICE,
-                   stack_bytes=CLUSTER_STACK_BYTES).open()
+                   stack_bytes=CLUSTER_STACK_BYTES,
+                   epoch_probe_ttl=CLUSTER_EPOCH_TTL).open()
         s.cluster.node_set.close()
+        s.executor._result_memo_off = True
         servers[k] = s
         return s
 
@@ -4550,6 +4853,19 @@ def cluster_path(seed, datadir, card):
             got = [f["name"] for f in http_json(c, "GET", "/schema")[
                 "indexes"][0]["frames"]]
             check(got == ["f", "g"], f"node {k} frames {got}")
+        t_gj = time.perf_counter()
+        l_gj = launch_counts()
+        cluster_warm_tiers(servers, conns, slices, want, n3, seed, card)
+        cluster_batch_lanes(servers[0], slices, seed, pair_counts, card)
+        cluster_ingest(servers, conns, seed, card)
+        cluster_keyed(servers, conns, seed, card)
+        l_gj = {k: v - l_gj[k] for k, v in launch_counts().items()
+                if k not in ("regimes", "container_forms")}
+        print(f"cluster (g)-(j) {card}: {time.perf_counter() - t_gj:.1f} s; "
+              f"launches {json.dumps({k: l_gj[k] for k in QUERY_KERNELS + ('ingest_classify',)})}")
+        check(DEVICE != "cuda" or all(l_gj[k] for k in (
+            "count_op_rows", "count_rows", "ingest_classify")),
+              f"(g)-(j): a kernel never launched: {l_gj}")
         launches = launch_counts()
 
         # Each node's local leg alone: the three kernels, per node.
@@ -4622,6 +4938,7 @@ def cluster_path(seed, datadir, card):
         env = {k: v for k, v in os.environ.items()
                if k not in ("PILOSA_TPU_RESULT_MEMO",
                             "PILOSA_TPU_RESPONSE_CACHE")}
+        env["PILOSA_EPOCH_PROBE_TTL"] = str(CLUSTER_EPOCH_TTL)
         device = [] if DEVICE == "cuda" else ["--device", DEVICE]
         t = time.perf_counter()
         proc = subprocess.Popen(
@@ -4632,10 +4949,13 @@ def cluster_path(seed, datadir, card):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         _listening_line(proc, 180)
         proc_s = time.perf_counter() - t
+        # (g), the other process: node 1's memos and response cache on
+        # (their default), a write through the process node to a slice
+        # node 1 holds no copy of read through node 1 within one ttl.
         reader = servers[0]
-        check(not reader.executor._result_memo_off
-              and reader.executor.memos_off(),
-              "node 1's memos are not in their default state on a cluster")
+        reader.executor._result_memo_off = False
+        check(not reader.executor.memos_off(),
+              "node 1's memos are not on for the process node's write")
         s_p = next(s for s in range(slices) if hosts[0] not in
                    [n.host for n in cl.fragment_nodes("i", s)])
         col = s_p * SLICE_WIDTH + int(np.flatnonzero(
@@ -4644,15 +4964,33 @@ def cluster_path(seed, datadir, card):
         q2 = QUERIES[1][0]
         for _ in range(2):
             check(http_query(conns[0], q2) == [want[1]], "before the write")
+        hits0 = reader.handler._resp_cache.stats()["hits"]
         pconn = conn_of(hosts[2])
         got = http_query(pconn, f'SetBit(frame="f", rowID=2, '
                                 f'columnID={col})')
+        t_ack = time.perf_counter()
         check(got == [True], f"SetBit through the process node: {got}")
         pconn.close()
-        for _ in range(2):
+        while True:
+            t_read = time.perf_counter()
             got = http_query(conns[0], q2)
-            check(got == [want[1] + 1], f"node 1 after the process node's "
-                  f"write: {got} != {want[1] + 1}")
+            if got == [want[1] + 1]:
+                break
+            check(t_read - t_ack <= CLUSTER_EPOCH_TTL,
+                  f"node 1 after the process node's write: {got} != "
+                  f"{want[1] + 1} {t_read - t_ack:.3f} s after its ack")
+        stale_s = t_read - t_ack
+        got = http_query(conns[0], q2)
+        check(got == [want[1] + 1], f"node 1's repeat after the process "
+              f"node's write: {got}")
+        ep = reader.epochs.snapshot()["counters"]
+        print(f"cluster (g) {card}: a write through the process node read "
+              f"through node 1 {stale_s:.3f} s after its ack (ttl "
+              f"{CLUSTER_EPOCH_TTL} s), response-cache hits "
+              f"{reader.handler._resp_cache.stats()['hits'] - hits0}; node "
+              f"1's epoch probes {ep['probes']} (failed "
+              f"{ep['probe_failures']}), cold tokens {ep['cold']}, "
+              f"observations {ep['observations']}")
         proc.send_signal(signal.SIGTERM)
         check(proc.wait(timeout=60) == 0, "the process node's exit code")
         proc = None

@@ -18,7 +18,9 @@ import threading
 import urllib.parse
 
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch.ingest import codec as ingest_codec
 from pilosa_tpu_torch.server import wireproto
+from pilosa_tpu_torch.utils import fanpool
 
 
 class ClientError(Exception):
@@ -56,15 +58,21 @@ class InternalClient:
 
     def __init__(self, timeout=30):
         self.timeout = timeout
+        # The node's ClusterEpochs, set by the server on a cluster.
+        self.epochs = None
         self._mu = threading.Lock()
         self._conns = {}  # netloc -> [idle HTTPConnection]
+        self._fan_pool = None  # owners' parallel posts, lazily
 
     def close(self):
         with self._mu:
             pools, self._conns = list(self._conns.values()), {}
+            fan_pool, self._fan_pool = self._fan_pool, None
         for idle in pools:
             for c in idle:
                 c.close()
+        if fan_pool is not None:
+            fan_pool.close()
 
     def _checkout(self, netloc, timeout, fresh):
         """A pooled connection to ``netloc``, or a new one; ``fresh``
@@ -130,6 +138,11 @@ class InternalClient:
                 conn.close()
             else:
                 self._checkin(netloc, conn)
+            ep = self.epochs
+            if ep is not None:
+                hv = resp.getheader(ep.HEADER)
+                if hv:
+                    ep.observe_header(hv)
             return resp.status, data, resp.getheader("Content-Type", "")
 
     def _json(self, method, node, path, payload=None, timeout=None):
@@ -199,19 +212,47 @@ class InternalClient:
 
     # ------------------------------------------------------------- import
 
-    def _post_pb(self, node, path, body):
-        status, data, _ = self._do("POST", node, path, body,
-                                   wireproto.CONTENT_TYPE)
+    def _post_pb(self, node, path, body,
+                 content_type=wireproto.CONTENT_TYPE):
+        status, data, _ = self._do("POST", node, path, body, content_type)
         if status >= 400:
             raise ClientError(f"POST {path}: {status}: {data!r}",
                               status=status)
 
-    def import_bits(self, node, index, frame, slice_num, row_ids,
+    @staticmethod
+    def _slice_owners(cluster, index, slice_num):
+        """A Cluster's owners of the slice, or a single node as given."""
+        if hasattr(cluster, "fragment_nodes"):
+            return cluster.fragment_nodes(index, slice_num)
+        return [cluster]
+
+    def _post_owners(self, owners, path, body,
+                     content_type=wireproto.CONTENT_TYPE):
+        """POST ``body`` to every owner at once; wait for all, then
+        raise the first failure in owner order (ref: pilosa_tpu
+        client.py:615-661): owners that can take the write do."""
+        owners = list(owners)
+        if len(owners) <= 1:
+            for node in owners:
+                self._post_pb(node, path, body, content_type)
+            return
+        with self._mu:
+            if self._fan_pool is None:
+                self._fan_pool = fanpool.FanoutPool(max_idle=8)
+            pool = self._fan_pool
+        fanpool.run_all(pool, [
+            lambda n=n: self._post_pb(n, path, body, content_type)
+            for n in owners])
+
+    def import_bits(self, cluster, index, frame, slice_num, row_ids,
                     column_ids, timestamps=None):
-        """One slice's bits as a protobuf ImportRequest; ``timestamps``
-        in epoch seconds, 0 for none."""
-        self._post_pb(node, "/import", wireproto.encode_import_request(
-            index, frame, slice_num, row_ids, column_ids, timestamps))
+        """One slice's bits as a protobuf ImportRequest to every owner
+        of the slice (``cluster`` a Cluster; a single node takes it
+        alone); ``timestamps`` in epoch seconds, 0 for none."""
+        self._post_owners(
+            self._slice_owners(cluster, index, slice_num), "/import",
+            wireproto.encode_import_request(
+                index, frame, slice_num, row_ids, column_ids, timestamps))
 
     def import_k(self, node, index, frame, row_keys, column_keys,
                  timestamps=None):
@@ -222,12 +263,23 @@ class InternalClient:
             index, frame, 0, [], [], timestamps, row_keys=row_keys,
             column_keys=column_keys))
 
-    def import_values(self, node, index, frame, slice_num, field,
+    def import_values(self, cluster, index, frame, slice_num, field,
                       column_ids, values):
-        self._post_pb(node, "/import-value",
-                      wireproto.encode_import_value_request(
-                          index, frame, slice_num, field, column_ids,
-                          values))
+        """One slice's values to every owner, as ``import_bits``."""
+        self._post_owners(
+            self._slice_owners(cluster, index, slice_num), "/import-value",
+            wireproto.encode_import_value_request(
+                index, frame, slice_num, field, column_ids, values))
+
+    def ingest_slice(self, cluster, index, frame, slice_num, rows, columns,
+                     timestamps=None):
+        """One slice's bulk-ingest leg, the binary columnar frame, to
+        every owner of the slice (ref: pilosa_tpu client.py:681-697)."""
+        self._post_owners(
+            self._slice_owners(cluster, index, slice_num),
+            f"/index/{index}/ingest?slice={slice_num}",
+            ingest_codec.encode_bits(frame, rows, columns, timestamps),
+            content_type=ingest_codec.CONTENT_TYPE)
 
     # -------------------------------------------------------------- reads
 
@@ -259,6 +311,16 @@ class InternalClient:
         return data.decode()
 
     # ------------------------------------------------ membership, messages
+
+    def epochs_fetch(self, node, timeout=None):
+        """The peer's mutation counters (GET /internal/epochs): the
+        epoch registry's probe (ref: pilosa_tpu client.py:854-866)."""
+        status, data, _ = self._do("GET", node, "/internal/epochs",
+                                   timeout=timeout)
+        if status >= 400:
+            raise ClientError(f"GET /internal/epochs: {status}",
+                              status=status)
+        return json.loads(data)
 
     def probe(self, node, timeout=None):
         """True iff the node's /id answers 200; any failure is False."""

@@ -128,9 +128,17 @@ from part of the slices. TopN fans out each phase (a peer answers phase
 1 alone). Writes go to every owner of their slice, attribute writes to
 every node; an owner membership holds DOWN is hinted the write and
 replays it on rejoin; a query of SetBit, ClearBit or SetFieldValue calls
-goes to each owner as one query. The result memos, the response cache
-and the universe memo are off there (``memos_off``): a peer's write does
-not move this node's epoch.
+goes to each owner as one query. The result memos validate there on
+the cluster's epoch vector over the nodes owning the query's slices
+(``epochs``, cluster/epochs.py; ref: pilosa_tpu executor.py:1655-1720):
+an unknown or stale peer means no replay and no store, cold but never
+stale. The slice universe is memoized on the epoch and the peers'
+reported maxima. Concurrent subcalls to one peer over the same slices
+go out as one multi-call ``remote=true`` query (the remote batch lanes,
+``_remote_execute``; ``PILOSA_TPU_REMOTE_BATCH=0`` sends each alone): a
+lone query waits for nothing, a failed round fails every call it
+carried, and each query's fan-out then remaps its slices to replicas; a
+query error fails only the call that caused it.
 """
 import itertools
 import os
@@ -153,7 +161,6 @@ from pilosa_tpu_torch.ops import topn as topn_ops
 from pilosa_tpu_torch.plancache import (
     RANGE_MARK,
     PlanCache,
-    as_slice_list,
     slice_key,
 )
 from pilosa_tpu_torch.pql import Condition, Query, parse
@@ -318,6 +325,16 @@ class Executor:
         self.cluster = cluster
         self.client = client
         self.host = None
+        # The cluster's epoch-vector registry (cluster/epochs.py), set by
+        # the server on a cluster: the result memos validate on it.
+        self.epochs = None
+        # Remote batch lanes: (host, index, slice key) -> lane.
+        self._rb_lanes = {}
+        self._rb_lanes_mu = threading.Lock()
+        self._rb_stats = {"rounds": 0, "batched_calls": 0, "max_batch": 0}
+        self._rb_enabled = os.environ.get(
+            "PILOSA_TPU_REMOTE_BATCH", "1").lower() not in ("0", "false",
+                                                             "no")
         # Several executors may share one card (an in-process cluster):
         # each then gets a share of its memory.
         if stack_bytes:
@@ -409,11 +426,6 @@ class Executor:
         frame = idx.frame(call.args.get("frame") or DEFAULT_FRAME)
         row_label = frame.row_label if frame else "rowID"
         inverse = call.is_inverse(row_label, idx.column_label)
-        if self._multi_node():
-            # Peers' writes move the universe (create-slice messages)
-            # without moving this node's epoch: read it every query.
-            top = idx.max_inverse_slice() if inverse else idx.max_slice()
-            return as_slice_list(range(top + 1))
         std, inv = self.plans.slice_universe(index, idx)
         return inv if inverse else std
 
@@ -580,25 +592,119 @@ class Executor:
             return dict(m)
         return m
 
+    # Lanes kept at once; idle ones go first past it (ref: pilosa_tpu
+    # executor.py RB_LANES_MAX).
+    RB_LANES_MAX = 64
+
     def _remote_execute(self, node, index, call, node_slices):
         """One peer's partial: ``call`` as a ``remote=true`` subquery
-        over its slices (ref: executor.go:2236-2242). A bitmap comes
-        back as its columns and lands on this node's device; its
-        attributes are the coordinator's to add. A query error the peer
-        answered with 400 raises as this query's error."""
+        over its slices (ref: executor.go:2236-2242), through the batch
+        lane of (peer, index, slices) (ref: pilosa_tpu executor.py:
+        2204-2290). The first caller of an idle lane leads: it sends
+        every call parked in the lane, its own first, as one multi-call
+        query, and while that round is in flight new callers park for the
+        next one; a lone query waits for nothing. A bitmap comes back as
+        its columns and lands on this node's device; its attributes are
+        the coordinator's to add. A query error the peer answered with
+        400 raises as this query's error."""
+        if not self._rb_enabled:
+            try:
+                out = self._remote_call(node, index, [call], node_slices)[0]
+            except Exception as exc:  # noqa: BLE001 — raised as a lane's
+                out = exc
+            return self._remote_result(out)
+        key = (node.host, index, slice_key(node_slices))
+        with self._rb_lanes_mu:
+            lane = self._rb_lanes.get(key)
+            if lane is None:
+                if len(self._rb_lanes) >= self.RB_LANES_MAX:
+                    for k in [k for k, ln in self._rb_lanes.items()
+                              if not ln["leader"] and not ln["pending"]]:
+                        del self._rb_lanes[k]
+                lane = self._rb_lanes[key] = {
+                    "cv": threading.Condition(threading.Lock()),
+                    "pending": [], "leader": False}
+        req = {"call": call, "out": self._CO_PENDING}
+        cv = lane["cv"]
+        with cv:
+            lane["pending"].append(req)
+            while req["out"] is self._CO_PENDING and lane["leader"]:
+                cv.wait()
+            if req["out"] is self._CO_PENDING:
+                lane["leader"] = True
+                batch, lane["pending"] = lane["pending"], []
+            else:
+                batch = None
+        if batch is not None:
+            try:
+                self._rb_run(node, index, node_slices, batch)
+            finally:
+                with cv:
+                    lane["leader"] = False
+                    cv.notify_all()
+        return self._remote_result(req["out"])
+
+    def _rb_run(self, node, index, slices, reqs):
+        """Serve a lane's batch as one query and fill every request's
+        ``out`` with its result or its exception, on every path. A
+        batch the peer refused as a query error (400) is sent again call
+        by call, so that only the call at fault fails; any other failure
+        (the peer unreachable, a timeout) is every call's failure, and
+        each query's fan-out remaps its slices to replicas."""
         from pilosa_tpu_torch.cluster.client import ClientError
 
+        with self._rb_lanes_mu:
+            self._rb_stats["rounds"] += 1
+            if len(reqs) > 1:
+                self._rb_stats["batched_calls"] += len(reqs)
+                self._rb_stats["max_batch"] = max(
+                    self._rb_stats["max_batch"], len(reqs))
         try:
-            out = self.client.execute_query(
-                node, index, Query([call]), slices=node_slices, remote=True,
-                exclude_attrs=True)[0]
-        except ClientError as e:
-            if e.status == 400:
-                raise perr.PilosaError(str(e)) from e
-            raise
+            try:
+                outs = self._remote_call(node, index,
+                                         [r["call"] for r in reqs], slices)
+            except ClientError as e:
+                if e.status != 400 or len(reqs) == 1:
+                    raise
+                for r in reqs:
+                    try:
+                        r["out"] = self._remote_call(
+                            node, index, [r["call"]], slices)[0]
+                    except Exception as exc:  # noqa: BLE001 — delivered
+                        r["out"] = exc
+                return
+            if len(outs) != len(reqs):
+                raise ClientError(f"{len(outs)} results to {len(reqs)} "
+                                  f"calls from {node.host}")
+            for r, out in zip(reqs, outs):
+                r["out"] = out
+        except BaseException as exc:  # noqa: BLE001 — delivered to all
+            for r in reqs:
+                if r["out"] is self._CO_PENDING:
+                    r["out"] = exc
+
+    def _remote_call(self, node, index, calls, slices):
+        return self.client.execute_query(
+            node, index, Query(calls), slices=slices, remote=True,
+            exclude_attrs=True)
+
+    def _remote_result(self, out):
+        """A lane's result as the fan-out reduces it; a delivered
+        exception raises, a 400 as this query's error."""
+        from pilosa_tpu_torch.cluster.client import ClientError
+
+        if isinstance(out, ClientError) and out.status == 400:
+            raise perr.PilosaError(str(out)) from out
+        if isinstance(out, BaseException):
+            raise out
         if isinstance(out, dict):
             return Bitmap.from_columns(out["bits"], device=self.device)
         return out
+
+    def remote_batch_snapshot(self):
+        """Rounds sent, calls that shared a round and the largest round."""
+        with self._rb_lanes_mu:
+            return dict(self._rb_stats)
 
     def _node_is_down(self, node):
         ns = self.cluster.node_set if self.cluster else None
@@ -696,7 +802,7 @@ class Executor:
             ) or 0
 
         return self._scalar_result_memo(
-            "count_res", index, call, slices, compute,
+            "count_res", index, call, slices, opt, compute,
             enc=lambda v: np.asarray([v], dtype=np.int64),
             dec=lambda a: int(a[0]))
 
@@ -1380,53 +1486,93 @@ class Executor:
 
     # ----------------------------------------------------- result memos
 
-    def _scalar_result_memo(self, kind, index, call, slices, compute,
+    def _scalar_result_memo(self, kind, index, call, slices, opt, compute,
                             enc, dec):
         """Whole-result memo of Count, Sum/Average, Min/Max and full TopN
-        (ref: pilosa_tpu executor.py:1655-1708, its single-node branch):
-        a repeated query replays a host value while its index's epoch
-        stands. ``enc`` turns a result into a host array, ``dec`` back.
-        The epoch is read before computing, so a write landing mid-query
-        makes the entry stale on arrival, never wrong. Bypassed (read and
-        write) under PILOSA_TPU_RESULT_MEMO=0 and a pinned _force_path,
-        so that measurements time execution, not dict lookups."""
-        if self.memos_off():
+        (ref: pilosa_tpu executor.py:1655-1708): a repeated query replays
+        a host value while its validity token stands. ``enc`` turns a
+        result into a host array, ``dec`` back. The token is the index's
+        epoch on one node, and on a cluster the epoch vector over the
+        nodes owning ``slices`` (None: computed, not stored). It is read
+        before computing, so a write landing mid-query makes the entry
+        stale on arrival, never wrong. Bypassed (read and write) for a
+        coordinator's subquery, under PILOSA_TPU_RESULT_MEMO=0 and a
+        pinned _force_path, so that measurements time execution, not dict
+        lookups."""
+        cluster = self._multi_node()
+        if (opt.remote or self.memos_off()
+                or (cluster and self.epochs is None)):
             return compute()
         pkey = (kind, index, str(call), slice_key(slices))
         hit = self._result_memo_get(pkey)
         if hit is not None:
             return dec(hit)
-        epoch = self._epoch(index)
+        if cluster:
+            # No probe here: the fan-out's own responses refresh the
+            # registry, so at worst the first query after a lapse is not
+            # kept.
+            epoch = self.epochs.token(index, self._owner_hosts(index,
+                                                               slices))
+        else:
+            epoch = self._epoch(index)
         out = compute()
         if epoch is not None:
             self._topn_counts_memoize(pkey, enc(out), epoch)
         return out
 
+    def _owner_hosts(self, index, slices):
+        """The hosts owning any of ``slices``, and this one, memoized in
+        the plan cache on the cluster's topology state (ref: pilosa_tpu
+        executor.py:1706-1729)."""
+        state = self.cluster.topology_state()
+        key = ("owners", index, slice_key(slices))
+        hit = self.plans.get(key, state)
+        if hit is not None:
+            return hit
+        hosts = {self.host}
+        for s in slices:
+            for n in self.cluster.fragment_nodes(index, s):
+                hosts.add(n.host)
+        hit = tuple(sorted(hosts))
+        self.plans.put(key, state, hit)
+        return hit
+
     def memos_off(self):
         """Whether the result memos (and the server's response cache)
-        are off: by PILOSA_TPU_RESULT_MEMO=0, under a pinned _force_path,
-        and on a cluster of more than one node, where a peer's write
-        does not move this node's epoch (ref: pilosa_tpu gates them on
-        the cluster's epoch vector, cluster/epochs.py, not ported yet)."""
-        return (self._result_memo_off or self._force_path is not None
-                or self._multi_node())
+        are off: by PILOSA_TPU_RESULT_MEMO=0 and under a pinned
+        _force_path."""
+        return self._result_memo_off or self._force_path is not None
+
+    def _memo_epoch_current(self, index, stored):
+        """The current token in a stored one's form: an int is this
+        node's epoch, a tuple a cluster token, re-derived over its own
+        hosts (stale peers probed). None: unverifiable, a miss."""
+        if type(stored) is int:
+            return self._epoch(index)
+        if self.epochs is None:
+            return None
+        return self.epochs.validate(index, stored)
 
     def _result_memo_get(self, key):
-        """The memoized array of ``key`` (key[1] is its index) while the
-        index's epoch equals the stored one, else None; a stale entry is
-        dropped when found (epochs never return). The one kill switch of
-        the whole-result and TopN count memos."""
+        """The memoized array of ``key`` (key[1] is its index) while its
+        stored token is current, else None; an entry whose token moved is
+        dropped when found (tokens never return), one that cannot be
+        checked now (a stale peer) is kept. The one kill switch of the
+        whole-result and TopN count memos."""
         if self.memos_off():
             return None
         with self._cache_mu:
             hit = self._result_memo.get(key)
         if hit is None:
             return None
-        if hit[0] != self._epoch(key[1]):
-            with self._cache_mu:
-                if self._result_memo.get(key) is hit:
-                    self._result_memo.pop(key)
-                    self._result_memo_bytes -= hit[2]
+        # Checked outside the lock: a cluster token may probe a peer.
+        cur = self._memo_epoch_current(key[1], hit[0])
+        if cur is None or hit[0] != cur:
+            if cur is not None:
+                with self._cache_mu:
+                    if self._result_memo.get(key) is hit:
+                        self._result_memo.pop(key)
+                        self._result_memo_bytes -= hit[2]
             return None
         with self._cache_mu:
             if key in self._result_memo:
@@ -1514,7 +1660,7 @@ class Executor:
             ) or SumCount(0, 0)
 
         return self._scalar_result_memo(
-            "sum_res", index, call, slices, compute,
+            "sum_res", index, call, slices, opt, compute,
             enc=lambda v: np.asarray([v.sum, v.count], dtype=np.int64),
             dec=lambda a: SumCount(int(a[0]), int(a[1])))
 
@@ -1576,7 +1722,7 @@ class Executor:
 
         return self._scalar_result_memo(
             "max_res" if find_max else "min_res", index, call, slices,
-            compute,
+            opt, compute,
             enc=lambda v: np.asarray([v.sum, v.count], dtype=np.int64),
             dec=lambda a: SumCount(int(a[0]), int(a[1])))
 
@@ -2274,7 +2420,7 @@ class Executor:
             return compute()
         # Pairs round-trip through a uint64 array: row ids span uint64.
         return self._scalar_result_memo(
-            "topn_res", index, call, slices, compute,
+            "topn_res", index, call, slices, opt, compute,
             enc=lambda pairs: np.asarray(pairs, dtype=np.uint64).reshape(
                 -1, 2),
             dec=lambda a: [(int(r), int(c)) for r, c in a])

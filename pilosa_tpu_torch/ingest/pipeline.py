@@ -24,9 +24,16 @@ The classify pass of a group finishes before anything of that group
 installs: a failing pass never half-installs it. A batch over
 ``max_batch_bits`` is refused (413) before any work.
 
-This is the reference's single-node path: coordinator fan-out to slice
-owners, the QoS gate, failpoints, tracing and histograms wait for their
-own ports (ROADMAP Queue A 18, 17b, 22, 17a).
+On a cluster (``cluster`` and ``client`` given) the node a batch
+reaches is its coordinator (ref: pilosa_tpu ingest/pipeline.py:101-354):
+it splits the batch by slice and sends each slice's part to every owner
+of the slice as a ``?slice=`` leg (``InternalClient.ingest_slice``, the
+binary frame; values through ``import_values``), ``FANOUT_WIDTH`` slices
+at a time, and acknowledges only when every leg of every slice did: a
+DOWN owner fails the request, and nothing is hinted. A leg
+(``local=True``) installs on its owner through the steps above. The QoS
+gate, failpoints, tracing and histograms wait for their own ports
+(ROADMAP Queue A 17b, 22, 17a).
 """
 import threading
 from datetime import datetime
@@ -40,9 +47,14 @@ from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import containers as containers_mod
 from pilosa_tpu_torch.ops import ingest as ingest_ops  # registers the cells
 from pilosa_tpu_torch.storage.view import VIEW_INVERSE, VIEW_STANDARD
+from pilosa_tpu_torch.utils import fanpool
 
 # Per-request bit budget ([ingest] max-batch-bits).
 DEFAULT_MAX_BATCH_BITS = 8_000_000
+# Slice groups a coordinator posts at once (ref: pilosa_tpu
+# pipeline.py:72): the fan pool never queues, so a window bounds the
+# connections one batch opens.
+FANOUT_WIDTH = 8
 
 _FORMATS = (bitops.FMT_ARRAY, bitops.FMT_RUN, bitops.FMT_DENSE)
 
@@ -71,13 +83,23 @@ def _i64(name, values):
 
 
 class IngestPipeline:
-    def __init__(self, holder, max_batch_bits=DEFAULT_MAX_BATCH_BITS):
+    def __init__(self, holder, cluster=None, client=None,
+                 max_batch_bits=DEFAULT_MAX_BATCH_BITS):
         self.holder = holder
+        self.cluster = cluster
+        self.client = client
         self.max_batch_bits = int(max_batch_bits)
         self._mu = threading.Lock()  # the counters only
         self._c = {"batches": 0, "bits": 0, "values": 0, "slices": 0,
-                   "pack_passes": 0, "errors": 0, "rejected": 0,
-                   "seeded": dict.fromkeys(_FORMATS, 0)}
+                   "fanout_posts": 0, "pack_passes": 0, "errors": 0,
+                   "rejected": 0, "seeded": dict.fromkeys(_FORMATS, 0)}
+        self._pool = None  # the coordinator's fan pool, lazily
+
+    def close(self):
+        with self._mu:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.close()
 
     # ------------------------------------------------------------ entry
 
@@ -100,9 +122,11 @@ class IngestPipeline:
             raise
 
     def ingest_bits(self, index_name, frame_name, rows, columns,
-                    timestamps=None):
+                    timestamps=None, local=False):
         """Ingest one (row, column[, timestamp]) batch; timestamps are
-        epoch seconds, 0 for none. -> {"accepted", "slices"}."""
+        epoch seconds, 0 for none. A coordinator fans it out; ``local``
+        (an owner's leg, or one node) installs it here. -> {"accepted",
+        "slices"}."""
         rows = _u64("rows", rows)
         columns = _u64("columns", columns)
         if len(rows) != len(columns):
@@ -118,7 +142,12 @@ class IngestPipeline:
         fr = self._frame(index_name, frame_name)
         if len(rows) == 0:
             return {"accepted": 0, "slices": 0}
-        n_slices = self._run(self._install_local, fr, rows, columns, ts)
+        if self._is_coordinator(local):
+            n_slices = self._run(self._fan_out_bits, index_name, fr, rows,
+                                 columns, ts)
+        else:
+            n_slices = self._run(self._install_local, fr, rows, columns,
+                                 ts)
         with self._mu:
             self._c["batches"] += 1
             self._c["bits"] += len(rows)
@@ -126,9 +155,9 @@ class IngestPipeline:
         return {"accepted": int(len(rows)), "slices": int(n_slices)}
 
     def ingest_values(self, index_name, frame_name, field, columns,
-                      values):
+                      values, local=False):
         """A BSI field's (column, value) batch, through the frame's
-        ``import_value`` plane writer."""
+        ``import_value`` plane writer on each owner."""
         columns = _u64("columns", columns)
         values = _i64("values", values)
         if len(columns) != len(values):
@@ -143,7 +172,11 @@ class IngestPipeline:
             fr.import_value(field, columns.tolist(), values.tolist())
             return len(np.unique(columns // SLICE_WIDTH))
 
-        n_slices = self._run(install)
+        if self._is_coordinator(local):
+            n_slices = self._run(self._fan_out_values, index_name, fr,
+                                 field, columns, values)
+        else:
+            n_slices = self._run(install)
         with self._mu:
             self._c["batches"] += 1
             self._c["values"] += len(columns)
@@ -158,6 +191,49 @@ class IngestPipeline:
         if fr is None:
             raise perr.ErrFrameNotFound()
         return fr
+
+    # ------------------------------------------------------ coordinator
+
+    def _is_coordinator(self, local):
+        return (not local and self.cluster is not None
+                and len(self.cluster.nodes) > 1 and self.client is not None)
+
+    def _fan_groups(self, jobs):
+        """Run the per-slice jobs on the fan pool, FANOUT_WIDTH at a
+        time; wait for all, then raise the first failure: the batch is
+        acknowledged only when every slice landed."""
+        if len(jobs) == 1:
+            jobs[0]()
+            return
+        with self._mu:
+            if self._pool is None:
+                self._pool = fanpool.FanoutPool(max_idle=FANOUT_WIDTH)
+            pool = self._pool
+        fanpool.run_all(pool, jobs, FANOUT_WIDTH)
+
+    def _fan_out_bits(self, index_name, fr, rows, columns, ts):
+        """-> the slice groups posted."""
+        jobs = [lambda s=s, g=g: self._post_leg(
+                    self.client.ingest_slice, self.cluster, index_name,
+                    fr.name, s, rows[g], columns[g],
+                    ts[g] if ts is not None else None)
+                for s, g in self._slice_groups(columns)]
+        self._fan_groups(jobs)
+        return len(jobs)
+
+    def _fan_out_values(self, index_name, fr, field, columns, values):
+        jobs = [lambda s=s, g=g: self._post_leg(
+                    self.client.import_values, self.cluster, index_name,
+                    fr.name, s, field, columns[g].tolist(),
+                    values[g].tolist())
+                for s, g in self._slice_groups(columns)]
+        self._fan_groups(jobs)
+        return len(jobs)
+
+    def _post_leg(self, post, *args):
+        post(*args)
+        with self._mu:
+            self._c["fanout_posts"] += 1
 
     # ---------------------------------------------------------- install
 
@@ -263,8 +339,8 @@ class IngestPipeline:
     # ---------------------------------------------------- observability
 
     def snapshot(self):
-        """The ``ingest`` group of ``/debug/vars`` (the reference's keys;
-        no fan-out on one node)."""
+        """The ``ingest`` group of ``/debug/vars`` (the reference's
+        keys)."""
         with self._mu:
             c = dict(self._c)
             c["seeded"] = dict(self._c["seeded"])
@@ -275,7 +351,7 @@ class IngestPipeline:
             "bitsTotal": c["bits"],
             "valuesTotal": c["values"],
             "sliceGroupsTotal": c["slices"],
-            "fanoutPostsTotal": 0,
+            "fanoutPostsTotal": c["fanout_posts"],
             "packPassesTotal": c["pack_passes"],
             "containersSeeded": c["seeded"],
             "errorsTotal": c["errors"],
@@ -292,7 +368,7 @@ class IngestPipeline:
             "bits_total": c["bits"],
             "values_total": c["values"],
             "slice_groups_total": c["slices"],
-            "fanout_posts_total": 0,
+            "fanout_posts_total": c["fanout_posts"],
             "pack_passes_total": c["pack_passes"],
             "errors_total": c["errors"],
             "rejected_total": c["rejected"],

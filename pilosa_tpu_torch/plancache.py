@@ -192,11 +192,14 @@ class PlanCache:
 
     def slice_universe(self, index, idx):
         """The index's (standard, inverse) slice lists as shared
-        ``SliceList``s, memoized on its epoch: no ``max_slice()`` walk
-        over every view of every frame per query. The token is read
-        before the walk, so a write landing mid-walk makes the memo
-        stale on arrival, never wrong."""
-        token = idx.epoch.value
+        ``SliceList``s, memoized on its epoch and the maxima peers
+        reported (which heartbeats and create-slice messages widen
+        without an epoch move): no ``max_slice()`` walk over every view
+        of every frame per query. The token is read before the walk, so
+        a write landing mid-walk makes the memo stale on arrival, never
+        wrong."""
+        token = (idx.epoch.value, idx.remote_max_slice,
+                 idx.remote_max_inverse_slice)
         if self.capacity != 0:
             with self._mu:
                 ent = self._universe.get(index)

@@ -32,8 +32,14 @@ create-slice messages; ``POST /internal/heartbeat`` exchanges membership
 status and ``GET /internal/probe`` probes a member for a peer;
 ``/status``, ``/hosts`` and ``/fragment/nodes`` describe the cluster,
 and ``/import`` and ``/import-value`` refuse a slice this node does not
-own (412). Keyed imports and bulk ingest wait for their coordinators on
-a cluster of more than one node and answer 501 there.
+own (412). Every response carries this node's epoch counters
+(``X-Pilosa-Epochs``, cluster/epochs.py), ``GET /internal/epochs`` is
+the peers' probe and ``GET /debug/epochs`` shows the registry; the
+response cache validates on the epoch vector over every node. Bulk
+ingest through any node fans each slice out to its owners (a leg with
+``?slice=`` installs here, 412 when this node does not own the slice);
+a keyed import goes to the key authority, the lowest host, which
+translates and imports each slice on its owners.
 """
 import io
 import json
@@ -51,6 +57,7 @@ import numpy as np
 from pilosa_tpu_torch import SLICE_WIDTH, __version__
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch.bitmap import Bitmap
+from pilosa_tpu_torch.cluster import epochs as epochs_mod
 from pilosa_tpu_torch.cluster.broadcast import NopBroadcaster
 from pilosa_tpu_torch.executor import ExecOptions, SumCount
 from pilosa_tpu_torch.ingest import codec as ingest_codec
@@ -104,12 +111,14 @@ class Handler:
 
     def __init__(self, holder, executor, local_host=None,
                  version=__version__, ingest=None, cluster=None,
-                 broadcaster=None):
+                 broadcaster=None, epochs=None):
         self.holder = holder
         self.executor = executor
         self.local_host = local_host
         self.version = version
         self.cluster = cluster
+        # The cluster's epoch-vector registry (None: one node).
+        self.epochs = epochs
         self.broadcaster = broadcaster or NopBroadcaster()
         # The bulk-ingest pipeline; None: the ingest route answers 501.
         self.ingest = ingest
@@ -164,35 +173,65 @@ class Handler:
             ("POST", r"^/internal/heartbeat$",
              self.post_internal_heartbeat),
             ("GET", r"^/internal/probe$", self.get_internal_probe),
+            ("GET", r"^/internal/epochs$", self.get_internal_epochs),
+            ("GET", r"^/debug/epochs$", self.get_debug_epochs),
         ]]
 
     def enable_response_cache(self):
-        """Replay identical read queries' response bytes while the
-        index's mutation epoch stands (ref: pilosa_tpu handler.py:175-205,
-        its single-node branch): parse, execution and encoding are
-        skipped. Off when the executor's result memos are off, and under
-        PILOSA_TPU_RESPONSE_CACHE=0."""
+        """Replay identical read queries' response bytes while their
+        validity token stands (ref: pilosa_tpu handler.py:175-205):
+        parse, execution and encoding are skipped. On one node the token
+        is the index's mutation epoch, on a cluster the epoch vector over
+        every node (``_cluster_epoch_token``). Off when the executor's
+        result memos are off, under PILOSA_TPU_RESPONSE_CACHE=0, and on
+        a cluster without an epoch registry."""
         if os.environ.get("PILOSA_TPU_RESPONSE_CACHE", "1").lower() in (
                 "0", "false", "no"):
             return
-        self._resp_cache = ResponseCache(
-            lambda path: self.executor._epoch(path.split("/", 3)[2]))
+        if self.epochs is not None:
+            self._resp_cache = ResponseCache(self._cluster_epoch_token)
+        elif not self._multi_node():
+            self._resp_cache = ResponseCache(
+                lambda path: self.executor._epoch(path.split("/", 3)[2]))
+
+    def _cluster_epoch_token(self, path):
+        """A cluster's replay token (ref: pilosa_tpu handler.py:206-228):
+        the epoch vector over every node (a whole-index query reads
+        slices of all of them), probed when stale, and the lengths of
+        this node's slice universes, which heartbeats widen without an
+        epoch move. None: cold."""
+        index = path.split("/", 3)[2]
+        tok = self.epochs.ensure_fresh(
+            index, [n.host for n in self.cluster.nodes])
+        if tok is None:
+            return None
+        idx = self.holder.index(index)
+        if idx is None:
+            return tok
+        std, inv = self.executor.plans.slice_universe(index, idx)
+        return (tok, len(std), len(inv))
 
     def dispatch(self, method, path, query_params, body, headers):
-        """-> (status, content_type, payload bytes)."""
+        """-> (status, content_type, payload bytes[, extra headers])."""
         cache = self._resp_cache
         key = epoch = None
+        out = None
         if (cache is not None and not self.executor.memos_off()
                 and cache.cacheable(method, path, body)):
             key = cache.make_key(path, query_params, body, headers)
-            hit = cache.get(key)
-            if hit is not None:
-                return hit
-            epoch = cache.pre_epoch(path)
-        out = self._dispatch_route(method, path, query_params, body,
-                                   headers)
-        if key is not None:
-            cache.put(key, epoch, out)
+            out = cache.get(key)
+            if out is None:
+                epoch = cache.pre_epoch(path)
+        if out is None:
+            out = self._dispatch_route(method, path, query_params, body,
+                                       headers)
+            if key is not None:
+                cache.put(key, epoch, out)
+        ep = self.epochs
+        if ep is not None:
+            # Read after the handler ran: a write's own answer carries
+            # its moved counter to the node that relayed it.
+            out = out[:3] + ({ep.HEADER: ep.header_value()},)
         return out
 
     def _dispatch_route(self, method, path, query_params, body, headers):
@@ -302,12 +341,18 @@ class Handler:
 
     def get_debug_vars(self, params, qp, body, headers):
         """The serving tiers' counters (ref: pilosa_tpu handler
-        get_debug_vars: countCoalescer, responseCache, ingest), with the
-        plan cache's snapshot."""
+        get_debug_vars: countCoalescer, remoteBatcher once a round went
+        out, responseCache, epochs, ingest), with the plan cache's
+        snapshot."""
         doc = {"countCoalescer": self.executor.coalesce_snapshot(),
                "planCache": self.executor.plans.snapshot(),
                "ingest": (self.ingest.snapshot() if self.ingest is not None
+                          else {"enabled": False}),
+               "epochs": (self.epochs.snapshot() if self.epochs is not None
                           else {"enabled": False})}
+        rb = self.executor.remote_batch_snapshot()
+        if rb["rounds"]:
+            doc["remoteBatcher"] = rb
         if self._resp_cache is not None:
             doc["responseCache"] = self._resp_cache.stats()
         return _json(200, doc)
@@ -488,32 +533,60 @@ class Handler:
             ts = [datetime.fromtimestamp(t) if t else None
                   for t in timestamps]
         if req.get("rowKeys") or req.get("columnKeys"):
-            if self._multi_node():
-                raise HTTPError(501, "keyed import on a cluster is not "
-                                     "supported yet")
-            return self._post_import_keyed(req["index"], fr, req, ts)
+            return self._post_import_keyed(req["index"], fr, req, ts, body,
+                                           headers)
         self._check_slice_ownership(req["index"], int(req.get("slice", 0)))
         self._require(req, "rowIDs", "columnIDs")
         fr.import_bits(req["rowIDs"], req["columnIDs"], ts)
         return _OK
 
-    def _post_import_keyed(self, index, fr, req, ts):
-        """Keyed import, one node (ref: pilosa_tpu handler.py:1172-1260):
-        row keys become ids in the frame's key store, column keys in the
-        index's (dense ids from 0, allocated in first-seen order), and
-        the bits go through ``Frame.import_bits``."""
+    def _post_import_keyed(self, index, fr, req, ts, body, headers):
+        """Keyed import (ref: pilosa_tpu handler.py:1183-1275): row keys
+        become ids in the frame's key store, column keys in the index's
+        (dense ids from 0, allocated in first-seen order). One node
+        imports them through ``Frame.import_bits``. On a cluster one node
+        allocates, the key authority (the lowest host): another node
+        passes the body on to it, and it imports each slice's bits on
+        every owner of the slice."""
         row_keys = req.get("rowKeys") or []
         col_keys = req.get("columnKeys") or []
         if len(row_keys) != len(col_keys):
             raise HTTPError(400, "row/column key length mismatch")
         if ts is not None and len(ts) != len(row_keys):
             raise HTTPError(400, "timestamp length mismatch")
+        client = self.executor.client
+        if self._multi_node():
+            if client is None:
+                raise HTTPError(
+                    500, "no internal client for multi-node keyed import")
+            authority = min(self.cluster.nodes, key=lambda n: n.host)
+            if authority.host != self.local_host:
+                # pilosa_tpu (handler.py:1213-1240) also sends the QoS
+                # priority and the remaining deadline along; this port
+                # has no QoS tier yet.
+                status, data, _ = client._do(
+                    "POST", authority, "/import", body,
+                    content_type=headers.get("Content-Type",
+                                             "application/json"))
+                return status, "application/json", data or b"{}"
         idx = self._index(index)
         row_ids = np.asarray(fr.row_key_store.translate(row_keys),
                              dtype=np.int64)
         col_ids = np.asarray(idx.column_key_store.translate(col_keys),
                              dtype=np.int64)
-        fr.import_bits(row_ids, col_ids, ts)
+        if not self._multi_node():
+            fr.import_bits(row_ids, col_ids, ts)
+            return _OK
+        slices = col_ids // SLICE_WIDTH
+        order = np.argsort(slices, kind="stable")
+        for g in np.split(order, np.flatnonzero(np.diff(slices[order])) + 1):
+            if not len(g):
+                continue
+            gts = ([int(ts[i].timestamp()) if ts[i] else 0 for i in g]
+                   if ts else None)
+            client.import_bits(self.cluster, index, fr.name,
+                               int(slices[g[0]]), row_ids[g].tolist(),
+                               col_ids[g].tolist(), gts)
         return _OK
 
     def post_import_value(self, params, qp, body, headers):
@@ -536,14 +609,13 @@ class Handler:
         """Bulk ingest (ref: pilosa_tpu handler.py:1314-1350): one
         (row, column[, timestamp]) or (column, value) batch in a binary
         columnar body (``application/x-pilosa-ingest``, ingest/codec.py)
-        or in JSON; ``?slice=`` (a coordinator's slice-targeted leg) is
-        checked and installs as any batch on one node."""
+        or in JSON. On a cluster the pipeline sends each slice's part to
+        every owner; ``?slice=`` marks such a leg, which installs here
+        and answers 412 when this node does not own the slice (ref:
+        pilosa_tpu handler.py:1314-1356)."""
         if self.ingest is None:
             raise HTTPError(
                 501, "ingest pipeline disabled ([ingest] enabled)")
-        if self._multi_node():
-            raise HTTPError(501, "bulk ingest on a cluster is not "
-                                 "supported yet")
         index = params["index"]
         if headers.get("Content-Type") == ingest_codec.CONTENT_TYPE:
             try:
@@ -554,14 +626,15 @@ class Handler:
             req = json.loads(body or b"{}")
         self._require(req, "frame")
         self._frame(index, req["frame"])  # 404 like /import
-        if "slice" in qp:
-            int(qp["slice"][0])  # a malformed slice is the caller's 400
+        local = "slice" in qp
+        if local:
+            self._check_slice_ownership(index, int(qp["slice"][0]))
         try:
             if req.get("values") is not None:
                 self._require(req, "field", "columns", "values")
                 out = self.ingest.ingest_values(
                     index, req["frame"], req["field"], req["columns"],
-                    req["values"])
+                    req["values"], local=local)
             else:
                 self._require(req, "rows", "columns")
                 ts = req.get("timestamps")
@@ -570,7 +643,7 @@ class Handler:
                     ts = [int(t) if t else 0 for t in ts]
                 out = self.ingest.ingest_bits(
                     index, req["frame"], req["rows"], req["columns"],
-                    ts)
+                    ts, local=local)
         except IngestError as e:
             raise HTTPError(e.status, str(e))
         return _json(200, out)
@@ -700,11 +773,17 @@ class Handler:
         with ours, without the schema when the digests agree."""
         st = json.loads(body or b"{}")
         if st:
+            if (self.epochs is not None and isinstance(st.get("epochs"),
+                                                       dict)
+                    and st.get("host")):
+                self.epochs.observe(st["host"], st["epochs"])
             try:
                 self.holder.merge_remote_status(st)
             except Exception:  # noqa: BLE001 — a malformed peer status
                 traceback.print_exc()  # must not fail the liveness probe
         local = self.holder.node_status_compact(self.local_host or "")
+        if self.epochs is not None:
+            local["epochs"] = epochs_mod.local_epochs(self.holder)
         if st.get("schemaDigest") and \
                 st.get("schemaDigest") == local.get("schemaDigest"):
             local.pop("schema", None)
@@ -722,6 +801,18 @@ class Handler:
         client = self.executor.client
         ok = client.probe(node, timeout=3) if client is not None else False
         return _json(200, {"ok": ok})
+
+    def get_internal_epochs(self, params, qp, body, headers):
+        """The epoch probe's target (ref: pilosa_tpu handler.py:1699-1708):
+        this node's counters, on one node too."""
+        return _json(200, {"host": self.local_host or "",
+                           "epochs": epochs_mod.local_epochs(self.holder)})
+
+    def get_debug_epochs(self, params, qp, body, headers):
+        """The epoch registry's state, ``{"enabled": false}`` on one
+        node."""
+        return _json(200, self.epochs.snapshot() if self.epochs is not None
+                     else {"enabled": False})
 
     def post_recalculate_caches(self, params, qp, body, headers):
         """(ref: handler.go:2016): rebuild the TopN caches from storage."""
@@ -932,10 +1023,12 @@ def make_http_server(handler, bind="localhost:0",
             self.wfile.write(payload)
 
         def _respond(self, resp):
-            status, ctype, payload = resp
+            status, ctype, payload = resp[:3]
             self.send_response(status)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(payload)))
+            for name, value in (resp[3] if len(resp) > 3 else {}).items():
+                self.send_header(name, value)
             # A small payload goes out in the headers' write (one
             # syscall, no delayed-ACK interplay between two segments); a
             # large one in a write of its own, not copied into the

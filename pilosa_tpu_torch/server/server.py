@@ -26,12 +26,22 @@ and membership probes a subset of peers every 5 seconds (a DOWN peer
 is hinted the writes it misses, pushed the schema and replayed them on
 rejoin). ``polling_interval`` seconds (0: never) between polls of the
 peers' max slices, the backstop of the create-slice messages.
+
+On a cluster the warm tiers (result memos, response cache) validate on
+the cluster's epoch vector (``ClusterEpochs``, cluster/epochs.py): every
+response and heartbeat carries the node's counters, and a peer observed
+longer than ``epoch_probe_ttl`` seconds ago is probed before a replay
+(None reads ``PILOSA_EPOCH_PROBE_TTL``, unset is the heartbeat
+interval): a write this node did not relay shows in its caches within
+that bound. Bulk ingest and keyed imports through any node land on
+every owner of each slice.
 """
 import logging
 import os
 import threading
 
 from pilosa_tpu_torch.cluster.broadcast import HTTPBroadcaster
+from pilosa_tpu_torch.cluster import epochs as epochs_mod
 from pilosa_tpu_torch.cluster.client import InternalClient
 from pilosa_tpu_torch.cluster.cluster import Cluster, Node
 from pilosa_tpu_torch.cluster.membership import HTTPNodeSet
@@ -57,7 +67,7 @@ class Server:
                  max_body_size=DEFAULT_MAX_BODY_SIZE, host_bytes=None,
                  ingest=None, cluster_hosts=None, replica_n=1,
                  polling_interval=DEFAULT_POLLING_INTERVAL,
-                 stack_bytes=None):
+                 stack_bytes=None, epoch_probe_ttl=None):
         self.data_dir = data_dir
         self.bind = bind
         self.host = bind  # host:port once open; the bound port for port 0
@@ -68,8 +78,8 @@ class Server:
         # Raises without a GPU unless device="cpu".
         self.holder = Holder(data_dir, device=device,
                              host_bytes=host_bytes or None)
-        self.ingest = _ingest_pipeline(self.holder, ingest)
         self.cluster = self.client = self.broadcaster = None
+        self.epochs = None
         hosts = list(cluster_hosts or [])
         if len(hosts) > 1:
             self.cluster = Cluster(nodes=[Node(h) for h in hosts],
@@ -79,10 +89,19 @@ class Server:
                 self.cluster, bind, InternalClient(timeout=5),
                 on_rejoin=self._on_peer_rejoin,
                 status_fn=self._heartbeat_status,
-                merge_fn=self.holder.merge_remote_status)
+                merge_fn=self._merge_peer_status)
             self.broadcaster = HTTPBroadcaster(self.client, self.cluster,
                                                bind)
             self.holder.broadcaster = self.broadcaster
+            self.epochs = epochs_mod.ClusterEpochs(
+                bind, self.holder, cluster=self.cluster, client=self.client,
+                ttl=_probe_ttl(epoch_probe_ttl,
+                               self.cluster.node_set.interval))
+            # Every internal response's header reaches the registry: a
+            # relayed write's answer carries the owner's moved counter.
+            self.client.epochs = self.epochs
+        self.ingest = _ingest_pipeline(self.holder, ingest, self.cluster,
+                                       self.client)
         self.executor = None
         self.handler = None
         self._httpd = None
@@ -96,9 +115,11 @@ class Server:
             self.executor = Executor(self.holder, cluster=self.cluster,
                                      client=self.client,
                                      stack_bytes=self.stack_bytes)
+            self.executor.epochs = self.epochs
             self.handler = Handler(self.holder, self.executor,
                                    ingest=self.ingest, cluster=self.cluster,
-                                   broadcaster=self.broadcaster)
+                                   broadcaster=self.broadcaster,
+                                   epochs=self.epochs)
             self.handler.enable_response_cache()
             self._httpd = make_http_server(self.handler, self.bind,
                                            self.max_body_size)
@@ -117,6 +138,7 @@ class Server:
                 self.cluster.topology_version += 1
             self.broadcaster.local_host = self.host
             self.cluster.node_set.local_host = self.host
+            self.epochs.local_host = self.host
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="http-serve")
         self._thread.start()
@@ -141,6 +163,10 @@ class Server:
             self._httpd = None
         if self.executor is not None:
             self.executor.close()
+        if self.ingest is not None:
+            self.ingest.close()
+        if self.epochs is not None:
+            self.epochs.close()
         if self.client is not None:
             self.client.close()
             self.cluster.node_set.client.close()
@@ -149,8 +175,19 @@ class Server:
     # ------------------------------------------------------------ cluster
 
     def _heartbeat_status(self):
-        """The compact status a membership probe carries."""
-        return self.holder.node_status_compact(self.host)
+        """The compact status a membership probe carries, with this
+        node's epoch counters (ref: pilosa_tpu server.py:839)."""
+        st = self.holder.node_status_compact(self.host)
+        st["epochs"] = epochs_mod.local_epochs(self.holder)
+        return st
+
+    def _merge_peer_status(self, st):
+        """A heartbeat reply: its epochs first, so that a schema merge's
+        failure never loses them, then the holder's create-only merge
+        (ref: pilosa_tpu server.py:849-860)."""
+        if isinstance(st.get("epochs"), dict) and st.get("host"):
+            self.epochs.observe(st["host"], st["epochs"])
+        self.holder.merge_remote_status(st)
 
     def _on_peer_rejoin(self, node):
         """A peer membership saw again: push it the schema (with
@@ -189,9 +226,21 @@ class Server:
                 continue
 
 
-def _ingest_pipeline(holder, cfg):
+def _probe_ttl(ttl, heartbeat_interval):
+    """The epoch probe ttl: the argument, else PILOSA_EPOCH_PROBE_TTL,
+    else the heartbeat interval (0 or unparseable: the default)."""
+    if ttl is None:
+        try:
+            ttl = float(os.environ.get("PILOSA_EPOCH_PROBE_TTL") or 0)
+        except ValueError:
+            ttl = 0
+    return float(ttl or heartbeat_interval or epochs_mod.DEFAULT_PROBE_TTL)
+
+
+def _ingest_pipeline(holder, cfg, cluster=None, client=None):
     """The IngestPipeline the ``[ingest]`` table and its environment
-    variables ask for, or None when disabled."""
+    variables ask for, or None when disabled; on a cluster it fans each
+    batch out to the owners of its slices."""
     cfg = {k.replace("_", "-"): v for k, v in (cfg or {}).items()}
     enabled = cfg.get("enabled")
     if enabled is None:
@@ -207,5 +256,5 @@ def _ingest_pipeline(holder, cfg):
                 max_bits = int(env)
             except ValueError:
                 pass
-    return IngestPipeline(holder,
+    return IngestPipeline(holder, cluster=cluster, client=client,
                           max_batch_bits=max_bits or DEFAULT_MAX_BATCH_BITS)

@@ -218,20 +218,50 @@ def try_flock(path, err_cls, transient=False):
 # cannot alias a stack cached for the old one.
 _EPOCH_SEQ = itertools.count(1)
 
+# The process's mutation counters by index NAME and in total (ref:
+# pilosa_tpu storage/fragment.py:300-326): what a cluster node tells its
+# peers (cluster/epochs.py). Every holder of the process moves them, as
+# every holder of a pilosa_tpu process moves its module counters.
+_names_mu = threading.Lock()
+_name_epochs = {}
+_epoch_total = 0
+
+
+def _bump_name(index):
+    global _epoch_total
+    with _names_mu:
+        _epoch_total += 1
+        if index is not None:
+            _name_epochs[index] = _name_epochs.get(index, 0) + 1
+
+
+def mutation_epoch(index):
+    """The process's counter of mutations under the index name."""
+    return _name_epochs.get(index, 0)
+
+
+def epoch_total():
+    """The process's counter of mutations under every index."""
+    return _epoch_total
+
 
 class MutationEpoch:
     """A value moved by every fragment open, close, load and mutation
     under one index: an O(1) "has anything changed?" test for the
     executor's device-stack cache, instead of re-reading every
-    fragment's version per query."""
+    fragment's version per query. Each move also counts in the process's
+    counters of the index ``name`` (``mutation_epoch``)."""
 
-    def __init__(self):
+    def __init__(self, name=None):
         self._mu = threading.Lock()
+        self.name = name
         self.value = next(_EPOCH_SEQ)
+        _bump_name(name)  # a new index under an old name moves it too
 
     def bump(self):
         with self._mu:
             self.value = next(_EPOCH_SEQ)
+            _bump_name(self.name)
 
 
 class TopOptions:

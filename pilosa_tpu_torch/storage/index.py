@@ -36,7 +36,7 @@ class Index:
         self.holder_locked = holder_locked
         self.governor = governor  # the holder's host-memory governor
         # Bumped by every fragment open/close/mutation in this index.
-        self.epoch = MutationEpoch()
+        self.epoch = MutationEpoch(name)
         self.created_at = time.time()
         self.mu = threading.RLock()
         self.column_label = DEFAULT_COLUMN_LABEL

@@ -4,7 +4,8 @@ in one process, then each a process of its own, against one node
 holding every slice.
 
     python3 pilosa_tpu_torch/tools/cluster_warm.py [--slices 1024]
-        [--nodes 3] [--replicas 2] [--reps 200] [--out FILE]
+        [--nodes 3] [--replicas 2] [--reps 200] [--memos on|off]
+        [--remote-batch on|off] [--out FILE]
 
 Frame f's rows 0 and 1 (bit density 0.5 from ``--seed``) are written
 into one directory per node, the slices placement gives it, and one
@@ -17,8 +18,12 @@ seconds are the first query's) and ``--reps`` times more over one
 keep-alive connection to node 1, host clock. In the one-process cluster
 node 1's legs are timed too: the median offsets from the query's
 arrival at node 1's executor to each leg's start and end (its own leg
-and each peer's). The result memos and the response cache are off
-(``PILOSA_TPU_RESULT_MEMO=0``), so every query executes.
+and each peer's). ``--memos off`` (the default) turns the result memos
+and the response cache off (``PILOSA_TPU_RESULT_MEMO=0``), so every
+query executes; ``on`` leaves them in their default state, so warm
+repeats replay while the epoch vector stands. ``--remote-batch off``
+sends every remote subcall alone (``PILOSA_TPU_REMOTE_BATCH=0``; on, the
+default, concurrent subcalls to one peer share a round).
 ``--switch-interval S`` sets this process's interpreter switch interval
 (``sys.setswitchinterval``) for the one-process cluster. Prints one JSON
 line with the card's name and power limit.
@@ -168,10 +173,18 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     ap.add_argument("--switch-interval", type=float, default=None)
+    ap.add_argument("--memos", choices=("on", "off"), default="off")
+    ap.add_argument("--remote-batch", choices=("on", "off"), default="on")
     args = ap.parse_args()
     if args.switch_interval:
         sys.setswitchinterval(args.switch_interval)
-    os.environ["PILOSA_TPU_RESULT_MEMO"] = "0"
+    # The nodes' processes inherit both switches.
+    if args.memos == "off":
+        os.environ["PILOSA_TPU_RESULT_MEMO"] = "0"
+    else:
+        os.environ.pop("PILOSA_TPU_RESULT_MEMO", None)
+    os.environ["PILOSA_TPU_REMOTE_BATCH"] = (
+        "1" if args.remote_batch == "on" else "0")
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     sys.path.insert(0, here)
@@ -186,6 +199,7 @@ def main():
     out = {"card": smi, "slices": args.slices, "nodes": args.nodes,
            "replicas": args.replicas, "reps": args.reps,
            "switch_interval_s": sys.getswitchinterval(),
+           "memos": args.memos, "remote_batch": args.remote_batch,
            "coalesce": os.environ.get("PILOSA_TPU_COALESCE")}
     procs, servers = [], []
     try:

@@ -36,6 +36,28 @@ def wait_all(handles, deadline=None, clock=time.monotonic):
     return ok
 
 
+def run_all(pool, fns, width=None):
+    """Run every function of ``fns`` on ``pool``, ``width`` at a time (all
+    at once by default), wait for all of them, then raise the first
+    failure in their order: the callers' all-or-nothing acknowledgement
+    over every owner or slice."""
+    errs = [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errs[i] = exc
+
+    width = width or max(1, len(fns))
+    for off in range(0, len(fns), width):
+        wait_all([pool.run(lambda i=off + k, fn=fn: run(i, fn))
+                  for k, fn in enumerate(fns[off:off + width])])
+    for exc in errs:
+        if exc is not None:
+            raise exc
+
+
 class _Worker:
     __slots__ = ("_pool", "_cv", "_task")
 

@@ -565,8 +565,8 @@ def test_replicas_one_node_down_answers_reference_status(tmp_path):
 def test_node_in_its_own_process(tmp_path):
     """Two in-process port nodes and one ``cli server`` process,
     replicas 2: a write through the process node to slices the reading
-    node does not own moves no epoch of the reader; the reader, with its
-    memos and response cache as configured by default, still answers
+    node does not own moves no epoch of the reader's holder; the reader,
+    with its memos and response cache on (their default), still answers
     the write."""
     hosts = [f"localhost:{p}" for p in free_ports(3)]
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -588,7 +588,8 @@ def test_node_in_its_own_process(tmp_path):
         assert "listening" in line, line
         reader = servers[0]
         assert not reader.executor._result_memo_off
-        assert reader.executor.memos_off()  # a cluster: warm tiers off
+        # A cluster: the warm tiers validate on the epoch vector.
+        assert not reader.executor.memos_off()
         assert _http(hosts[2], "POST", "/index/i", {})[0] == 200
         assert _http(hosts[2], "POST", "/index/i/frame/f", {})[0] == 200
         not_reader = [s for s in range(64)
