@@ -108,7 +108,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
    ``http.client`` connection: ``/status`` and ``/schema`` list frames f
    and t with their views; Count(Intersect(row 0, row 1)) in JSON and in
    protobuf, then warm over HTTP (n=100) beside phase 4's in-process
-   p50; ``TopN(Bitmap(frame="f", rowID=0), frame="f", n=4)`` over frame
+   p50, and again with tracing off, on and ``?profile=true`` (report
+   only; the answers with tracing on byte-equal to those with it off, the
+   profile's tree from ``query`` to ``call:Count`` down to
+   ``kernel:count_op_rows`` with its ``deviceMs`` within
+   TRACE_DEVICE_TOL of phase 3's time); ``TopN(Bitmap(frame="f", rowID=0), frame="f", n=4)`` over frame
    f's cached rows; Sum and Count(Range(stars > 30)) after phase 6's
    writes; the batched Intersect(row 3, row 0)'s ~4.9M ids in the JSON
    body id by id, its HTTP p50 (n=5) beside the query, ``columns()`` and
@@ -203,10 +207,15 @@ Phases, each of which fails the run (exit code != 0, no result line):
    a slice node 1 holds no copy of is counted through node 1, its memos
    and response cache on, within one epoch probe ttl
    (CLUSTER_EPOCH_TTL, 0.5 s for the phase). Before the failover, with
-   the three nodes in process: (g) node 1's memos and response cache on
-   (validated on the epoch vector): warm Count(Intersect) repeats over
-   HTTP replay (hit p50, hits), a SetBit and a ClearBit through node 1
-   to a slice it holds no copy of are read by its very next query; (h)
+   the three nodes in process: (b) a profiled Count(Intersect) and TopN
+   through node 1 with every node tracing, each trace stitched from the
+   nodes' ``/debug/traces``: one ``remote.<host>`` span a peer leg with
+   that peer's ``query.remote`` under it, the merged ``slices`` and
+   ``fanoutCalls`` checked, each leg's ms printed; (g) node 1's memos
+   and response cache on (validated on the epoch vector): warm
+   Count(Intersect) repeats over HTTP replay (hit p50, hits), a SetBit
+   and a ClearBit through node 1 to a slice it holds no copy of are read
+   by its very next query; (h)
    8 and 32 closed-loop clients (8c's count mix, processes without
    torch) through node 1 for 2 s each, memos off, the remote batch
    lanes on and then off (q/s, p50, p99, rounds, batched calls; report
@@ -214,8 +223,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
    8,000,000 bits over 32 slices, through node 2 into a new frame:
    bits/s, fan-out posts, each node's classify passes and
    ``ingest_classify``'s launches, Counts through every node and on
-   each owner's own slices, a ``?slice=`` leg to a non-owner answering
-   412; (j) 100,000 keyed pairs by JSON ``/import`` through a node that
+   each owner's own slices, (c) ``TopN(frame="w", n=1,024)`` through
+   node 1 right after the ingest, profiled and stitched, equal to numpy
+   with no leg failed over within CLUSTER_TOPN_MAX_S (the sampled stacks
+   of the process's threads printed when it is slow), a ``?slice=`` leg
+   to a non-owner answering 412; (j) 100,000 keyed pairs by JSON ``/import`` through a node that
    is not the key authority, every translated row's Count through every
    node. Steps (g)-(j) must launch ``count_op_rows``, ``count_rows``,
    ``count_and_rows`` and ``ingest_classify``. Report only:
@@ -2581,6 +2593,113 @@ def http_query(conn, pql):
     return http_json(conn, "POST", "/index/i/query", pql.encode())["results"]
 
 
+TRACE_WARM = 100   # (a)'s warm Count(Intersect)s a mode
+# Kernel times of phase 3 (ms), beside which the spans' deviceMs is
+# printed and held, within TRACE_DEVICE_TOL of it (a full run only).
+KERNEL_MS = {}
+TRACE_DEVICE_TOL = 0.05
+
+
+def span_find(node, name):
+    """The spans named ``name`` in the tree under ``node``, itself
+    included, depth first."""
+    out = [node] if node["name"] == name else []
+    for c in node["children"]:
+        out.extend(span_find(c, name))
+    return out
+
+
+def span_lines(node, depth=0, out=None, limit=40):
+    """A span tree as indented "name ms tags" lines, ``limit`` at most."""
+    out = [] if out is None else out
+    if len(out) < limit:
+        out.append(f"{'  ' * depth}{node['name']} {node['durationMs']} ms "
+                   f"{json.dumps(node['tags'])}")
+        for c in node["children"]:
+            span_lines(c, depth + 1, out, limit)
+    return out
+
+
+def trace_overhead(server, conn, q_and, want, slices, card):
+    """Phase 8a (a): warm Count(Intersect) over HTTP with tracing off, on
+    (a Tracer on the server's handler, as ``Server(trace_enabled=True)``
+    builds it) and with ``?profile=true`` on the server with tracing off,
+    TRACE_WARM queries each, p50 and p90 on the host clock. The answers
+    with tracing on are the bytes of those with it off, and every
+    profile's results equal numpy's; the profile's tree runs from
+    ``query`` to ``parse`` and ``call:Count`` down to
+    ``kernel:count_op_rows`` with ``deviceMs``, whose p50 is printed
+    beside the kernel's time in phase 3's table and held within
+    TRACE_DEVICE_TOL of it. The latencies are report only."""
+    from pilosa_tpu_torch import tracing
+
+    handler = server.handler
+    path = "/index/i/query"
+    want_body = json.dumps({"results": [want]}).encode()
+    out, dev_ms, prof = {}, [], None
+    try:
+        for mode in ("off", "on", "profile", "off2"):
+            handler.tracer = (tracing.Tracer() if mode == "on"
+                              else tracing.NOP)
+            url = path + ("?profile=true" if mode == "profile" else "")
+            lat = []
+            for _ in range(TRACE_WARM):
+                t = time.perf_counter()
+                status, ctype, body = http_request(conn, "POST", url,
+                                                   q_and.encode())
+                lat.append((time.perf_counter() - t) * 1e3)
+                check(status == 200 and ctype == "application/json",
+                      f"(a) {mode}: {status} {ctype} {body[:200]!r}")
+                if mode == "profile":
+                    doc = json.loads(body)
+                    check(doc["results"] == [want],
+                          f"(a) profiled Count: {doc['results']} != {want}")
+                    prof = doc["profile"]
+                    dev_ms.extend(k["tags"].get("deviceMs") for k in
+                                  span_find(prof["roots"][0],
+                                            "kernel:count_op_rows"))
+                else:
+                    check(body == want_body, f"(a) tracing {mode}: "
+                          f"{body[:200]!r} != {want_body!r}")
+            out[mode] = (np.percentile(lat, 50), np.percentile(lat, 90))
+            if mode == "on":
+                got = handler.tracer.summary()["traces"]
+                check(got == TRACE_WARM, f"(a) {got} traces kept of "
+                      f"{TRACE_WARM}")
+    finally:
+        handler.tracer = server.tracer
+    (root,) = prof["roots"]
+    names = [c["name"] for c in root["children"]]
+    calls = [c for c in root["children"] if c["name"] == "call:Count"]
+    check(root["name"] == "query" and names[:1] == ["parse"] and calls,
+          f"(a) profile tree: {root['name']} -> {names}")
+    kern = span_find(calls[0], "kernel:count_op_rows")
+    check(kern and (DEVICE != "cuda" or all(
+        k["tags"].get("deviceMs", 0) > 0 for k in kern)),
+          f"(a) no kernel:count_op_rows span with deviceMs under "
+          f"call:Count: {span_lines(root)}")
+    check(prof["resources"]["slices"] == slices,
+          f"(a) profile slices {prof['resources']['slices']} != {slices}")
+    dev_ms = np.asarray([d for d in dev_ms if d is not None] or [np.nan])
+    table = KERNEL_MS.get("count_op_rows")
+    if table and DEVICE == "cuda":
+        check(abs(np.median(dev_ms) - table) <= TRACE_DEVICE_TOL * table,
+              f"(a) kernel:count_op_rows deviceMs p50 "
+              f"{np.median(dev_ms):.4f} ms is not within "
+              f"{TRACE_DEVICE_TOL:.0%} of phase 3's {table:.4f} ms")
+    print(f"trace (a) {card}: warm Count(Intersect) over {slices} slices "
+          f"over HTTP (n={TRACE_WARM} each, host clock): tracing off p50 "
+          f"{out['off'][0]:.3f} ms, p90 {out['off'][1]:.3f}; on p50 "
+          f"{out['on'][0]:.3f}, p90 {out['on'][1]:.3f}; ?profile=true p50 "
+          f"{out['profile'][0]:.3f}, p90 {out['profile'][1]:.3f}; off again "
+          f"p50 {out['off2'][0]:.3f}, p90 {out['off2'][1]:.3f}; "
+          f"kernel:count_op_rows deviceMs p50 {np.median(dev_ms):.4f} ms "
+          f"(min {dev_ms.min():.4f}, n={len(dev_ms)}) beside phase 3's "
+          f"{'%.4f ms' % table if table else 'table time (not run)'}; "
+          f"answers with tracing on byte-equal to off and to numpy")
+    print("trace (a) profile tree:\n  " + "\n  ".join(span_lines(root)))
+
+
 def server_path(slices, seed, datadir, card, oracle):
     """Phase 8a: the in-process ``Server`` on the card over phases 4-6's
     data directory, driven over one keep-alive connection; every answer
@@ -2660,6 +2779,7 @@ def server_path(slices, seed, datadir, card, oracle):
               f"{p50 - oracle['count_p50_ms']:.3f} ms; Handler.dispatch "
               f"alone p50 {disp_ms:.3f} ms; from a raw keep-alive socket "
               f"p50 {raw_ms:.3f} ms (n=100 each)")
+        trace_overhead(server, conn, q_and, want, slices, card)
 
         # TopN over frame f (its .cache sidecars hold rows 0-3).
         q = f'TopN({R0}, frame="f", n=4)'
@@ -4525,6 +4645,111 @@ def cluster_batch_lanes(node, slices, seed, pair_counts, card):
     print(f"cluster (h) {card}: {time.perf_counter() - t0:.1f} s")
 
 
+def set_tracing(servers, on):
+    """A Tracer on every in-process node's handler (``on``), or each
+    node's own (tracing off)."""
+    from pilosa_tpu_torch import tracing
+
+    for srv in servers:
+        srv.handler.tracer = tracing.Tracer() if on else srv.tracer
+
+
+def stitched_profile(conns, pql):
+    """POST ``pql`` with ``?profile=true`` through ``conns[0]``; -> (its
+    results, its profile, the trace stitched from every node's
+    ``/debug/traces?traceId=``, seconds)."""
+    from pilosa_tpu_torch import tracing
+
+    t = time.perf_counter()
+    status, ctype, body = http_request(conns[0], "POST",
+                                       "/index/i/query?profile=true",
+                                       pql.encode())
+    secs = time.perf_counter() - t
+    check(status == 200 and ctype == "application/json",
+          f"profiled {pql[:60]}: {status} {body[:300]!r}")
+    doc = json.loads(body)
+    tid = doc["profile"]["traceId"]
+    pieces = []
+    for c in conns:
+        pieces.extend(http_json(c, "GET", f"/debug/traces?traceId={tid}")[
+            "traces"])
+    return doc["results"], doc["profile"], tracing.stitch(pieces), secs
+
+
+def fanout_legs(stitched, coordinator):
+    """The peer legs of a stitched cluster trace: (host, leg ms, the
+    peer's query.remote ms) for each ``remote.<host>`` span, checked to
+    hold its peer's ``query.remote``; and the coordinator's
+    ``node.local`` ms."""
+    spans = stitched["spans"]
+    by_id = {sp["spanId"]: sp for sp in spans}
+    kids = {}
+    for sp in spans:
+        kids.setdefault(sp["parentId"], []).append(sp)
+
+    def under(sp, name):
+        out = []
+        for c in kids.get(sp["spanId"], ()):
+            if c["name"] == name:
+                out.append(c)
+            out.extend(under(c, name))
+        return out
+
+    legs = []
+    for sp in spans:
+        if not sp["name"].startswith("remote.") or \
+                sp["name"] == "remote.round":
+            continue
+        host = sp["tags"]["host"]
+        check(host != coordinator and sp["name"] == f"remote.{host}",
+              f"a leg span {sp['name']} to {host}")
+        remote = under(sp, "query.remote")
+        check(len(remote) == 1 and remote[0]["tags"]["host"] == host,
+              f"leg to {host}: {len(remote)} query.remote spans under it")
+        legs.append((host, sp["durationMs"], remote[0]["durationMs"]))
+    local = [sp["durationMs"] for sp in spans if sp["name"] == "node.local"]
+    check(all(by_id.get(sp["parentId"]) is not None for sp in spans
+              if sp["name"] == "query.remote"),
+          "a peer's query.remote has no parent in the stitched trace")
+    return legs, local
+
+
+def cluster_traces(servers, conns, slices, want_and, topn_src, card):
+    """Phase 12 (b): a profiled Count(Intersect) and a profiled TopN
+    through node 1 with every node tracing, each trace stitched from the
+    nodes' ``/debug/traces``: one ``remote.<host>`` span a peer leg with
+    that peer's ``query.remote`` under it, the merged ``slices`` the
+    query's slice count (a TopN's two phases each count every slice),
+    ``fanoutCalls`` the number of peer legs; each leg's ms printed."""
+    t0 = time.perf_counter()
+    set_tracing(servers, True)
+    try:
+        for label, pql, want, phases in (
+                ("Count(Intersect)", QUERIES[2][0], [want_and], 1),
+                ("TopN", 'TopN(Bitmap(frame="f", rowID=0), frame="f", n=4)',
+                 [[{"id": r, "count": c} for r, c in topn_src]], 2)):
+            got, prof, stitched, secs = stitched_profile(conns, pql)
+            check(got == want, f"(b) profiled {label}: {got} != {want}")
+            res = prof["resources"]
+            legs, local = fanout_legs(stitched, servers[0].host)
+            check(res["slices"] == phases * slices,
+                  f"(b) {label}: merged slices {res['slices']} != "
+                  f"{phases} x {slices}")
+            check(res["fanoutCalls"] == len(legs) > 0,
+                  f"(b) {label}: fanoutCalls {res['fanoutCalls']}, "
+                  f"{len(legs)} legs")
+            print(f"cluster (b) {card}: profiled {label} through node 1 in "
+                  f"{secs * 1e3:.3f} ms (host clock), trace "
+                  f"{prof['durationMs']} ms; legs (peer, leg ms, the peer's "
+                  f"query.remote ms): {legs}; node 1's own leg(s) "
+                  f"{local} ms; slices {res['slices']}, fanoutCalls "
+                  f"{res['fanoutCalls']}, fanoutRetries "
+                  f"{res['fanoutRetries']}, servedBy {res['servedBy']}")
+    finally:
+        set_tracing(servers, False)
+    print(f"cluster (b) {card}: {time.perf_counter() - t0:.1f} s")
+
+
 def _cluster_ingest_batch(seed, k, n):
     """(i)'s request k: n bits, rows uniform over INGEST_ROWS, columns
     over INGEST_SLICES slices."""
@@ -4624,6 +4849,7 @@ def cluster_ingest(servers, conns, seed, card):
         check(got == per_slice[:CLUSTER_INGEST_OWNER_ROWS, mine].sum(
             axis=1).tolist(), f"(i) node {k + 1}'s copy of its slices")
     split["owners"] = time.perf_counter() - t
+    topn_ingested(servers, conns, per_slice, card)
     s_n, k_n = next((s, k) for s in range(INGEST_SLICES)
                     for k in range(len(servers))
                     if not cl.owns_fragment(servers[k].host, "i", s))
@@ -4652,6 +4878,61 @@ def cluster_ingest(servers, conns, seed, card):
           f"each node, and of {CLUSTER_INGEST_OWNER_ROWS} rows on each "
           f"owner's own slices, equal to numpy; a ?slice={s_n} leg to "
           f"node {k_n + 1} answered 412")
+
+
+CLUSTER_TOPN_MAX_S = 10.0   # (c): the TopN's bound, a third of a leg's
+
+
+def topn_ingested(servers, conns, per_slice, card):
+    """Phase 12 (c): TopN(frame="w", n=1,024) through node 1 right after
+    (i)'s ingest, every node tracing and the query profiled, equal to
+    numpy's two-phase answer, no leg failed over (``fanoutRetries`` 0),
+    within CLUSTER_TOPN_MAX_S (the client's timeout is 30 s a leg). Its
+    stitched trace's slowest spans are printed, and each leg's time."""
+    pql = f'TopN(frame="w", n={INGEST_ROWS})'
+    want = [[{"id": r, "count": c}
+             for r, c in topn_pairs(per_slice.sum(axis=1))]]
+    set_tracing(servers, True)
+    failure = None
+    try:
+        try:
+            got, prof, stitched, secs = stitched_profile(conns, pql)
+        except SmokeFailure as e:
+            failure = e
+        if failure is not None:
+            # Each node's last traces: where its legs spent their time,
+            # and the error each span ended with.
+            for k, c in enumerate(conns):
+                for tr in http_json(c, "GET", "/debug/traces?n=4")[
+                        "traces"]:
+                    bad = [f"{sp['name']} {sp['durationMs']} ms "
+                           f"{sp['tags'].get('error')}"
+                           for sp in tr["spans"] if "error" in sp["tags"]]
+                    top = sorted(tr["spans"], key=lambda sp: -(
+                        sp["durationMs"] or 0))[:4]
+                    print(f"cluster (c) {card}: node {k + 1} trace "
+                          f"{tr['durationMs']} ms: slowest " + "; ".join(
+                              f"{sp['name']} {sp['durationMs']} ms"
+                              for sp in top) + f"; errors {bad}")
+            raise failure
+    finally:
+        set_tracing(servers, False)
+    slow = sorted(stitched["spans"], key=lambda sp: -(sp["durationMs"]
+                                                      or 0))[:8]
+    print(f"cluster (c) {card}: {pql} through node 1 right after the "
+          f"ingest in {secs:.3f} s (host clock); slowest spans: " + "; ".join(
+              f"{sp['name']} {sp['durationMs']} ms "
+              f"{json.dumps(sp['tags'])}" for sp in slow))
+    legs, local = fanout_legs(stitched, servers[0].host)
+    print(f"cluster (c) {card}: legs (peer, leg ms, query.remote ms) "
+          f"{legs}; node 1's own {local} ms; resources "
+          f"{json.dumps(prof['resources'])}")
+    check(got == want, f"(c) {pql}: {str(got)[:300]} != numpy "
+          f"{str(want)[:300]}")
+    check(prof["resources"]["fanoutRetries"] == 0,
+          f"(c) {pql}: a leg failed over ({prof['resources']})")
+    check(secs <= CLUSTER_TOPN_MAX_S,
+          f"(c) {pql} took {secs:.1f} s > {CLUSTER_TOPN_MAX_S} s")
 
 
 def cluster_keyed(servers, conns, seed, card):
@@ -4830,6 +5111,8 @@ def cluster_path(seed, datadir, card):
                                      r3_ids),
                   f"node {k} {r3}: attrs {got['attrs']}, "
                   f"{len(got['bits'])} ids != {len(r3_ids)}")
+
+        cluster_traces(servers, conns, slices, want[2], topn_src, card)
 
         # SetBit and ClearBit through a node that owns no copy of the
         # slice, each read from every node.
@@ -5085,6 +5368,7 @@ def main():
     if stats is not None:
         stats["container_and_counts"] = container_checks(card)
         stats["ingest_classify"] = ingest_checks(card)
+        KERNEL_MS.update({n: v["ms"] for n, v in stats.items()})
 
     # Phases 4-12: the main path, Count and bitmap results (then under a
     # host budget), TopN, BSI, the HTTP server over their data directory

@@ -18,6 +18,7 @@ import threading
 import urllib.parse
 
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch import querystats
 from pilosa_tpu_torch.ingest import codec as ingest_codec
 from pilosa_tpu_torch.server import wireproto
 from pilosa_tpu_torch.utils import fanpool
@@ -104,12 +105,16 @@ class InternalClient:
         conn.close()
 
     def _do(self, method, node, path, body=None,
-            content_type="application/json", accept=None, timeout=None):
-        """-> (status, body bytes, content type)."""
+            content_type="application/json", accept=None, timeout=None,
+            extra_headers=None, headers_out=None):
+        """-> (status, body bytes, content type); ``headers_out``, a
+        dict, receives the response's headers."""
         netloc = _netloc(node)
         headers = {"Content-Type": content_type} if body is not None else {}
         if accept:
             headers["Accept"] = accept
+        if extra_headers:
+            headers.update(extra_headers)
         t = timeout or self.timeout
         for attempt in (0, 1):
             conn = self._checkout(netloc, t, fresh=attempt > 0)
@@ -143,6 +148,8 @@ class InternalClient:
                 hv = resp.getheader(ep.HEADER)
                 if hv:
                     ep.observe_header(hv)
+            if headers_out is not None:
+                headers_out.update(resp.getheaders())
             return resp.status, data, resp.getheader("Content-Type", "")
 
     def _json(self, method, node, path, payload=None, timeout=None):
@@ -156,22 +163,38 @@ class InternalClient:
     # ------------------------------------------------------------ queries
 
     def execute_query(self, node, index, query, slices=None, remote=False,
-                      exclude_attrs=False, exclude_bits=False, timeout=None):
+                      exclude_attrs=False, exclude_bits=False, timeout=None,
+                      trace_headers=None):
         """POST /index/{i}/query as a protobuf QueryRequest (ref:
         client.go:227-276) -> the decoded results: ints, bools, pairs,
         ``SumCount``s, None, and ``{"bits", "attrs"}`` dicts for bitmaps.
-        A query error the peer reports raises ClientError."""
+        A query error the peer reports raises ClientError.
+        ``trace_headers`` (``tracing.trace_headers()``) puts the peer's
+        spans under the caller's trace; with a ``QueryStats`` active on
+        this thread the peer is asked for its counts, which merge into
+        it, and the call counts as a ``fanoutCall`` (ref: pilosa_tpu
+        client.py:386-459)."""
         body = wireproto.encode_query_request(
             str(query), slices=slices, remote=remote,
             exclude_attrs=exclude_attrs, exclude_bits=exclude_bits)
         path = f"/index/{index}/query"
+        extra = dict(trace_headers) if trace_headers else {}
+        qstats_acc = querystats.active()
+        if qstats_acc is not None:
+            extra[querystats.COLLECT_HEADER] = "1"
+        got = {} if qstats_acc is not None else None
         status, data, ctype = self._do(
             "POST", node, path, body, content_type=wireproto.CONTENT_TYPE,
-            accept=wireproto.CONTENT_TYPE, timeout=timeout)
+            accept=wireproto.CONTENT_TYPE, timeout=timeout,
+            extra_headers=extra, headers_out=got)
         if ctype != wireproto.CONTENT_TYPE:
             raise ClientError(f"POST {path}: {status}: {data[:200]!r}",
                               status=status)
         resp = wireproto.decode_query_response(data)
+        if qstats_acc is not None:
+            qstats_acc.add("fanoutCalls", 1)
+            qstats_acc.merge(querystats.decode(
+                got.get(querystats.STATS_HEADER)))
         if resp["error"]:
             raise ClientError(resp["error"], status=status)
         if status >= 400:

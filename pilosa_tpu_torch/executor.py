@@ -136,10 +136,25 @@ stale. The slice universe is memoized on the epoch and the peers'
 reported maxima. Concurrent subcalls to one peer over the same slices
 go out as one multi-call ``remote=true`` query (the remote batch lanes,
 ``_remote_execute``; ``PILOSA_TPU_REMOTE_BATCH=0`` sends each alone): a
-lone query waits for nothing, a failed round fails every call it
-carried, and each query's fan-out then remaps its slices to replicas; a
-query error fails only the call that caused it.
+lone query waits for nothing, and a failed round of several calls sends
+each again alone, so that each call gets its own answer or error (a
+query error fails only the call that caused it; a peer that is gone
+fails each call, and each query's fan-out then remaps its slices to
+replicas).
+
+Tracing and query stats (``tracing.py``, ``querystats.py``; ref:
+pilosa_tpu executor.py): under an active trace, ``parse``, one
+``call:<name>`` span a call (tagged with the tier that served it),
+``slice`` spans on the serial path, ``plan_and_stage`` over a batched
+Count's plan and stack staging, a ``node.local`` or ``remote.<host>``
+span a fan-out leg, adopted on the pool's thread, and ``remote.round``
+over a lane round; the kernels' own spans come from ``ops/kernels.py``.
+The active ``QueryStats`` counts slices, fan-out retries, plan time and
+plan-cache hits, result-memo hits and misses, and the serving tiers; a
+coalesced request carries its caller's accumulator and span into the
+leader's thread, which charges each member its own work.
 """
+import contextlib
 import itertools
 import os
 import threading
@@ -152,6 +167,7 @@ import torch
 
 from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch import querystats, tracing
 from pilosa_tpu_torch import time_quantum as tq
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.ops import bitops
@@ -394,7 +410,8 @@ class Executor:
         call. ``slices`` pins the slice list of every read; ``opt`` is an
         ``ExecOptions``."""
         if isinstance(query, str):
-            query = parse(query)
+            with tracing.span("parse", bytes=len(query)):
+                query = parse(query)
         opt = opt or ExecOptions()
         idx = self.holder.index(index)
         if idx is None:
@@ -415,7 +432,21 @@ class Executor:
             call_slices = slices
             if call_slices is None and c.name not in WRITE_CALLS:
                 call_slices = self._slices_for_call(index, idx, c)
-            results.append(self._execute_call(index, c, call_slices, opt))
+            with tracing.span(f"call:{c.name}") as sp:
+                # This call's own tier story on its span (the
+                # accumulator is the request's).
+                qs = (querystats.active()
+                      if sp is not tracing.NOP_SPAN else None)
+                mark = qs.mark() if qs is not None else None
+                results.append(self._execute_call(index, c, call_slices,
+                                                  opt))
+                if qs is not None:
+                    tier = qs.served_since(mark)
+                    if tier is not None:
+                        sp.tag(servedBy=tier)
+                    falls = qs.falls_since(mark)
+                    if falls:
+                        sp.tag(fallbacks=",".join(falls))
         return results
 
     def _slices_for_call(self, index, idx, call):
@@ -485,14 +516,33 @@ class Executor:
     def _local_exec(self, slices, map_fn, reduce_fn, batch_fn):
         """This node's part of a map/reduce (ref: mapReduce
         executor.go:1444-1535, mapperLocal): the batched path unless
-        pinned serial, absent or ineligible (None)."""
+        pinned serial, absent or ineligible (None). The query's
+        ``slices`` count records here, once per (call, node) and only
+        on success (ref: pilosa_tpu executor.py:994-1007), so a
+        profiled fan-out counts each slice once."""
+        out = self._local_exec_inner(slices, map_fn, reduce_fn, batch_fn)
+        qs = querystats.active()
+        if qs is not None and slices:
+            qs.add("slices", len(slices))
+        return out
+
+    def _local_exec_inner(self, slices, map_fn, reduce_fn, batch_fn):
         if self._force_path != "serial" and batch_fn is not None:
             out = batch_fn(slices)
             if out is not None:
+                querystats.note_tier("batched")
                 return out
+        querystats.note_tier("serial")
         result = None
+        # Hoisted: with tracing off the loop pays no span call a slice.
+        if tracing.active_span() is None:
+            for s in slices:
+                result = reduce_fn(result, map_fn(s))
+            return result
         for s in slices:
-            result = reduce_fn(result, map_fn(s))
+            with tracing.span("slice", slice=s):
+                v = map_fn(s)
+            result = reduce_fn(result, v)
         return result
 
     def _map_reduce(self, index, slices, call, opt, map_fn, reduce_fn,
@@ -524,18 +574,32 @@ class Executor:
         nodes = nodes or list(self.cluster.nodes)
         result = None
         pending = list(slices)
+        # Thread-locals do not cross threads: each node's task adopts the
+        # parent span and the query's accumulator explicitly.
+        parent_span = tracing.active_span()
+        qstats_acc = querystats.active()
         while pending:
             by_node = self._slices_by_node(nodes, index, pending)
+            if qstats_acc is not None and any(
+                    node.host != self.host for node in by_node):
+                qstats_acc.note_tier("http")
             responses = []
             lock = threading.Lock()
 
             def run(node, node_slices):
+                local_node = node.host == self.host
                 try:
-                    if node.host == self.host:
-                        out = local(node_slices)
-                    else:
-                        out = self._remote_execute(node, index, call,
-                                                   node_slices)
+                    with querystats.scope(qstats_acc), tracing.child_of(
+                            parent_span, "node.local" if local_node
+                            else f"remote.{node.host}", host=node.host,
+                            slices=len(node_slices)):
+                        if local_node:
+                            out = local(node_slices)
+                        else:
+                            with tracing.span("remote.round",
+                                              host=node.host):
+                                out = self._remote_execute(
+                                    node, index, call, node_slices)
                     res = (node, node_slices, out, None)
                 except Exception as exc:  # noqa: BLE001 — failover below
                     res = (node, node_slices, None, exc)
@@ -559,6 +623,8 @@ class Executor:
                     self._slices_by_node(nodes, index, node_slices)
                 except perr.SliceUnavailableError:
                     raise exc
+                if qstats_acc is not None:
+                    qstats_acc.add("fanoutRetries", 1)
                 pending.extend(node_slices)
         return result
 
@@ -606,10 +672,13 @@ class Executor:
         next one; a lone query waits for nothing. A bitmap comes back as
         its columns and lands on this node's device; its attributes are
         the coordinator's to add. A query error the peer answered with
-        400 raises as this query's error."""
+        400 raises as this query's error. The round carries its leader's
+        trace context, so the peer's spans stitch under the leader's
+        ``remote.round`` span."""
         if not self._rb_enabled:
             try:
-                out = self._remote_call(node, index, [call], node_slices)[0]
+                out = self._remote_call(node, index, [call], node_slices,
+                                        tracing.trace_headers())[0]
             except Exception as exc:  # noqa: BLE001 — raised as a lane's
                 out = exc
             return self._remote_result(out)
@@ -646,47 +715,59 @@ class Executor:
 
     def _rb_run(self, node, index, slices, reqs):
         """Serve a lane's batch as one query and fill every request's
-        ``out`` with its result or its exception, on every path. A
-        batch the peer refused as a query error (400) is sent again call
-        by call, so that only the call at fault fails; any other failure
-        (the peer unreachable, a timeout) is every call's failure, and
-        each query's fan-out remaps its slices to replicas."""
-        from pilosa_tpu_torch.cluster.client import ClientError
-
+        ``out`` with its result or its exception, on every path (ref:
+        pilosa_tpu executor.py:2476-2521). When a round of more than one
+        call fails in any way (a query error, a 500, a timeout, a wrong
+        number of results), each call is sent again alone, so that every
+        call gets its own answer or its own error: one poisoned call
+        never fails its siblings, and a peer that is really gone fails
+        each call, whose query then remaps its slices to replicas. The
+        lone calls go out together on the fan-out pool, so a peer that
+        hangs costs the lane one more client timeout, not one a call."""
         with self._rb_lanes_mu:
             self._rb_stats["rounds"] += 1
             if len(reqs) > 1:
                 self._rb_stats["batched_calls"] += len(reqs)
                 self._rb_stats["max_batch"] = max(
                     self._rb_stats["max_batch"], len(reqs))
-        try:
+        # The leader's trace context stamps the shared round (the
+        # followers' cannot all ride one request).
+        thdr = tracing.trace_headers()
+        qstats_acc = querystats.active()
+
+        def alone(r):
             try:
-                outs = self._remote_call(node, index,
-                                         [r["call"] for r in reqs], slices)
-            except ClientError as e:
-                if e.status != 400 or len(reqs) == 1:
-                    raise
-                for r in reqs:
-                    try:
-                        r["out"] = self._remote_call(
-                            node, index, [r["call"]], slices)[0]
-                    except Exception as exc:  # noqa: BLE001 — delivered
-                        r["out"] = exc
+                with querystats.exclusive_scope(qstats_acc):
+                    r["out"] = self._remote_call(node, index, [r["call"]],
+                                                 slices, thdr)[0]
+            except BaseException as exc:  # noqa: BLE001 — delivered
+                r["out"] = exc
+
+        try:
+            if len(reqs) == 1:
+                alone(reqs[0])
                 return
-            if len(outs) != len(reqs):
-                raise ClientError(f"{len(outs)} results to {len(reqs)} "
-                                  f"calls from {node.host}")
-            for r, out in zip(reqs, outs):
-                r["out"] = out
+            try:
+                outs = self._remote_call(
+                    node, index, [r["call"] for r in reqs], slices, thdr)
+                if len(outs) == len(reqs):
+                    for r, out in zip(reqs, outs):
+                        r["out"] = out
+                    return
+            except Exception:  # noqa: BLE001 — sent again alone below
+                pass
+            fanpool.wait_all([self._fan_pool.run(lambda r=r: alone(r))
+                              for r in reqs])
         except BaseException as exc:  # noqa: BLE001 — delivered to all
             for r in reqs:
                 if r["out"] is self._CO_PENDING:
                     r["out"] = exc
+            raise
 
-    def _remote_call(self, node, index, calls, slices):
+    def _remote_call(self, node, index, calls, slices, trace_headers=None):
         return self.client.execute_query(
             node, index, Query(calls), slices=slices, remote=True,
-            exclude_attrs=True)
+            exclude_attrs=True, trace_headers=trace_headers)
 
     def _remote_result(self, out):
         """A lane's result as the fan-out reduces it; a delivered
@@ -1249,12 +1330,30 @@ class Executor:
         token check; ``kind`` names the entry ("plan", "bsi", "topnp").
         With ``decline_compressed``, a memo miss whose every row leaf is
         compressed on every slice returns None: the container tier serves
-        it (ref: executor.py:3941-3944)."""
+        it (ref: executor.py:3941-3944). Its wall time goes to the
+        active accumulator's ``planMs``, a memo hit to ``planCacheHit``,
+        a decline to its fallback chain (ref: executor.py:3915-3961)."""
+        qs = querystats.active()
+        t0 = time.perf_counter() if qs is not None else 0.0
+        out = self._plan_stacks_inner(index, leaves, slices, extra, kind,
+                                      win, decline_compressed, qs)
+        if qs is not None:
+            qs.add("planMs", (time.perf_counter() - t0) * 1000)
+            if out is None:
+                qs.note_fallback("batched", "compressed")
+            elif out is BATCH_OVER_BUDGET:
+                qs.note_fallback("batched", "budget")
+        return out
+
+    def _plan_stacks_inner(self, index, leaves, slices, extra, kind, win,
+                           decline_compressed, qs):
         epoch = self._epoch(index)  # before building: a racing write
         # makes the memo stale on arrival, never wrong
         pkey = (kind, index, slice_key(slices), tuple(leaves), win)
         memo = self._prelude_memo_get(pkey)
         if memo is not None:
+            if qs is not None:
+                qs.add("planCacheHit", 1)
             (mwin,), stacks, _ = memo
             if self._over_budget(len(leaves) + extra, slices, mwin[1]):
                 return BATCH_OVER_BUDGET
@@ -1332,22 +1431,28 @@ class Executor:
         budget together."""
         if len(slices) == 0:
             return None
-        leaves = []
-        plan = self._batched_plan(index, child, leaves)
-        if plan is None:
-            return None
-        if plan[0] == "empty":
-            return 0
-        # Only a lane shape declines for the container tier: a deeper
-        # all-compressed tree stays batched, since serially from the tier
-        # it costs a launch a slice a node (a 14-view Count over 1,024
-        # slices: 3.2-5.0 s against 2.3-2.8 ms batched on an H100).
-        lane = self._lane_plan_shape(plan) is not None
-        pre = self._plan_stacks(index, leaves, slices,
-                                decline_compressed=lane)
+        with tracing.span("plan_and_stage", slices=len(slices)):
+            leaves = []
+            plan = self._batched_plan(index, child, leaves)
+            if plan is None:
+                querystats.note_fallback("batched", "plan")
+                return None
+            if plan[0] == "empty":
+                return 0
+            # Only a lane shape declines for the container tier: a deeper
+            # all-compressed tree stays batched, since serially from the
+            # tier it costs a launch a slice a node (a 14-view Count over
+            # 1,024 slices: 3.2-5.0 s against 2.3-2.8 ms batched on an
+            # H100).
+            lane = self._lane_plan_shape(plan) is not None
+            pre = self._plan_stacks(index, leaves, slices,
+                                    decline_compressed=lane)
         if pre is None and lane:
             # Every row leaf is compressed on every slice: the lanes.
-            return self._lane_counts(index, slices, [(plan, leaves)])[0][0]
+            out, _, shares = self._lane_counts(index, slices,
+                                               [(plan, leaves)])
+            querystats.add("bytesPopcounted", shares[0])
+            return out[0]
         if pre is None or pre is BATCH_OVER_BUDGET:
             return pre
         return int(self._count_node(plan, pre[1]).sum(dtype=torch.int64))
@@ -1448,19 +1553,26 @@ class Executor:
         # last-opened readers are reused first.
         for view, todo in reversed(list(build.items())):
             frags = frag_map[view]
-            hosts = [np.zeros((len(changed), width32 // 2), np.uint64)
-                     for _, _, _, _, changed in todo]
+            # Every row of the view's builds in one host block and ONE
+            # upload: a copy a stack paid a synchronous round trip each.
+            # Each new stack then takes its rows in storage of its own (a
+            # device copy), so the cache's bytes are what it holds: a
+            # stack left as a view would keep the whole block alive.
+            offs = np.cumsum([0] + [len(t[4]) for t in todo])
+            block = np.zeros((offs[-1], width32 // 2), np.uint64)
             at = {}  # slice position -> [(row, host row)]
-            for (spec, _, _, _, changed), host in zip(todo, hosts):
+            for (spec, _, _, _, changed), off in zip(todo, offs):
                 for j, i in enumerate(changed):
-                    at.setdefault(i, []).append((spec[2], host[j]))
+                    at.setdefault(i, []).append((spec[2], block[off + j]))
             for i in sorted(at, reverse=True):
                 if frags[i] is not None:
                     frags[i].host_rows_win(at[i], base32, width32)
-            for (spec, key, tokens, hit, changed), host in zip(todo, hosts):
-                rows = torch.from_numpy(host.view(np.int32)).to(self.device)
+            dev = self._upload(block)
+            for (spec, key, tokens, hit, changed), lo, hi in zip(
+                    todo, offs[:-1], offs[1:]):
+                rows = dev[lo:hi]
                 if hit is None:
-                    stack = rows
+                    stack = rows if len(todo) == 1 else rows.clone()
                 else:
                     stack = hit[2]
                     if len(tokens) > stack.shape[0]:  # a new last slice
@@ -1470,6 +1582,15 @@ class Executor:
                 self._cache_put(key, (epoch, tokens, stack))
                 out[spec] = stack
         return [out[spec] for spec in specs]
+
+    def _upload(self, host):
+        """A host block of words on this executor's device, as int32; a
+        device transfer of the active query, with its bytes."""
+        qs = querystats.active()
+        if qs is not None:
+            qs.add("deviceTransfers", 1)
+            qs.add("deviceTransferBytes", int(host.nbytes))
+        return torch.from_numpy(host.view(np.int32)).to(self.device)
 
     def _cache_put(self, key, entry):
         nbytes = entry[2].numel() * entry[2].element_size()
@@ -1506,6 +1627,7 @@ class Executor:
         pkey = (kind, index, str(call), slice_key(slices))
         hit = self._result_memo_get(pkey)
         if hit is not None:
+            querystats.note_tier("memo")
             return dec(hit)
         if cluster:
             # No probe here: the fan-out's own responses refresh the
@@ -1561,9 +1683,12 @@ class Executor:
         whole-result and TopN count memos."""
         if self.memos_off():
             return None
+        qs = querystats.active()
         with self._cache_mu:
             hit = self._result_memo.get(key)
         if hit is None:
+            if qs is not None:
+                qs.add("cacheMisses", 1)
             return None
         # Checked outside the lock: a cluster token may probe a peer.
         cur = self._memo_epoch_current(key[1], hit[0])
@@ -1573,10 +1698,14 @@ class Executor:
                     if self._result_memo.get(key) is hit:
                         self._result_memo.pop(key)
                         self._result_memo_bytes -= hit[2]
+            if qs is not None:
+                qs.add("cacheMisses", 1)
             return None
         with self._cache_mu:
             if key in self._result_memo:
                 self._result_memo[key] = self._result_memo.pop(key)
+        if qs is not None:
+            qs.add("cacheHits", 1)
         return hit[1]
 
     @staticmethod
@@ -1879,10 +2008,37 @@ class Executor:
             "declined": dict(st["declined"]),
         }
 
-    def _co_note_decline(self, reason):
-        """One group declined fusion for ``reason``; it serves singly."""
+    def _co_note_decline(self, reason, reqs=()):
+        """One group declined fusion for ``reason``; it serves singly.
+        Each member's accumulator gets the hop (ref: pilosa_tpu
+        executor.py:2615-2628)."""
         d = self._co_stats["declined"]
         d[reason] = d.get(reason, 0) + 1
+        for req in reqs:
+            qs = req.get("qs")
+            if qs is not None:
+                qs.note_fallback("coalesce", reason)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _co_member(req):
+        """The context of work the leader does for one member: that
+        member's accumulator and span, or none, never the leader's own
+        (ref: pilosa_tpu executor.py:2805-2811)."""
+        with querystats.exclusive_scope(req.get("qs")), tracing.adopt(
+                req.get("span")):
+            yield
+
+    @staticmethod
+    def _co_charge(req, nbytes=0, tier=None):
+        """Charge one member its share of a group launch's popcounted
+        bytes and stamp the tier that served it."""
+        qs = req.get("qs")
+        if qs is not None:
+            if nbytes:
+                qs.add("bytesPopcounted", int(nbytes))
+            if tier is not None:
+                qs.note_tier(tier)
 
     def _co_note_fused(self, k):
         self._co_stats["fused_queries"] += k
@@ -1898,6 +2054,10 @@ class Executor:
         of its group; a claimed one is its leader's to deliver."""
         req.setdefault("prio", PRIO_INTERACTIVE)
         req.setdefault("deadline", None)
+        # The caller's accumulator and span ride the request into the
+        # leader's thread, which serves the whole group.
+        req.setdefault("qs", querystats.active())
+        req.setdefault("span", tracing.active_span())
         expired = False
         with self._co_mu:
             self._co_pending.append(req)
@@ -1998,7 +2158,8 @@ class Executor:
                 if len(reqs) == 1 or not reqs[0]["fuse"](reqs):
                     for req in reqs:
                         if req["out"] is self._CO_PENDING:
-                            req["out"] = req["single"]()
+                            with self._co_member(req):
+                                req["out"] = req["single"]()
             except BaseException as exc:  # noqa: BLE001 — delivered
                 for req in reqs:
                     if req["out"] is self._CO_PENDING:
@@ -2053,7 +2214,7 @@ class Executor:
         index, slices = reqs[0]["index"], reqs[0]["slices"]
         if (not slices or not reqs[0]["leaves"]
                 or reqs[0]["plan"][0] == "empty"):
-            self._co_note_decline("structural")
+            self._co_note_decline("structural", reqs)
             return False
         shared, probe = {}, {}
         comp = [self._compressed_verdict(index, req["leaves"], slices,
@@ -2064,7 +2225,7 @@ class Executor:
         if len(dense) < len(reqs):
             if not self.CO_COMPRESSED:
                 # The group serves singly, from the container tier.
-                self._co_note_decline("compressed_off")
+                self._co_note_decline("compressed_off", reqs)
                 return False
             lanes, deep = [], []
             for req, c in zip(reqs, comp):
@@ -2086,7 +2247,7 @@ class Executor:
                     densify_blocks = blocks
                     dense.extend(deep)
                 else:
-                    self._co_note_decline("densify_budget")
+                    self._co_note_decline("densify_budget", deep)
                     ok = False
             if lanes:
                 self._co_fuse_lanes(lanes)
@@ -2115,13 +2276,16 @@ class Executor:
             index, [e[0]["leaves"] for e in entries], slices)
         distinct = {sp for e in entries for sp in e[0]["leaves"]}
         if self._over_budget(len(distinct) + len(entries), slices, win[1]):
-            self._co_note_decline("budget")
+            self._co_note_decline("budget", reqs)
             return False
         stacks = []
         for e in entries:
-            pre = self._plan_stacks(index, e[0]["leaves"], slices, win=win)
+            # Staging one entry's leaves is its first member's own work.
+            with self._co_member(e[0]):
+                pre = self._plan_stacks(index, e[0]["leaves"], slices,
+                                        win=win)
             if pre is BATCH_OVER_BUDGET:
-                self._co_note_decline("budget")
+                self._co_note_decline("budget", reqs)
                 return False
             stacks.append(pre[1])
         left, right, op = [], [], None
@@ -2131,9 +2295,12 @@ class Executor:
             right.append(b)
         counts = bitops.count_op_pairs(left, right, op)
         totals = counts.sum(dim=1, dtype=torch.int64).tolist()
-        for e, total in zip(entries, totals):
+        for e, total, a in zip(entries, totals, left):
             for req in e:
                 req["out"] = int(total)
+                # The bytes its own count would have read: its root's
+                # first operand (ref: executor.py:2962-2975).
+                self._co_charge(req, a.nbytes, "coalesced_dense")
         self._co_stats["table_entries"] += len(entries)
         self._co_note_fused(len(reqs))
         return True
@@ -2174,25 +2341,30 @@ class Executor:
         count in one launch of ``container_and_counts`` per format cell
         for the whole group (``_lane_counts``); nothing densifies."""
         entries = self._co_dedupe(reqs)
-        totals, launches = self._lane_counts(
+        totals, launches, shares = self._lane_counts(
             reqs[0]["index"], reqs[0]["slices"],
-            [(e[0]["plan"], e[0]["leaves"]) for e in entries])
-        for e, total in zip(entries, totals):
+            [(e[0]["plan"], e[0]["leaves"]) for e in entries],
+            reqs=[e[0] for e in entries])
+        for e, total, share in zip(entries, totals, shares):
             for req in e:
                 req["out"] = total
+                self._co_charge(req, share, "coalesced_lane")
         self._co_stats["lane_launches"] += launches
         self._co_stats["compressed_fused"] += len(reqs)
         self._co_note_fused(len(reqs))
         return True
 
-    def _lane_counts(self, index, slices, members):
-        """([count], kernel launches) of all-compressed Counts over one
-        slice list, each member a (plan, leaves) of a lane shape: a bare
-        leaf sums its host-known counts, a two-operand node is |a ∩ b|
-        of its rows' RowLanes, all pairs in one
-        ``containers.lane_and_counts`` call, and the op's identity over
-        the rows' counts."""
+    def _lane_counts(self, index, slices, members, reqs=None):
+        """([count], kernel launches, [popcounted bytes]) of
+        all-compressed Counts over one slice list, each member a (plan,
+        leaves) of a lane shape: a bare leaf sums its host-known counts,
+        a two-operand node is |a ∩ b| of its rows' RowLanes, all pairs in
+        one ``containers.lane_and_counts`` call, and the op's identity
+        over the rows' counts. A member's bytes are its pair's payloads
+        (ref: executor.py:3100-3110); ``reqs`` (one coalesced request a
+        member) charges building a member's rows to that member."""
         out, pairs, ops = [None] * len(members), [], []
+        shares = [0] * len(members)
         for i, (plan, leaves) in enumerate(members):
             shape = self._lane_plan_shape(plan)
             specs = [leaves[j] for j in shape[1:]]
@@ -2202,14 +2374,18 @@ class Executor:
                              self.holder.fragments(index, *spec[:2], slices)
                              if f is not None)
                 continue
-            pairs.append(tuple(self._lane_row(index, spec, slices)
-                               for spec in specs))
+            with (self._co_member(reqs[i]) if reqs is not None
+                  else contextlib.nullcontext()):
+                pair = tuple(self._lane_row(index, spec, slices)
+                             for spec in specs)
+            pairs.append(pair)
             ops.append((i, shape[0]))
+            shares[i] = pair[0].nbytes + pair[1].nbytes
         inter, launches = containers_mod.lane_and_counts(pairs)
         for (i, op), (la, lb), x in zip(ops, pairs, inter.tolist()):
             out[i] = int(containers_mod.count_identity(op, x, la.count,
                                                        lb.count))
-        return out, launches
+        return out, launches, shares
 
     # Bytes of the lanes' packed rows kept between queries.
     LANE_CACHE_BYTES = 256 << 20
@@ -2306,12 +2482,15 @@ class Executor:
         index, slices = reqs[0]["index"], reqs[0]["slices"]
         plan = reqs[0]["plan"]
         if not slices or (plan is not None and plan[0] == "empty"):
-            self._co_note_decline("structural")
+            self._co_note_decline("structural", reqs)
             return False
         if plan is None:
-            out = reqs[0]["single"]()
+            with self._co_member(reqs[0]):
+                out = reqs[0]["single"]()
             for req in reqs:
                 req["out"] = out
+                if req is not reqs[0]:
+                    self._co_charge(req, tier="coalesced_dense")
             self._co_note_fused(len(reqs))
             return True
         field = reqs[0]["field"]
@@ -2324,18 +2503,22 @@ class Executor:
         distinct = set(planes) | {sp for e in entries
                                   for sp in e[0]["leaves"]}
         if self._over_budget(len(distinct) + len(entries), slices, win[1]):
-            self._co_note_decline("budget")
+            self._co_note_decline("budget", reqs)
             return False
-        pre = self._plan_stacks(index, planes, slices, kind="bsi", win=win)
+        with self._co_member(reqs[0]):
+            pre = self._plan_stacks(index, planes, slices, kind="bsi",
+                                    win=win)
         if pre is BATCH_OVER_BUDGET:
-            self._co_note_decline("budget")
+            self._co_note_decline("budget", reqs)
             return False
         plane_stacks = pre[1]
         filts = []
         for e in entries:
-            pre = self._plan_stacks(index, e[0]["leaves"], slices, win=win)
+            with self._co_member(e[0]):
+                pre = self._plan_stacks(index, e[0]["leaves"], slices,
+                                        win=win)
             if pre is BATCH_OVER_BUDGET:
-                self._co_note_decline("budget")
+                self._co_note_decline("budget", reqs)
                 return False
             filts.append(plane_stacks[depth]
                          & self._eval_node(e[0]["plan"], pre[1]))
@@ -2353,11 +2536,14 @@ class Executor:
         depth = field.bit_depth()
         counts = bitops.count_and_rows_multi(planes, filts).sum(
             dim=2, dtype=torch.int64).tolist()
+        # A member's share: the planes its own Sum would have counted.
+        share = sum(p.nbytes for p in planes)
         for e, c in zip(entries, counts):
             total = sum((1 << i) * v for i, v in enumerate(c[:depth]))
             out = SumCount(total + c[depth] * field.min, c[depth])
             for req in e:
                 req["out"] = out
+                self._co_charge(req, share, "coalesced_dense")
         self._co_stats["table_entries"] += len(entries)
         self._co_note_fused(len(reqs))
         return True
@@ -2387,11 +2573,14 @@ class Executor:
                 values[j] |= int(took_one) << i
         counts = bitops.count_op_pairs(ms, None, None).sum(
             dim=1, dtype=torch.int64).tolist()
-        for e, value, count in zip(entries, values, counts):
+        for e, value, count, m in zip(entries, values, counts, ms):
             out = (SumCount(value + field.min, count) if count
                    else SumCount(0, 0))
             for req in e:
                 req["out"] = out
+                # Its filter read once a plane and once more at the end.
+                self._co_charge(req, m.nbytes * (depth + 1),
+                                "coalesced_dense")
         self._co_stats["table_entries"] += len(entries)
         self._co_note_fused(len(reqs))
         return True
@@ -2637,9 +2826,22 @@ class Executor:
         leaves come from the cached leaf stacks, at the window of every
         fragment involved; BATCH_OVER_BUDGET when they would not fit the
         stack budget together. A statically empty Src counts zero
-        everywhere."""
+        everywhere, and so does every candidate on a slice where the
+        candidates' view has no fragment: only the slices that hold one
+        are staged (``_frame_slices``)."""
         if plan is not None and plan[0] == "empty":
             return np.zeros((len(row_ids), len(slices)), np.int64)
+        held = self._frame_slices(index, frame_name, view, slices)
+        if len(held) < len(slices):
+            out = np.zeros((len(row_ids), len(slices)), np.int64)
+            if held:
+                sub = self._topn_candidate_counts(
+                    index, frame_name, view, row_ids,
+                    [slices[i] for i in held], tanimoto, plan, leaves)
+                if sub is BATCH_OVER_BUDGET:
+                    return sub
+                out[:, held] = sub
+            return out
         # The count matrix is a function of fragment state alone: a hot
         # TopN re-counts the same candidates (ref: pilosa_tpu
         # executor.py:4036-4046, the "topnc" memo).
@@ -2650,7 +2852,10 @@ class Executor:
             return memo
         epoch = self._epoch(index)
         cands = [(frame_name, view, rid) for rid in row_ids]
-        pre = self._plan_stacks(index, cands + leaves, slices, kind="topnp")
+        with tracing.span("plan_and_stage", slices=len(slices),
+                          candidates=len(cands)):
+            pre = self._plan_stacks(index, cands + leaves, slices,
+                                    kind="topnp")
         if pre is BATCH_OVER_BUDGET:
             return pre
         stacks, leaf_stacks = pre[1][:len(cands)], pre[1][len(cands):]
@@ -2673,6 +2878,22 @@ class Executor:
                 out = np.where(topn_ops.tanimoto_keep(
                     scores.cpu().numpy(), tanimoto), inter, 0)
         return self._topn_counts_memoize(mkey, out, epoch)
+
+    def _frame_slices(self, index, frame_name, view, slices):
+        """Positions in ``slices`` of the slices where the view has a
+        fragment, memoized in the plan cache on the index's epoch (a new
+        fragment moves it). A frame ingested into 32 slices of a
+        512-slice index would otherwise stage 1,024 TopN candidates over
+        all 512, 94% of them zero rows: 34.5 GB of uploads over three
+        nodes of one H100, 18.7 s for the TopN (chip_smoke phase 12)."""
+        epoch = self._epoch(index)
+        key = ("held", index, frame_name, view, slice_key(slices))
+        held = self.plans.get(key, epoch, record=False)
+        if held is None:
+            held = tuple(i for i, f in enumerate(self.holder.fragments(
+                index, frame_name, view, slices)) if f is not None)
+            self.plans.put(key, epoch, held)
+        return held
 
     # ---------------------------------------------------- SetBit/ClearBit
 

@@ -31,9 +31,11 @@ of the slice as a ``?slice=`` leg (``InternalClient.ingest_slice``, the
 binary frame; values through ``import_values``), ``FANOUT_WIDTH`` slices
 at a time, and acknowledges only when every leg of every slice did: a
 DOWN owner fails the request, and nothing is hinted. A leg
-(``local=True``) installs on its owner through the steps above. The QoS
-gate, failpoints, tracing and histograms wait for their own ports
-(ROADMAP Queue A 17b, 22, 17a).
+(``local=True``) installs on its owner through the steps above. Under
+an active trace a batch runs in an ``ingest.batch`` span and a values
+batch in ``ingest.values`` (ref: pipeline.py:165, :213). The QoS gate,
+failpoints and histograms wait for their own ports (ROADMAP Queue A 17b,
+22).
 """
 import threading
 from datetime import datetime
@@ -43,6 +45,7 @@ import numpy as np
 from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
 from pilosa_tpu_torch import time_quantum as tq
+from pilosa_tpu_torch import tracing
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import containers as containers_mod
 from pilosa_tpu_torch.ops import ingest as ingest_ops  # registers the cells
@@ -142,12 +145,14 @@ class IngestPipeline:
         fr = self._frame(index_name, frame_name)
         if len(rows) == 0:
             return {"accepted": 0, "slices": 0}
-        if self._is_coordinator(local):
-            n_slices = self._run(self._fan_out_bits, index_name, fr, rows,
-                                 columns, ts)
-        else:
-            n_slices = self._run(self._install_local, fr, rows, columns,
-                                 ts)
+        with tracing.span("ingest.batch", index=index_name,
+                          frame=frame_name, bits=len(rows)):
+            if self._is_coordinator(local):
+                n_slices = self._run(self._fan_out_bits, index_name, fr,
+                                     rows, columns, ts)
+            else:
+                n_slices = self._run(self._install_local, fr, rows,
+                                     columns, ts)
         with self._mu:
             self._c["batches"] += 1
             self._c["bits"] += len(rows)
@@ -172,11 +177,13 @@ class IngestPipeline:
             fr.import_value(field, columns.tolist(), values.tolist())
             return len(np.unique(columns // SLICE_WIDTH))
 
-        if self._is_coordinator(local):
-            n_slices = self._run(self._fan_out_values, index_name, fr,
-                                 field, columns, values)
-        else:
-            n_slices = self._run(install)
+        with tracing.span("ingest.values", index=index_name,
+                          frame=frame_name, values=len(columns)):
+            if self._is_coordinator(local):
+                n_slices = self._run(self._fan_out_values, index_name, fr,
+                                     field, columns, values)
+            else:
+                n_slices = self._run(install)
         with self._mu:
             self._c["batches"] += 1
             self._c["values"] += len(columns)

@@ -40,14 +40,32 @@ decomposition the launch took from its shape (``csrc/popcount.cu`` and
 ``csrc/count_and_rows.cu``): ``narrow`` (narrow rows, a lane group a
 row), ``split`` (few wide rows, a cluster of blocks a row) or ``full``
 (a block a row).
+
+While a trace is active on the calling thread (``tracing.py``), each
+wrapper runs under a ``kernel:<name>`` span. On the card the wrapper
+passes an event list down to its launch sites, and each launch is
+bracketed by a ``torch.cuda.Event`` pair recorded on the current stream
+just before and just after it; the span waits on the last end event and
+tags ``deviceMs``, the sum of the pairs' device times (the kernels alone:
+the wrapper's host work falls outside every pair), and ``launches``.
+``first_build`` marks the call that built or loaded the kernel's
+library, which happens before any event. On a CPU tensor the plain
+version runs under the same span, without ``deviceMs``.
+``count_op_rows``, ``count_rows`` and ``count_and_rows`` charge their
+first operand's bytes to the active query's ``bytesPopcounted`` (ref:
+pilosa_tpu ops/bitops.py:153-159); the group kernels' members are
+charged their shares by the executor. With no trace active a wrapper
+reads one thread-local and nothing else: no event, no sync.
 """
 import ctypes
+import functools
 import math
 import threading
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch import querystats, tracing
 from pilosa_tpu_torch.ops import loader
 
 # Op codes shared with csrc/popcount.cu.
@@ -102,6 +120,83 @@ def _count_launch(name, regime=None, form=None):
             regime_launches[name][REGIMES[regime]] += 1
         if form is not None:
             container_forms[form] += 1
+
+
+# The library each wrapper's kernel lives in.
+_LIBRARY = {"count_op_rows": "popcount", "count_rows": "popcount",
+            "count_op_pairs": "popcount", "count_and_rows": "count_and_rows",
+            "count_and_rows_multi": "count_and_rows",
+            "container_and_counts": "containers",
+            "ingest_classify": "ingest"}
+
+
+def _first_tensor(x):
+    if torch.is_tensor(x):
+        return x
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            t = _first_tensor(y)
+            if t is not None:
+                return t
+    return None
+
+
+def _traced(name, charge=False):
+    """Run the wrapped wrapper under a ``kernel:<name>`` span while a
+    trace is active (see the module docstring); ``charge`` charges its
+    first operand's bytes to the query's ``bytesPopcounted``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(*args, **kw):
+            if tracing.active_span() is None:
+                return fn(*args, **kw)
+            return _traced_call(name, charge, fn, args, kw)
+        return traced
+    return wrap
+
+
+def _traced_call(name, charge, fn, args, kw):
+    if charge:
+        first = args[0]
+        if torch.is_tensor(first):
+            querystats.add("bytesPopcounted", int(first.nbytes))
+        elif isinstance(first, (list, tuple)):
+            querystats.add("bytesPopcounted",
+                           int(sum(t.nbytes for t in first)))
+    t = _first_tensor(args)
+    with tracing.span(f"kernel:{name}") as sp:
+        if t is None or t.device.type != "cuda":
+            return fn(*args, **kw)
+        lib = _LIBRARY[name]
+        built = loader.loaded(lib)
+        loader.library(lib)  # a build or load stays out of deviceMs
+        sp.tag(first_build=not built)
+        events = []
+        out = fn(*args, _events=events, **kw)
+        if events:
+            # The last end event alone (one stream, in order): a
+            # device-wide synchronize would charge other threads'
+            # kernels to this span.
+            events[-1][1].synchronize()
+        sp.tag(deviceMs=round(sum(a.elapsed_time(b) for a, b in events), 4),
+               launches=len(events))
+        return out
+
+
+def _timed(events, fn, *args):
+    """``fn(*args)``, a kernel launch on the current device's current
+    stream; with ``events`` (a traced call's list, see ``_traced_call``)
+    it is bracketed by an event pair recorded on that stream, which is
+    appended to the list."""
+    if events is None:
+        return fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rc = fn(*args)
+    end.record()
+    events.append((start, end))
+    return rc
 
 
 # ----------------------------------------------------------- plain versions
@@ -214,7 +309,7 @@ def _kernel():
     return _fn
 
 
-def _launch(name, a, b, op):
+def _launch(name, a, b, op, events=None):
     if a.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {a.device}")
     out = torch.empty(a.shape[:-1], dtype=torch.int32, device=a.device)
@@ -225,8 +320,9 @@ def _launch(name, a, b, op):
     regime = ctypes.c_int(-1)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), rows, a.shape[-1], op,
-                out.data_ptr(), stream, ctypes.byref(regime))
+        rc = _timed(events, fn, a.data_ptr(), b.data_ptr(), rows,
+                    a.shape[-1], op, out.data_ptr(), stream,
+                    ctypes.byref(regime))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} "
                            f"({err_str(rc).decode()})")
@@ -264,7 +360,7 @@ def _car_strided_kernel():
     return _car_strided_fn
 
 
-def _launch_and_rows(ptrs, filt, slices, width, out):
+def _launch_and_rows(ptrs, filt, slices, width, out, events=None):
     """Queue count_and_rows over device row addresses ``ptrs`` (row r's
     slice s at ptrs[r] + s·width words) against ``filt``, into ``out``
     (int32, row r's slice s at r·slices + s), CAR_MAX_ROWS rows per
@@ -278,9 +374,10 @@ def _launch_and_rows(ptrs, filt, slices, width, out):
         stream = torch.cuda.current_stream(filt.device).cuda_stream
         for r0 in range(0, len(ptrs), CAR_MAX_ROWS):
             table = np.asarray(ptrs[r0:r0 + CAR_MAX_ROWS], dtype=np.uint64)
-            rc = fn(table.ctypes.data, len(table), filt.data_ptr(), slices,
-                    width, out.data_ptr() + r0 * slices * 4, slices, stream,
-                    ctypes.byref(regime))
+            rc = _timed(events, fn, table.ctypes.data, len(table),
+                        filt.data_ptr(), slices, width,
+                        out.data_ptr() + r0 * slices * 4, slices, stream,
+                        ctypes.byref(regime))
             if rc != 0:
                 raise RuntimeError(
                     f"count_and_rows: kernel launch failed: CUDA error "
@@ -288,7 +385,8 @@ def _launch_and_rows(ptrs, filt, slices, width, out):
             _count_launch("count_and_rows", regime.value)
 
 
-def count_and_rows(m, filt):
+@_traced("count_and_rows", charge=True)
+def count_and_rows(m, filt, *, _events=None):
     """Per-row popcount(m & filt): int32[R, W], int32[W] -> int32[R]
     (the Pallas ``count_and_rows`` signature)."""
     if (m.dim() != 2 or filt.dim() != 1 or m.shape[1] != filt.shape[0]
@@ -310,8 +408,9 @@ def count_and_rows(m, filt):
         regime = ctypes.c_int(-1)
         with torch.cuda.device(filt.device):
             stream = torch.cuda.current_stream(filt.device).cuda_stream
-            rc = fn(m.data_ptr(), max(width, 1), rows, filt.data_ptr(), 1,
-                    width, out.data_ptr(), 1, stream, ctypes.byref(regime))
+            rc = _timed(_events, fn, m.data_ptr(), max(width, 1), rows,
+                        filt.data_ptr(), 1, width, out.data_ptr(), 1, stream,
+                        ctypes.byref(regime))
         if rc != 0:
             raise RuntimeError(f"count_and_rows: kernel launch failed: CUDA "
                                f"error {rc} ({err_str(rc).decode()})")
@@ -319,7 +418,8 @@ def count_and_rows(m, filt):
     return out
 
 
-def count_and_rows_stacks(rows, filt):
+@_traced("count_and_rows", charge=True)
+def count_and_rows_stacks(rows, filt, *, _events=None):
     """Per-(row, slice) popcount(rows[r][s] & filt[s]): R tensors
     int32[S, W] and int32[S, W] -> int32[R, S]. The filter is read once
     per chunk of rows, not once per row."""
@@ -335,7 +435,7 @@ def count_and_rows_stacks(rows, filt):
                       device=filt.device)
     if rows and slices:
         _launch_and_rows([r.data_ptr() for r in rows], filt, slices, width,
-                         out)
+                         out, _events)
     return out
 
 
@@ -384,22 +484,24 @@ def regime(name, rows, width, slices=1):
     return REGIMES[fn(rows * slices, width)]
 
 
-def count_op_rows(a, b, op):
+@_traced("count_op_rows", charge=True)
+def count_op_rows(a, b, op, *, _events=None):
     """Per-row popcount(a OP b): int32[..., W] × 2 -> int32[...]."""
     if op not in OPS:
         raise ValueError(f"unknown count op: {op!r}")
     _check("count_op_rows", a, b)
     if a.device.type == "cpu":
         return count_op_rows_plain(a, b, op)
-    return _launch("count_op_rows", a, b, OPS[op])
+    return _launch("count_op_rows", a, b, OPS[op], _events)
 
 
-def count_rows(m):
+@_traced("count_rows", charge=True)
+def count_rows(m, *, _events=None):
     """Per-row popcount(m): int32[..., W] -> int32[...]."""
     _check("count_rows", m)
     if m.device.type == "cpu":
         return count_rows_plain(m)
-    return _launch("count_rows", m, m, OP_NONE)
+    return _launch("count_rows", m, m, OP_NONE, _events)
 
 
 def _pairs_kernel():
@@ -428,7 +530,8 @@ def _stack_list(name, stacks):
     return stacks
 
 
-def count_op_pairs(a, b, op):
+@_traced("count_op_pairs")
+def count_op_pairs(a, b, op, *, _events=None):
     """Per-(pair, slice) popcount(a[k][s] OP b[k][s]): K pairs of int32
     [S, W] stacks -> int32[K, S], OP in and / or / xor / andnot, or None
     for popcount(a[k][s]) alone (``b`` ignored). One launch for up to the
@@ -462,8 +565,9 @@ def count_op_pairs(a, b, op):
                             dtype=np.uint64)
             tb = np.asarray([t.data_ptr() for t in b[k0:k0 + max_pairs]],
                             dtype=np.uint64)
-            rc = fn(ta.ctypes.data, tb.ctypes.data, len(ta), slices, width,
-                    code, out.data_ptr() + k0 * slices * 4, stream)
+            rc = _timed(_events, fn, ta.ctypes.data, tb.ctypes.data,
+                        len(ta), slices, width, code,
+                        out.data_ptr() + k0 * slices * 4, stream)
             if rc != 0:
                 raise RuntimeError(
                     f"count_op_pairs: kernel launch failed: CUDA error {rc} "
@@ -486,7 +590,8 @@ def _multi_kernel():
     return _multi_fn
 
 
-def count_and_rows_multi(rows, filts):
+@_traced("count_and_rows_multi")
+def count_and_rows_multi(rows, filts, *, _events=None):
     """Per-(filter, row, slice) popcount(rows[r][s] & filts[k][s]): R
     and K int32 [S, W] stacks -> int32[K, R, S]. Each launch reads its
     rows and filters once for all their products; rows and filters share
@@ -520,9 +625,10 @@ def count_and_rows_multi(rows, filts):
             for k0 in range(0, n_k, kc_max):
                 fp = [t.data_ptr() for t in filts[k0:k0 + kc_max]]
                 table = np.asarray(rp + fp, dtype=np.uint64)
-                rc = fn(table.ctypes.data, len(rp), len(fp), slices, width,
-                        out.data_ptr() + (k0 * n_r + r0) * slices * 4,
-                        n_r * slices, slices, stream)
+                rc = _timed(_events, fn, table.ctypes.data, len(rp),
+                            len(fp), slices, width,
+                            out.data_ptr() + (k0 * n_r + r0) * slices * 4,
+                            n_r * slices, slices, stream)
                 if rc != 0:
                     raise RuntimeError(
                         f"count_and_rows_multi: kernel launch failed: CUDA "
@@ -754,7 +860,7 @@ def _side_ptrs(side, dense, dev, keep):
     return 0, table.data_ptr(), 0
 
 
-def _launch_cont(cell, a, b, table, n, width, out):
+def _launch_cont(cell, a, b, table, n, width, out, events=None):
     """One launch over at most CONT_MAX_SIDES sides a side; ``table`` is a
     device int32 [n, 4] tensor or None (the identity)."""
     fn, err_str = _cont_kernel()
@@ -767,10 +873,10 @@ def _launch_cont(cell, a, b, table, n, width, out):
                     dtype=np.uint64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(CONTAINER_CELLS[cell], n, pa.ctypes.data, len(a),
-                pb.ctypes.data, len(b),
-                0 if table is None else table.data_ptr(), width,
-                out.data_ptr(), stream)
+        rc = _timed(events, fn, CONTAINER_CELLS[cell], n, pa.ctypes.data,
+                    len(a), pb.ctypes.data, len(b),
+                    0 if table is None else table.data_ptr(), width,
+                    out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"container_and_counts: kernel launch failed: "
                            f"CUDA error {rc} ({err_str(rc).decode()})")
@@ -778,7 +884,7 @@ def _launch_cont(cell, a, b, table, n, width, out):
                   form="serial" if table is None else "lane")
 
 
-def _launch_split(cell, a, b, host, width, out):
+def _launch_split(cell, a, b, host, width, out, events=None):
     """Launches past CONT_MAX_SIDES sides: the table's rows grouped by
     the chunks of sides they read, each group one launch over its chunks
     with rebased side indices, the counts put back in table order."""
@@ -797,11 +903,12 @@ def _launch_split(cell, a, b, host, width, out):
         rows[:, 2] -= cb * m
         sub = torch.from_numpy(rows).to(dev)
         _launch_cont(cell, a[ca * m:(ca + 1) * m], b[cb * m:(cb + 1) * m],
-                     sub, hi - lo, width, tmp[lo:hi])
+                     sub, hi - lo, width, tmp[lo:hi], events)
     out[torch.from_numpy(order).to(dev)] = tmp
 
 
-def container_and_counts(cell, a, b, members=None):
+@_traced("container_and_counts")
+def container_and_counts(cell, a, b, members=None, *, _events=None):
     """Per-member |a ∩ b| of N compressed row blocks in one launch ->
     int32[N]. ``cell`` is ``array_array``, ``array_run``,
     ``array_dense`` or ``run_dense``. A side is an array side
@@ -887,11 +994,11 @@ def container_and_counts(cell, a, b, members=None):
     if len(sides_a) <= CONT_MAX_SIDES and len(sides_b) <= CONT_MAX_SIDES:
         if host is not None:
             table = table.to(dev)
-        _launch_cont(cell, sides_a, sides_b, table, n, width, out)
+        _launch_cont(cell, sides_a, sides_b, table, n, width, out, _events)
     else:
         if host is None:
             host = table.cpu().numpy()
-        _launch_split(cell, sides_a, sides_b, host, width, out)
+        _launch_split(cell, sides_a, sides_b, host, width, out, _events)
     return out
 
 
@@ -925,7 +1032,8 @@ def _ingest_kernel():
     return _ingest_fn
 
 
-def ingest_classify(rowidx, positions, n_rows):
+@_traced("ingest_classify")
+def ingest_classify(rowidx, positions, n_rows, *, _events=None):
     """Per-row (counts, run starts), int32[n_rows] each, of a stream
     sorted by (row, position) and deduplicated: ``rowidx`` int32[nnz] in
     0..n_rows-1, ``positions`` int32[nnz]. An entry starts a run when it
@@ -955,8 +1063,9 @@ def ingest_classify(rowidx, positions, n_rows):
         fn, err_str = _ingest_kernel()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(rowidx.data_ptr(), positions.data_ptr(), len(rowidx),
-                    n_rows, both[0].data_ptr(), both[1].data_ptr(), stream)
+            rc = _timed(_events, fn, rowidx.data_ptr(), positions.data_ptr(),
+                        len(rowidx), n_rows, both[0].data_ptr(),
+                        both[1].data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
                                f"{rc} ({err_str(rc).decode()})")

@@ -93,6 +93,11 @@ def build(names=None):
     return {n: build_log[n] for n in names}
 
 
+def loaded(name):
+    """Whether the library of source ``name`` is loaded in this process."""
+    return name in _libs
+
+
 def library(name):
     """The loaded ctypes library for one source, built on first use."""
     lib = _libs.get(name)

@@ -1,0 +1,303 @@
+"""Per-query resource accounting (counterpart of pilosa_tpu/querystats.py;
+the same keys, merge rules and footer encoding): what a query COST,
+beside tracing's where the time went.
+
+A ``QueryStats`` accumulator counts the work one query does: slices
+scanned, fragment row blocks read (and in which container format),
+bytes popcounted, result-memo hits and misses, plan time and plan-cache
+hits, and a coordinator's fan-out calls and retries. The handler
+activates one per request when ``?profile=true``, the collect header or
+tracing asks for it; instrumentation anywhere calls
+``querystats.add(...)``, one thread-local read and nothing else when no
+accumulator is active.
+
+Across nodes: the coordinator's internal client stamps
+``X-Pilosa-Collect-Stats`` on its fan-out requests; the remote handler
+runs the subquery under its own accumulator and returns the counts in
+an ``X-Pilosa-Query-Stats`` response header, which the client merges
+into the coordinator's accumulator, so a profiled fan-out reports
+cluster-wide totals, each slice counted once, on the node that scanned
+it.
+
+Fan-out threads adopt the accumulator explicitly through ``scope()``
+(thread-locals do not cross threads); ``QueryStats`` is lock-protected
+so concurrent node threads can add to it.
+"""
+import json
+import threading
+
+COLLECT_HEADER = "X-Pilosa-Collect-Stats"
+STATS_HEADER = "X-Pilosa-Query-Stats"
+
+# Tier-attribution tag keys, a non-numeric side channel beside the
+# counters. ``servedBy`` maps serving tier →
+# number of call-serves by that tier; ``fallbackChain`` is the ordered
+# list of "tier:reason" decline hops the query took before landing.
+# Both ride the same stats footer header cross-node, so a profiled
+# coordinator reports the UNION of every node's tier decisions.
+SERVED_KEY = "servedBy"
+FALLBACK_KEY = "fallbackChain"
+# Per-leg routing/hedge decisions: a bounded list of small dicts
+# merged cluster-wide like the other two tag keys (the reference's
+# hedged fan-out stamps them; this package has no hedging yet, so it
+# only carries what a peer sends).
+HEDGE_KEY = "hedgeLegs"
+
+# Display precedence when one query touched several tiers (a coalesced
+# member also flows through the generic batched wrapper, and a
+# multi-node fan-out's LOCAL leg stamps its own engine tier): the
+# highest-level story wins — a fan-out is "http" even though its local
+# leg ran batched underneath.
+TIER_ORDER = ("memo", "planner", "mesh", "http", "coalesced_lane",
+              "coalesced_dense", "batched", "serial")
+
+# Bound on the recorded fallback chain: the chain is a narrative, not
+# an unbounded log — a 9,540-slice query must not mint 9,540 entries.
+MAX_FALLBACKS = 32
+
+# Same story for hedge-leg decisions: legs are per-node (a handful per
+# fan-out round), but a pathological retry storm must not balloon the
+# stats footer header.
+MAX_HEDGE_LEGS = 64
+
+# Canonical counters, pre-seeded so a profile always reports every
+# dimension (a 0 is informative; a missing key looks like a bug).
+# planMs is the wall time the query spent in the batched-path plan
+# phase (slice walk, window negotiation, stack staging); planCacheHit
+# counts plan-cache hits that skipped that walk — together they show
+# whether a query paid the walk (planMs high, planCacheHit 0) or
+# served walk-free.
+# containerBlocks{Dense,Array,Run} count row blocks served by the
+# compressed container tier, by the format each was served in — a
+# profile shows at a glance whether a query ran compressed (array/run
+# counts dominate) or fell back dense (ops/containers.py).
+KEYS = ("slices", "blocks", "bytesPopcounted", "cacheHits",
+        "cacheMisses", "deviceTransfers", "deviceTransferBytes",
+        "fanoutCalls", "fanoutRetries", "planMs", "planCacheHit",
+        "containerBlocksDense", "containerBlocksArray",
+        "containerBlocksRun")
+
+
+class QueryStats:
+    """One query's resource counters. Thread-safe: coordinator
+    fan-out threads and the serving thread add concurrently."""
+
+    __slots__ = ("_mu", "_c", "_tiers", "_falls", "_hedges")
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._c = dict.fromkeys(KEYS, 0)
+        self._tiers = {}   # tier name -> serve count
+        self._falls = []   # ordered "tier:reason" decline hops
+        self._hedges = []  # per-leg routing/hedge decision dicts
+
+    def add(self, key, n=1):
+        with self._mu:
+            self._c[key] = self._c.get(key, 0) + n
+
+    def note_tier(self, tier):
+        """One call (or group-member) serve by ``tier``."""
+        with self._mu:
+            self._tiers[tier] = self._tiers.get(tier, 0) + 1
+
+    def note_fallback(self, tier, reason):
+        """One decline hop: ``tier`` refused this query for
+        ``reason`` (the meshplane/coalescer reason vocabulary).
+        Consecutive duplicates collapse — the windowed batched path
+        re-probes its budget per halved window, and "budget" once
+        tells the story."""
+        hop = f"{tier}:{reason}"
+        with self._mu:
+            if ((not self._falls or self._falls[-1] != hop)
+                    and len(self._falls) < MAX_FALLBACKS):
+                self._falls.append(hop)
+
+    def note_hedge(self, entry):
+        """One fan-out leg's routing/hedge decision (a small dict the
+        executor builds). Bounded like the fallback chain."""
+        with self._mu:
+            if len(self._hedges) < MAX_HEDGE_LEGS:
+                self._hedges.append(entry)
+
+    @staticmethod
+    def _pick(tiers):
+        if not tiers:
+            return None
+        return min(tiers, key=lambda t: (
+            TIER_ORDER.index(t) if t in TIER_ORDER
+            else len(TIER_ORDER), t))
+
+    def served_by(self):
+        """The most specific tier that served (TIER_ORDER precedence;
+        unknown tiers sort after the known ones), or None."""
+        with self._mu:
+            return self._pick(self._tiers)
+
+    def mark(self):
+        """Opaque position marker for per-CALL attribution inside a
+        multi-call request: pass to ``served_since``/``falls_since``
+        to read only what happened after the mark (a later call must
+        not inherit the earlier calls' tier story)."""
+        with self._mu:
+            return dict(self._tiers), len(self._falls)
+
+    def served_since(self, mark):
+        """The most specific tier stamped AFTER ``mark``, or None."""
+        before, _ = mark
+        with self._mu:
+            return self._pick([t for t, n in self._tiers.items()
+                               if n > before.get(t, 0)])
+
+    def falls_since(self, mark):
+        """The decline hops appended AFTER ``mark``."""
+        _, n = mark
+        with self._mu:
+            return list(self._falls[n:])
+
+    def merge(self, counts):
+        """Fold a remote partial (a parsed footer dict) in. The two
+        tag keys merge structurally (tier counts sum, fallback hops
+        append); any other non-numeric value is dropped — the footer
+        crosses a trust boundary only within the cluster, but a skewed
+        peer must not corrupt the accumulator type."""
+        if not counts:
+            return
+        with self._mu:
+            for k, v in counts.items():
+                if k == SERVED_KEY and isinstance(v, dict):
+                    for t, n in v.items():
+                        if isinstance(n, int) and not isinstance(n, bool):
+                            self._tiers[t] = self._tiers.get(t, 0) + n
+                    continue
+                if k == FALLBACK_KEY and isinstance(v, list):
+                    # Whole-chain dedup on merge (stronger than the
+                    # local consecutive rule): N peers declining for
+                    # the same reason contribute ONE hop, so the
+                    # bounded chain keeps room for distinct reasons.
+                    for hop in v:
+                        if (isinstance(hop, str)
+                                and hop not in self._falls
+                                and len(self._falls) < MAX_FALLBACKS):
+                            self._falls.append(hop)
+                    continue
+                if k == HEDGE_KEY and isinstance(v, list):
+                    for leg in v:
+                        if (isinstance(leg, dict)
+                                and len(self._hedges) < MAX_HEDGE_LEGS):
+                            self._hedges.append(leg)
+                    continue
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    continue
+                self._c[k] = self._c.get(k, 0) + v
+
+    def to_dict(self):
+        with self._mu:
+            out = dict(self._c)
+            out[SERVED_KEY] = dict(self._tiers)
+            out[FALLBACK_KEY] = list(self._falls)
+            if self._hedges:
+                out[HEDGE_KEY] = list(self._hedges)
+            return out
+
+
+_STATE = threading.local()
+
+
+def active():
+    """The accumulator active on this thread, or None. One
+    thread-local read — cheap enough for per-dispatch hot paths."""
+    return getattr(_STATE, "qs", None)
+
+
+def add(key, n=1):
+    """Record into the active accumulator; nothing when none is."""
+    qs = getattr(_STATE, "qs", None)
+    if qs is not None:
+        qs.add(key, n)
+
+
+def note_tier(tier):
+    """Stamp a serving-tier attribution on the active accumulator;
+    one thread-local read and nothing when none is active."""
+    qs = getattr(_STATE, "qs", None)
+    if qs is not None:
+        qs.note_tier(tier)
+
+
+def note_fallback(tier, reason):
+    """Stamp one tier-decline hop on the active accumulator."""
+    qs = getattr(_STATE, "qs", None)
+    if qs is not None:
+        qs.note_fallback(tier, reason)
+
+
+def note_hedge(entry):
+    """Stamp one fan-out leg's routing/hedge decision."""
+    qs = getattr(_STATE, "qs", None)
+    if qs is not None:
+        qs.note_hedge(entry)
+
+
+class _NopScope:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOP_SCOPE = _NopScope()
+
+
+class _Scope:
+    __slots__ = ("_qs", "_prev")
+
+    def __init__(self, qs):
+        self._qs = qs
+
+    def __enter__(self):
+        self._prev = getattr(_STATE, "qs", None)
+        _STATE.qs = self._qs
+        return self._qs
+
+    def __exit__(self, *exc):
+        _STATE.qs = self._prev
+        return False
+
+
+def scope(qs):
+    """Install ``qs`` as this thread's active accumulator; the shared
+    no-op when ``qs`` is None (fan-out threads pass whatever the
+    parent captured, active or not)."""
+    if qs is None:
+        return _NOP_SCOPE
+    return _Scope(qs)
+
+
+def exclusive_scope(qs):
+    """Install ``qs`` even when it is None — the group-serve
+    discipline (executor coalescer): work a leader thread performs on
+    behalf of ANOTHER request must charge that request's accumulator
+    or nobody's, never leak into whatever accumulator happens to be
+    active on the leader's thread."""
+    return _Scope(qs)
+
+
+def encode(counts):
+    """Footer-header payload: compact JSON (headers cannot carry
+    newlines; json.dumps emits none)."""
+    return json.dumps(counts, separators=(",", ":"))
+
+
+def decode(value):
+    """Parse a footer header; None on anything undecodable (a peer on
+    an older build simply omits the header)."""
+    if not value:
+        return None
+    try:
+        out = json.loads(value)
+    except ValueError:
+        return None
+    return out if isinstance(out, dict) else None

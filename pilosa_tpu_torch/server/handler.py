@@ -56,6 +56,7 @@ import numpy as np
 
 from pilosa_tpu_torch import SLICE_WIDTH, __version__
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch import querystats, tracing
 from pilosa_tpu_torch.bitmap import Bitmap
 from pilosa_tpu_torch.cluster import epochs as epochs_mod
 from pilosa_tpu_torch.cluster.broadcast import NopBroadcaster
@@ -111,9 +112,12 @@ class Handler:
 
     def __init__(self, holder, executor, local_host=None,
                  version=__version__, ingest=None, cluster=None,
-                 broadcaster=None, epochs=None):
+                 broadcaster=None, epochs=None, tracer=None):
         self.holder = holder
         self.executor = executor
+        # The node's tracer (tracing.NOP: off; ?profile=true still
+        # traces its own request).
+        self.tracer = tracer or tracing.NOP
         self.local_host = local_host
         self.version = version
         self.cluster = cluster
@@ -132,6 +136,7 @@ class Handler:
             ("POST", r"^/schema$", self.post_schema),
             ("GET", r"^/status$", self.get_status),
             ("GET", r"^/debug/vars$", self.get_debug_vars),
+            ("GET", r"^/debug/traces$", self.get_debug_traces),
             ("GET", r"^/version$", self.get_version),
             ("GET", r"^/hosts$", self.get_hosts),
             ("GET", r"^/id$", self.get_id),
@@ -217,6 +222,9 @@ class Handler:
         key = epoch = None
         out = None
         if (cache is not None and not self.executor.memos_off()
+                and not self.tracer.enabled
+                and "profile" not in (query_params or ())
+                and headers.get(querystats.COLLECT_HEADER) is None
                 and cache.cacheable(method, path, body)):
             key = cache.make_key(path, query_params, body, headers)
             out = cache.get(key)
@@ -231,7 +239,9 @@ class Handler:
         if ep is not None:
             # Read after the handler ran: a write's own answer carries
             # its moved counter to the node that relayed it.
-            out = out[:3] + ({ep.HEADER: ep.header_value()},)
+            extra = dict(out[3]) if len(out) > 3 and out[3] else {}
+            extra[ep.HEADER] = ep.header_value()
+            out = out[:3] + (extra,)
         return out
 
     def _dispatch_route(self, method, path, query_params, body, headers):
@@ -254,7 +264,48 @@ class Handler:
     # ------------------------------------------------------------- query
 
     def post_query(self, params, qp, body, headers):
-        """(ref: handlePostQuery handler.go:243-309)."""
+        """(ref: handlePostQuery handler.go:243-309; pilosa_tpu
+        handler.py:675-765). With tracing on, ``?profile=true`` or the
+        collect header, the serve runs under a root span, ``query``, or
+        ``query.remote`` when it adopts an incoming X-Pilosa-Trace-Id/
+        X-Pilosa-Span-Id pair (a coordinator's fan-out leg), and a
+        ``QueryStats`` scope. The trace id rides back in
+        X-Pilosa-Trace-Id; ``?profile=true`` inlines the span tree and
+        the counts next to the results; the collect header gets the
+        counts back in the X-Pilosa-Query-Stats header. A server with
+        tracing off profiles a request on a one-trace tracer of its
+        own, which keeps nothing."""
+        tracer = self.tracer
+        profile = qp.get("profile", ["false"])[0] == "true"
+        collect = headers.get(querystats.COLLECT_HEADER) is not None
+        if not (tracer.enabled or profile or collect):
+            return self._post_query(params, qp, body, headers)
+        if not tracer.enabled:
+            tracer = tracing.Tracer(ring_size=1)
+        trace_id = headers.get(tracing.TRACE_HEADER)
+        parent_id = headers.get(tracing.SPAN_HEADER)
+        root = tracer.start(
+            "query.remote" if trace_id else "query",
+            trace_id=trace_id, parent_id=parent_id,
+            index=params["index"], host=self.local_host or "")
+        qs = querystats.QueryStats()
+        with root, querystats.scope(qs):
+            resp = self._post_query(params, qp, body, headers)
+        root.trace.resources = qs.to_dict()
+        status, ctype, payload = resp[:3]
+        if (profile and status == 200 and ctype == "application/json"
+                and payload.startswith(b"{")):
+            doc = json.loads(payload)
+            doc["profile"] = root.trace.to_dict()
+            payload = json.dumps(doc).encode()
+        extra = {tracing.TRACE_HEADER: root.trace.trace_id}
+        if collect:
+            # This node's partial, which the coordinator merges.
+            extra[querystats.STATS_HEADER] = querystats.encode(
+                qs.to_dict())
+        return status, ctype, payload, extra
+
+    def _post_query(self, params, qp, body, headers):
         index = params["index"]
         ctype = headers.get("Content-Type", "")
         if ctype == PROTOBUF:
@@ -356,6 +407,25 @@ class Handler:
         if self._resp_cache is not None:
             doc["responseCache"] = self._resp_cache.stats()
         return _json(200, doc)
+
+    def get_debug_traces(self, params, qp, body, headers):
+        """Recent traces as span trees (ref: pilosa_tpu
+        handler.py:2187-2205): ``?slow=true`` reads the slow-query ring,
+        ``?traceId=`` filters (how a cluster trace is gathered for
+        ``tracing.stitch``), ``?n=`` bounds the count (1-512)."""
+        try:
+            n = max(1, min(int(qp.get("n", ["32"])[0]), 512))
+        except ValueError:
+            raise HTTPError(400, "n must be an integer")
+        slow = qp.get("slow", ["false"])[0] == "true"
+        trace_id = qp.get("traceId", [None])[0]
+        tr = self.tracer
+        return _json(200, {
+            "enabled": tr.enabled,
+            "slowThresholdMs": round(tr.slow_threshold * 1000, 3),
+            "summary": tr.summary(),
+            "traces": tr.recent(n, slow=slow, trace_id=trace_id),
+        })
 
     def get_version(self, params, qp, body, headers):
         return _json(200, {"version": self.version})

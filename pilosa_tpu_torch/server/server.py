@@ -35,11 +35,20 @@ longer than ``epoch_probe_ttl`` seconds ago is probed before a replay
 interval): a write this node did not relay shows in its caches within
 that bound. Bulk ingest and keyed imports through any node land on
 every owner of each slice.
+
+Tracing (``tracing.py``) is off by default: ``trace_enabled`` (None
+reads ``PILOSA_TRACE_ENABLED``) keeps the recent and slow traces, read
+at ``GET /debug/traces``; ``trace_slow_threshold`` seconds (None reads
+``PILOSA_TRACE_SLOW_THRESHOLD``, unset is 0.25), ``trace_ring_size``
+and ``trace_slow_ring_size`` size it (ref: pilosa_tpu
+server.py:64-93). With it off, ``?profile=true`` still traces the one
+request.
 """
 import logging
 import os
 import threading
 
+from pilosa_tpu_torch import tracing
 from pilosa_tpu_torch.cluster.broadcast import HTTPBroadcaster
 from pilosa_tpu_torch.cluster import epochs as epochs_mod
 from pilosa_tpu_torch.cluster.client import InternalClient
@@ -67,7 +76,9 @@ class Server:
                  max_body_size=DEFAULT_MAX_BODY_SIZE, host_bytes=None,
                  ingest=None, cluster_hosts=None, replica_n=1,
                  polling_interval=DEFAULT_POLLING_INTERVAL,
-                 stack_bytes=None, epoch_probe_ttl=None):
+                 stack_bytes=None, epoch_probe_ttl=None,
+                 trace_enabled=None, trace_ring_size=None,
+                 trace_slow_threshold=None, trace_slow_ring_size=None):
         self.data_dir = data_dir
         self.bind = bind
         self.host = bind  # host:port once open; the bound port for port 0
@@ -102,6 +113,8 @@ class Server:
             self.client.epochs = self.epochs
         self.ingest = _ingest_pipeline(self.holder, ingest, self.cluster,
                                        self.client)
+        self.tracer = _tracer(trace_enabled, trace_ring_size,
+                              trace_slow_threshold, trace_slow_ring_size)
         self.executor = None
         self.handler = None
         self._httpd = None
@@ -119,7 +132,7 @@ class Server:
             self.handler = Handler(self.holder, self.executor,
                                    ingest=self.ingest, cluster=self.cluster,
                                    broadcaster=self.broadcaster,
-                                   epochs=self.epochs)
+                                   epochs=self.epochs, tracer=self.tracer)
             self.handler.enable_response_cache()
             self._httpd = make_http_server(self.handler, self.bind,
                                            self.max_body_size)
@@ -235,6 +248,29 @@ def _probe_ttl(ttl, heartbeat_interval):
         except ValueError:
             ttl = 0
     return float(ttl or heartbeat_interval or epochs_mod.DEFAULT_PROBE_TTL)
+
+
+def _tracer(enabled, ring_size, slow_threshold, slow_ring_size):
+    """The node's Tracer, or tracing.NOP when tracing is off; None
+    arguments read PILOSA_TRACE_ENABLED and PILOSA_TRACE_SLOW_THRESHOLD
+    (an unparseable threshold keeps the default)."""
+    if enabled is None:
+        enabled = os.environ.get("PILOSA_TRACE_ENABLED", "").lower() in (
+            "1", "true", "yes")
+    if not enabled:
+        return tracing.NOP
+    if slow_threshold is None:
+        slow_threshold = tracing.DEFAULT_SLOW_THRESHOLD
+        env = os.environ.get("PILOSA_TRACE_SLOW_THRESHOLD")
+        if env:
+            try:
+                slow_threshold = float(env)
+            except ValueError:
+                pass
+    return tracing.Tracer(
+        ring_size=ring_size or tracing.DEFAULT_RING_SIZE,
+        slow_threshold=slow_threshold,
+        slow_ring_size=slow_ring_size or tracing.DEFAULT_SLOW_RING_SIZE)
 
 
 def _ingest_pipeline(holder, cfg, cluster=None, client=None):

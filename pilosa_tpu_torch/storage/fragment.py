@@ -79,6 +79,7 @@ import torch
 
 from pilosa_tpu_torch import SLICE_WIDTH, WORDS_PER_SLICE
 from pilosa_tpu_torch import errors as perr
+from pilosa_tpu_torch import querystats, tracing
 from pilosa_tpu_torch.ops import bitops
 from pilosa_tpu_torch.ops import bsi as bsi_ops
 from pilosa_tpu_torch.ops import containers
@@ -1192,7 +1193,9 @@ class Fragment:
         dropped. A non-resident fragment decodes just the overlapping
         containers: batched stacks are assembled on the host this way,
         every row of a fragment in one visit, and uploaded once, and
-        building them never faults a fragment in."""
+        building them never faults a fragment in. Each row read counts
+        one of the query's ``blocks``."""
+        querystats.add("blocks", len(rows))
         b64, w64 = base32 // 2, width32 // 2
 
         def lazy(reader):
@@ -1239,21 +1242,33 @@ class Fragment:
         """int32[rows, 2·w] mirror at the window's width on the
         fragment's device, brought up to date with the host matrix (ref:
         the HBM mirror of pilosa_tpu fragment.py:1871-1910). Callers trim
-        full-slice operands to the window, as ``top()`` does."""
+        full-slice operands to the window, as ``top()`` does. A whole
+        upload runs under a ``fragment.device_put`` span and counts a
+        device transfer and its bytes, a patch of dirty rows under
+        ``fragment.device_update`` (ref: fragment.py:1878-1897)."""
         with self.mu:
             n = len(self._phys_rows)
             if self._dev is None or tuple(self._dev.shape) != (
                     n, 2 * self._w64):
-                self._dev = torch.from_numpy(
-                    self._matrix[:n].view(np.int32)).to(self.device,
-                                                        copy=True)
+                host = self._matrix[:n]
+                with tracing.span("fragment.device_put", rows=n,
+                                  words32=2 * self._w64, slice=self.slice):
+                    self._dev = torch.from_numpy(host.view(np.int32)).to(
+                        self.device, copy=True)
+                qs = querystats.active()
+                if qs is not None:
+                    qs.add("deviceTransfers", 1)
+                    qs.add("deviceTransferBytes", int(host.nbytes))
             elif self._dirty:
                 idx = sorted(p for p in self._dirty if p < n)
                 if idx:
-                    rows = torch.from_numpy(
-                        self._matrix[idx].view(np.int32)).to(self.device)
-                    self._dev = self._dev.index_copy(
-                        0, torch.tensor(idx, device=self.device), rows)
+                    with tracing.span("fragment.device_update",
+                                      rows=len(idx), slice=self.slice):
+                        rows = torch.from_numpy(
+                            self._matrix[idx].view(np.int32)).to(
+                                self.device)
+                        self._dev = self._dev.index_copy(
+                            0, torch.tensor(idx, device=self.device), rows)
             self._dirty.clear()
             return self._dev
 
@@ -1279,7 +1294,9 @@ class Fragment:
         of the mirror when the row is clean and the request is the
         fragment's own window; otherwise one rebased copy, memoized per
         (row, window, version), at most 64. A non-resident fragment
-        serves from its container reader, no fault-in."""
+        serves from its container reader, no fault-in. Each call counts
+        one of the query's ``blocks``."""
+        querystats.add("blocks", 1)
         lazy = self._lazy_serve(lambda r: torch.from_numpy(
             self._lazy_row64_span(r, row_id, base32 // 2, width32 // 2)
             .view(np.int32)).to(self.device),
@@ -1321,7 +1338,20 @@ class Fragment:
         another format counts a conversion. A non-resident fragment
         classifies from its lazy decode: compressed results memoize
         (a memo hit touches no reader), dense rows upload per call, as
-        ``device_row`` does."""
+        ``device_row`` does. Each call counts one of the query's
+        ``blocks`` and one ``containerBlocks<Format>`` (ref: pilosa_tpu
+        fragment.py:1611-1672)."""
+        resident = self._resident
+        cont = self._row_container(row_id)
+        qs = querystats.active()
+        if qs is not None:
+            if not (resident and cont.fmt == bitops.FMT_DENSE):
+                # A resident dense row's device_row_win counted it.
+                qs.add("blocks", 1)
+            qs.add("containerBlocks" + cont.fmt.capitalize(), 1)
+        return cont
+
+    def _row_container(self, row_id):
         if not self._resident and self._opened:
             # Memo first, without the lock: a warm compressed tier serves
             # without recreating the reader (each pins a descriptor).

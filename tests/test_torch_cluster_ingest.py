@@ -254,3 +254,61 @@ def test_down_owner_fails_the_ingest(tmp_path):
         assert snap["errorsTotal"] == 3
     finally:
         p.close_all()
+
+
+def test_topn_after_ingest_stages_held_slices_in_one_upload(tmp_path):
+    """A cluster TopN over every row of a frame right after an ingest
+    (chip_smoke phase 12 (c)'s shape, small): the same bytes as the
+    reference's and equal to numpy. The index spans 41 slices (frame f
+    holds a bit in the last), frame w only the first N_SLICES: each node
+    stages its phase-2 candidates on the slices where w has a fragment
+    alone, and uploads them in ONE transfer, not one a candidate
+    (``deviceTransfers``/``deviceTransferBytes`` in the profile, merged
+    over the nodes). On an H100, staging 1,024 candidates over every
+    slice of a 512-slice index moved 34.5 GB and took the TopN 18.7 s;
+    over the 32 slices that hold the frame, 4.3 GB and 2.6 s."""
+    p = Pair(tmp_path, 3, 2)
+    try:
+        p.same(0, "POST", "/index/i", {})
+        p.same(0, "POST", "/index/i/frame/w", {})
+        p.same(0, "POST", "/index/i/frame/f", {})
+        last = 40
+        assert p.same(0, "POST", "/index/i/query",
+                      f'SetBit(frame="f", rowID=1, columnID={last * SW + 1})'
+                      )[0] == 200
+        n_rows = 64
+        rng = np.random.default_rng(21)
+        rows = rng.integers(0, n_rows, 20000)
+        cols = rng.integers(0, N_SLICES * SW, 20000)
+        assert p.same(1, "POST", "/index/i/ingest", jcodec.encode_bits(
+            "w", rows, cols), CT)[0] == 200
+        for s in p.j + p.t:
+            s.cluster.node_set.probe_once()
+            s.executor._result_memo_off = True  # every TopN fans out
+        pql = f'TopN(frame="w", n={n_rows})'
+        st, _, body = _http(p.th[0], "POST", "/index/i/query?profile=true",
+                            pql)
+        assert st == 200
+        doc = json.loads(body)
+        bits = {(int(r), int(c)) for r, c in zip(rows, cols)}
+        per_row = np.bincount([r for r, _ in bits], minlength=n_rows)
+        want = sorted(((r, int(c)) for r, c in enumerate(per_row) if c),
+                      key=lambda rc: (-rc[1], rc[0]))
+        assert [(x["id"], x["count"]) for x in doc["results"][0]] == want
+        # Phase 2 stages every row on each node's primary slices that
+        # hold frame w, one upload a node; phase 1 reads host counts.
+        cl = p.t[0].cluster
+        primaries = {cl.fragment_nodes("i", s)[0].host
+                     for s in range(N_SLICES)}
+        res = doc["profile"]["resources"]
+        assert res["slices"] == 2 * (last + 1)
+        assert res["deviceTransfers"] == len(primaries)
+        assert res["deviceTransferBytes"] == n_rows * N_SLICES * SW // 8
+        assert res["fanoutRetries"] == 0
+        # Warm: the stacks are cached, nothing is uploaded again.
+        doc = json.loads(_http(p.th[0], "POST",
+                               "/index/i/query?profile=true", pql)[2])
+        assert doc["profile"]["resources"]["deviceTransfers"] == 0
+        assert p.same(0, "POST", "/index/i/query", pql)[0] == 200
+    finally:
+        p.close_all()

@@ -21,8 +21,9 @@ on the CPU.
 - Remote batch lanes: 8 concurrent Counts through node 1 while a peer's
   first round is held in flight reach that peer in 2 requests and answer
   what pilosa_tpu's cluster answers; a round that fails on a closed peer
-  fails every parked call, each query remaps to replicas and answers the
-  same.
+  sends each parked call again alone, each query remaps to replicas and
+  answers the same; against a peer that hangs, those lone calls go out
+  together, so the queries remap after one more timeout, not one a call.
 
 Tolerance: none, every byte equal.
 """
@@ -592,8 +593,157 @@ def test_failed_round_remaps_every_parked_call(tmp_path):
         assert out[1] == len(truth[2])
         rb = ex.remote_batch_snapshot()
         assert rb["max_batch"] == BATCH_N - 1
-        # Two rounds to node 1 (the held one and the batch) failed, and
-        # the replicas answered for its slices.
-        assert calls.count(p.th[1]) == 2
+        # Two rounds to node 1 (the held one and the batch) failed, each
+        # of the batch's calls was sent again alone and failed, and the
+        # replicas answered for its slices.
+        assert calls.count(p.th[1]) == 2 + BATCH_N - 1
+    finally:
+        p.close_all()
+
+
+HANG_S = 1.0  # each call to the hung peer times out after this
+
+
+def test_hung_peer_costs_one_more_timeout(tmp_path):
+    """A peer that hangs, each call to it timing out after HANG_S, under a
+    lane round of BATCH_N - 1 parked calls: the round times out, its
+    calls are sent again alone all at once and time out together, and
+    every query remaps to the replicas and answers what pilosa_tpu's
+    cluster answers. From the held round's release that is three
+    timeouts (the held call, the round, the lone calls); one lone call
+    after another would be BATCH_N + 1."""
+    p = Pair(tmp_path, 3, 2)
+    try:
+        truth, _ = _load(p, np.random.default_rng(14))
+        queries = _batch_queries()
+        want = [json.loads(_http(p.jh[0], "POST", "/index/i/query", q)[2])
+                ["results"][0] for q in queries]
+        ex = p.t[0].executor
+        ex._result_memo_off = True
+        client = ex.client
+        orig = client.execute_query
+        go, calls = threading.Event(), []
+
+        def execute_query(node, *a, **kw):
+            if node.host != p.th[1]:
+                return orig(node, *a, **kw)
+            calls.append(node.host)
+            if len(calls) == 1:
+                go.wait(30)  # the others park behind this call
+            time.sleep(HANG_S)
+            raise ClientError(f"POST {node}: timed out", timed_out=True)
+
+        client.execute_query = execute_query
+        first, out0 = _run_threads(ex, queries[:1])
+        _wait_for(lambda: calls, "the first call never started")
+        rest, out = _run_threads(ex, queries[1:])
+        _wait_for(lambda: _lane_pending(ex, p.th[1]) == BATCH_N - 1,
+                  "the calls never parked")
+        t = time.monotonic()
+        go.set()
+        for th in first + rest:
+            th.join(60)
+        secs = time.monotonic() - t
+        assert out0 + out == want
+        assert out[0] == len(truth[2])
+        assert len(calls) == 2 + BATCH_N - 1
+        assert ex.remote_batch_snapshot()["max_batch"] == BATCH_N - 1
+        assert 3 * HANG_S <= secs < 6 * HANG_S, secs
+    finally:
+        p.close_all()
+
+
+# A round of several calls that fails sends each call again alone, in
+# both packages (pilosa_tpu executor.py:2476-2521): at replicas 1 every
+# sibling of a timed-out round, or of a round that one poisoned call
+# makes the peer answer 500, gets its own answer.
+POISON_ROW = 666
+
+
+def _lane_round_outs(p, failure):
+    """The answers of BATCH_N concurrent queries through node 0 of each
+    package, their subcalls to node 1 held in one lane round, which then
+    fails once: -> {package: [answer or exception]}."""
+    queries = _batch_queries()
+    if failure == "poisoned_500":
+        queries[3] = f"Count({_bm(POISON_ROW)})"
+    outs = {}
+    for pkg, servers, hosts in (("j", p.j, p.jh), ("t", p.t, p.th)):
+        ex = servers[0].executor
+        ex._result_memo_off = True  # every query fans out
+        client = ex.client
+        orig = client.execute_query
+        go, held = threading.Event(), threading.Event()
+        state = {"failed": False}
+
+        def execute_query(node, index, query, *a, _orig=orig, _go=go,
+                          _held=held, _state=state, _peer=hosts[1],
+                          _pkg=pkg, **kw):
+            if getattr(node, "host", node) == _peer:
+                if not _held.is_set():
+                    _held.set()
+                    _go.wait(30)  # the others park behind this round
+                elif (len(query.calls) > 1 and failure == "timeout"
+                      and not _state["failed"]):
+                    _state["failed"] = True
+                    raise _timeout(_pkg, node)
+            return _orig(node, index, query, *a, **kw)
+
+        client.execute_query = execute_query
+        if failure == "poisoned_500":
+            peer_ex = servers[1].executor
+            real = peer_ex.execute
+
+            def execute(index, query, *a, _real=real, **kw):
+                if f"rowID={POISON_ROW}" in str(query):
+                    raise RuntimeError("poisoned call")
+                return _real(index, query, *a, **kw)
+
+            peer_ex.execute = execute
+        try:
+            first, out0 = _run_threads(ex, queries[:1])
+            _wait_for(held.is_set, "the first round never started")
+            rest, out = _run_threads(ex, queries[1:])
+            _wait_for(lambda: _lane_pending(ex, hosts[1]) == BATCH_N - 1,
+                      "the calls never parked")
+            go.set()
+            for t in first + rest:
+                t.join(60)
+            outs[pkg] = out0 + out
+        finally:
+            client.execute_query = orig
+            if failure == "poisoned_500":
+                del peer_ex.execute
+    return queries, outs
+
+
+def _timeout(pkg, node):
+    """The ClientError each package's client raises on a socket
+    timeout."""
+    if pkg == "j":
+        from pilosa_tpu.cluster.client import ClientError as JClientError
+
+        return JClientError(f"POST {node}: timed out", timed_out=True)
+    return ClientError(f"POST {node}: timed out", timed_out=True)
+
+
+@pytest.mark.parametrize("failure", ["timeout", "poisoned_500"])
+def test_failed_lane_round_answers_each_call_alone(tmp_path, failure):
+    p = Pair(tmp_path, 2, 1)
+    try:
+        truth, _ = _load(p, np.random.default_rng(13))
+        queries, outs = _lane_round_outs(p, failure)
+        for q, j, t in zip(queries, outs["j"], outs["t"]):
+            if isinstance(j, Exception):
+                # Only the poisoned call fails, in both.
+                assert failure == "poisoned_500" and str(POISON_ROW) in q
+                assert isinstance(t, Exception), (q, t)
+                continue
+            assert t == j, (q, t, j)
+        assert sum(isinstance(o, Exception) for o in outs["t"]) == (
+            1 if failure == "poisoned_500" else 0)
+        assert outs["t"][1] == len(truth[2])
+        rb = p.t[0].executor.remote_batch_snapshot()
+        assert rb["max_batch"] == BATCH_N - 1
     finally:
         p.close_all()

@@ -1195,3 +1195,33 @@ def test_ingest_on_card_gives_the_cpu_files(gen, tmp_path):
             for p, _, fs in os.walk(d) for f in fs
             if os.path.basename(p) == "fragments"}
     assert files["cuda"] == files["cpu"]
+
+
+def test_traced_count_op_rows_has_device_time(gen):
+    """A launch under an active trace runs under ``kernel:count_op_rows``
+    with ``deviceMs`` > 0, answers the untraced counts, counts one launch
+    and charges its first operand's bytes; with no trace active it adds
+    no span."""
+    from pilosa_tpu_torch import querystats, tracing
+
+    a, b = _rand(gen, 512, 32768), _rand(gen, 512, 32768)
+    want = kernels.count_op_rows(a, b, "and")
+    kernels.reset_launches()
+    tracer, qs = tracing.Tracer(), querystats.QueryStats()
+    with tracer.start("query"), querystats.scope(qs):
+        got = kernels.count_op_rows(a, b, "and")
+        rows = kernels.count_rows(a)
+    assert torch.equal(got, want)
+    assert torch.equal(rows, kernels.count_rows_plain(a))
+    assert kernels.launches["count_op_rows"] == 1
+    (trace,) = tracer.recent()
+    kern = [s for s in trace["spans"] if s["name"].startswith("kernel:")]
+    assert [s["name"] for s in kern] == ["kernel:count_op_rows",
+                                         "kernel:count_rows"]
+    for s in kern:
+        assert 0 < s["tags"]["deviceMs"] < s["durationMs"] + 0.001
+        assert s["tags"]["launches"] == 1
+        assert s["tags"]["first_build"] is False
+    assert qs.to_dict()["bytesPopcounted"] == 2 * a.nbytes
+    kernels.count_op_rows(a, b, "and")
+    assert tracer.summary()["traces"] == 1

@@ -53,7 +53,7 @@ print(json.dumps(sorted(sys.modules)))
                  "server.respcache", "plancache", "ops.containers",
                  "cluster.client", "cluster.cluster", "cluster.broadcast",
                  "cluster.membership", "utils.fanpool", "cli.commands",
-                 "cli.__main__"):
+                 "cli.__main__", "tracing", "querystats"):
         assert f"pilosa_tpu_torch.{name}" in mods
     assert [m for m in mods if _forbidden(m)] == []
 
@@ -73,6 +73,7 @@ def test_sources_name_no_forbidden_import():
     assert len(files) > 10
     dirs = {p.parent.name for p in files}
     assert {"server", "cli", "cluster", "storage", "ops", "utils"} <= dirs
+    assert {PKG / "tracing.py", PKG / "querystats.py"} <= set(files)
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imports(p) if _forbidden(name)]
     assert bad == []

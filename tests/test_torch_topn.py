@@ -387,9 +387,46 @@ def test_batched_path_engages_the_kernels(datadir, monkeypatch):
         ex.execute("i", QUERIES[3])
     finally:
         th.close()
-    # phase 1 and phase 2 of each query: one launch each
+    # phase 1 and phase 2 of each query: one launch each, over the
+    # slices where frame t has a fragment (none at MISSING_SLICE: its
+    # candidates count zero there without a staged row)
     assert len(calls) == 4
-    assert {shape for _, shape in calls} == {(N_SLICES, 32768)}
+    assert {shape for _, shape in calls} == {(N_SLICES - 1, 32768)}
+
+
+def _held_bytes(stacks):
+    """Bytes of the distinct storages behind ``stacks``."""
+    storages = {s.untyped_storage().data_ptr(): s.untyped_storage().nbytes()
+                for s in stacks}
+    return sum(storages.values())
+
+
+def test_stacks_built_together_hold_their_own_storage(datadir):
+    """Stacks built in one call are uploaded as one block, yet each holds
+    storage of its own: the cache's byte count is what its stacks keep
+    alive, and evicting one frees its bytes while the others stay."""
+    from pilosa_tpu_torch import WORDS_PER_SLICE
+    from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+
+    th = THolder(datadir, device="cpu").open()
+    try:
+        ex = TExecutor(th)
+        slices = list(range(N_SLICES))
+        win = (0, WORDS_PER_SLICE)
+        specs = [("t", VIEW_STANDARD, r) for r in (10, 11, 13)]
+        stacks = ex._leaf_stacks("i", specs, slices, win)
+        one = stacks[0].numel() * stacks[0].element_size()
+        for s in stacks:
+            assert s.untyped_storage().nbytes() == one
+        assert ex._stack_bytes == _held_bytes(stacks) == 3 * one
+        # Room for two stacks: a fourth build evicts the oldest.
+        ex.STACK_CACHE_BYTES = 2 * one
+        ex._leaf_stacks("i", [("t", VIEW_STANDARD, 15)], slices, win)
+        cached = [e[2] for e in ex._stack_cache.values()]
+        assert len(cached) == 2
+        assert ex._stack_bytes == _held_bytes(cached) == 2 * one
+    finally:
+        th.close()
 
 
 def _clear_col(words, s):
